@@ -1,0 +1,255 @@
+"""Server-side per-client gradient cache — the O(nd) state that makes ACE's
+all-client aggregation possible (paper §3.4, Table a.3), with the paper's
+8-bit compression (App. F.3.3) as a first-class dtype. Port of the flat
+layout of `repro.core.cache`: an (n, d) tensor over raveled params.
+
+Quantization is symmetric per-row int8: scale = max|row| / 127. The ACE
+incremental rule stays *exact* under quantization because the server
+subtracts exactly the dequantized value it previously added: the invariant
+``u == mean_i dq(C[i])`` holds to fp rounding.
+
+Unlike the JAX package's immutable `FlatCache`, this one is **updated in
+place**: the row writes (`set_row`, `set_row_delta`, `set_rows_delta`,
+`flat_commit_batch`) scatter into ``data``/``scale`` and return the same
+object, so a step never copies the (n, d) cache. Row indices may be Python
+ints or integer tensors on the cache's device; tensor indices are never
+read on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
+
+INT8_MAX = 127.0
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
+
+
+def quantize_rows(x, axis=-1):
+    """x (..., d) -> (q int8, scale (...,)); the scale formula is
+    `kernels.ref.row_scale`'s — all int8 cache writers share it."""
+    scale = torch.clamp(torch.amax(torch.abs(x), dim=axis), min=1e-12) / INT8_MAX
+    q = torch.clamp(torch.round(x / scale.unsqueeze(axis)), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale.float()
+
+
+def dequantize_rows(q, scale, axis=-1):
+    return q.float() * scale.unsqueeze(axis)
+
+
+def row_index(i, device) -> torch.Tensor:
+    """Row index (int or integer tensor, any shape) as a 1-D int64 tensor on
+    `device` — gathers and scatters take it without a host read."""
+    return torch.as_tensor(i, dtype=torch.long, device=device).reshape(-1)
+
+
+class FlatCache:
+    """(n, d) gradient cache; ``data`` is int8 (with per-row ``scale``) or
+    float (bf16/f32, ``scale`` unused). Row writes are in place."""
+
+    def __init__(self, data: torch.Tensor, scale: torch.Tensor):
+        self.data = data              # (n, d) int8|bf16|f32
+        self.scale = scale            # (n,) f32
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def quantized(self) -> bool:
+        return self.data.dtype == torch.int8
+
+    def row(self, i):
+        """Dequantized f32 row i, (d,)."""
+        return self.rows(i)[0]
+
+    def rows(self, idx):
+        """Dequantized f32 gather of rows ``idx`` (K,) -> (K, d)."""
+        idx = row_index(idx, self.data.device)
+        r = self.data.index_select(0, idx).float()
+        if self.quantized:
+            r = r * self.scale.index_select(0, idx)[:, None]
+        return r
+
+    def set_row(self, i, g):
+        """Write row i (re-quantizing an int8 cache) in place; returns self."""
+        i = row_index(i, self.data.device)
+        if self.quantized:
+            q, s = quantize_rows(g)
+            self.data.index_copy_(0, i, q[None])
+            self.scale.index_copy_(0, i, s.reshape(1))
+        else:
+            self.data.index_copy_(0, i, g.to(self.data.dtype)[None])
+        return self
+
+    def set_row_delta(self, i, g, backend=None):
+        """Write row i in place and return ``(self, delta, old)`` where
+        ``old = dq(row_i)`` before the write and ``delta = dq(row_i') − old``
+        — the exact change a running sum of dequantized rows sees. The int8
+        path goes through the fused `row_delta` kernel (one pass:
+        dequantize-old + quantize-new + delta); float paths are a read and a
+        write."""
+        i = row_index(i, self.data.device)
+        if self.quantized:
+            c_row = self.data.index_select(0, i)[0]
+            old_scale = self.scale.index_select(0, i)[0]
+            new_scale = kernel_ref.row_scale(g)
+            delta, q = kernel_ops.row_delta(g, c_row, old_scale, new_scale,
+                                            backend=backend)
+            self.data.index_copy_(0, i, q[None])
+            self.scale.index_copy_(0, i, new_scale.float().reshape(1))
+            # dequantize the old row directly — reconstructing it as
+            # q·new_scale − delta would cancel catastrophically when the
+            # client's successive gradients differ by orders of magnitude
+            return self, delta, c_row.float() * old_scale
+        old = self.row(i)
+        self.set_row(i, g)
+        new = g.to(self.data.dtype).float()
+        return self, new - old, old
+
+    def set_rows_delta(self, idx, G, valid=None):
+        """Batched `set_row_delta`: write rows ``idx[k] ← G[k]`` in place for
+        the lanes where ``valid[k]`` (all lanes when `valid` is None);
+        returns ``(self, delta (K, d), old (K, d))``. Indices must be
+        pairwise distinct (the K-batch engine's top-k sampling guarantees
+        it). Invalid lanes write back their ORIGINAL stored row/scale
+        bit-exactly and contribute a zero `delta`."""
+        idx = row_index(idx, self.data.device)
+        K = idx.shape[0]
+        if valid is None:
+            valid = torch.ones((K,), dtype=torch.bool, device=idx.device)
+        vcol = valid[:, None]
+        if self.quantized:
+            old_q = self.data.index_select(0, idx)
+            old_s = self.scale.index_select(0, idx)
+            old = old_q.float() * old_s[:, None]
+            new_s = kernel_ref.row_scale(G)
+            new_q = torch.clamp(torch.round(G / new_s[:, None]), -INT8_MAX,
+                                INT8_MAX).to(torch.int8)
+            dq_new = new_q.float() * new_s[:, None]
+            delta = torch.where(vcol, dq_new - old, 0.0)
+            self.data.index_copy_(0, idx, torch.where(vcol, new_q, old_q))
+            self.scale.index_copy_(0, idx,
+                                   torch.where(valid, new_s.float(), old_s))
+            return self, delta, old
+        old_raw = self.data.index_select(0, idx)
+        old = old_raw.float()
+        new_raw = G.to(self.data.dtype)
+        delta = torch.where(vcol, new_raw.float() - old, 0.0)
+        self.data.index_copy_(0, idx, torch.where(vcol, new_raw, old_raw))
+        return self, delta, old
+
+    def dequant(self):
+        """(n, d) f32 view."""
+        if self.quantized:
+            return self.data.float() * self.scale[:, None]
+        return self.data.float()
+
+    def mean(self, mask=None):
+        """Direct aggregation (paper Alg. 1 line 10 / Alg. a.1 line 7)."""
+        rows = self.dequant()
+        if mask is None:
+            return rows.mean(0)
+        m = mask.float()
+        return (rows * m[:, None]).sum(0) / torch.clamp(m.sum(), min=1.0)
+
+    def nbytes(self) -> int:
+        return (self.data.numel() * self.data.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+
+def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
+                    device=None) -> FlatCache:
+    """An (n, d) cache of `dtype`, zero or seeded with `init_rows` (on their
+    device unless `device` is given)."""
+    dt = DTYPES[dtype]
+    if init_rows is not None:
+        device = init_rows.device if device is None else device
+        init_rows = init_rows.to(device)
+        if dt == torch.int8:
+            return FlatCache(*quantize_rows(init_rows))
+        return FlatCache(init_rows.to(dt).clone(),
+                         torch.ones((n,), dtype=torch.float32, device=device))
+    return FlatCache(torch.zeros((n, d), dtype=dt, device=device),
+                     torch.ones((n,), dtype=torch.float32, device=device))
+
+
+def flat_commit_batch(cache: FlatCache, idx, G, valid, vecs, coef, upd_w,
+                      lane_a=None, lane_b=None, lane_g=None, backend=None):
+    """The whole K-arrival commit as ONE fused pass: gather the K old rows,
+    requantize and scatter the new ones in place, fold the masked segment
+    sums into the stacked running-sum vectors ``vecs (R, d)`` via the
+    ``coef (R, R+4)`` recombination and emit the ``upd_w``-weighted model
+    update — `kernels.ops.commit_batch` (the CUDA kernel on the card, the
+    plain version on the CPU).
+
+    Returns ``(cache, vecs' (R, d) f32, update (d,) f32)``. The written rows
+    are bit-identical to `FlatCache.set_rows_delta` (valid lanes requantized
+    with the same `row_scale`, invalid lanes bit-exact no-ops); only the
+    running sums differ from the op chain by f32 reassociation. Lane
+    weights must be zero on invalid lanes."""
+    idx = row_index(idx, cache.data.device)
+    G = G.float()
+    old_rows = cache.data.index_select(0, idx)
+    if cache.quantized:
+        old_s = cache.scale.index_select(0, idx)
+        # scale the *sanitized* payloads: an invalid lane's NaN must not
+        # poison new_s (its q/scale are never written, but NaN·0 would
+        # taint the kernel's products); valid lanes match set_rows_delta's
+        # scale formula exactly
+        new_s = kernel_ref.row_scale(torch.where(valid[:, None], G, 0.0))
+        new_rows, vecs_out, update = kernel_ops.commit_batch(
+            G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
+            lane_a=lane_a, lane_b=lane_b, lane_g=lane_g, backend=backend)
+        cache.scale.index_copy_(0, idx, torch.where(valid, new_s, old_s))
+    else:
+        new_rows, vecs_out, update = kernel_ops.commit_batch(
+            G, old_rows, None, None, valid, vecs, coef, upd_w,
+            lane_a=lane_a, lane_b=lane_b, lane_g=lane_g, backend=backend)
+    cache.data.index_copy_(0, idx, new_rows)
+    return cache, vecs_out, update
+
+
+# ---------------------------------------------------------------------------
+# Layout dispatchers (flat arms of `repro.core.cache`'s): the aggregators
+# call these, so the rules read like the JAX package's.
+# ---------------------------------------------------------------------------
+
+def cache_n(cache: FlatCache) -> int:
+    return cache.n
+
+
+def cache_row(cache: FlatCache, i):
+    return cache.row(i)
+
+
+def cache_rows(cache: FlatCache, idx):
+    return cache.rows(idx)
+
+
+def cache_set_row(cache: FlatCache, i, g):
+    return cache.set_row(i, g)
+
+
+def cache_set_row_delta(cache: FlatCache, i, g, backend=None):
+    return cache.set_row_delta(i, g, backend=backend)
+
+
+def cache_set_rows_delta(cache: FlatCache, idx, G, valid=None):
+    return cache.set_rows_delta(idx, G, valid)
+
+
+def cache_mean(cache: FlatCache, mask=None):
+    return cache.mean(mask)
+
+
+def cache_sum(cache: FlatCache, mask=None):
+    """Σ over dequantized client rows (optionally ``mask``-gated) — the
+    one-time O(n·d) seed of the incremental rules' running sums and the
+    `Aggregator.resync` exact recompute; never on a per-event hot path."""
+    rows = cache.dequant()
+    if mask is None:
+        return rows.sum(0)
+    return (rows * mask.float()[:, None]).sum(0)

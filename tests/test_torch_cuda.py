@@ -1,0 +1,164 @@
+"""The port's CUDA kernels on the card against their plain PyTorch versions
+on the same inputs, and the engine's path through them. Every test here is
+`cuda`-marked and skips without a GPU; the module imports no JAX, so it runs
+on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+int8 rows must be bit-identical; f32 outputs agree within 1e-6 relative to
+the output's scale (the kernels build with -fmad=false, so the remaining
+differences are the order of the commit kernel's f32 sums)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.convert import unravel  # noqa: E402
+from repro_torch.core import aggregators as tagg  # noqa: E402
+from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
+from repro_torch.core.scan_staleness import run_staleness_scan  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    return torch.device("cuda")
+
+
+def _close(a, b, tol=1e-6):
+    a, b = a.double().cpu(), b.double().cpu()
+    assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+def row_inputs(seed, d, device):
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(d, generator=g)
+    x = torch.randn(d, generator=g) * 5
+    # max|g| = 127 makes the new scale 1.0, so these are exact .5 ties
+    x[: min(d, 5)] = torch.tensor([127.0, 2.5, -0.5, 1.5, 3.5])[: min(d, 5)]
+    q, s = tref.quantize_rows_ref(torch.randn(1, d, generator=g))
+    return [t.to(device) for t in (u, x, q[0], s[0], tref.row_scale(x))]
+
+
+@pytest.mark.parametrize("d", [1, 300, 17226, (1 << 24) + 3])
+def test_row_kernels_match_plain(cuda, d):
+    u, g, c, o, s = row_inputs(8, d, cuda)
+    inv_n = torch.full((), 0.01, device=cuda)
+    before = ops.launch_counts()
+    d1, c1 = ops.row_delta(g, c, o, s)
+    d2, c2 = ops.row_delta(g, c, o, s, backend="torch")
+    u1, q1 = ops.cache_row_update(u, g, c, o, s, inv_n)
+    u2, q2 = ops.cache_row_update(u, g, c, o, s, inv_n, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2) and torch.equal(q1, q2)
+    _close(d1, d2)
+    _close(u1, u2)
+    after = ops.launch_counts()
+    assert after["row_delta"] == before["row_delta"] + 1
+    assert after["cache_row_update"] == before["cache_row_update"] + 1
+
+
+def commit_inputs(seed, K, d, R, dtype, lanes, device, valid=None):
+    """Aggregator calling convention: lane weights zero on invalid lanes,
+    `new_s` from the sanitized payloads; invalid lanes' payloads are NaN."""
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn(K, d, generator=g) * 3
+    if valid is None:
+        valid = torch.rand(K, generator=g) < 0.7
+    valid = torch.as_tensor(valid)
+    G[~valid] = float("nan")
+    rows = torch.randn(K, d, generator=g)
+    kw = dict(G=G, valid=valid, vecs=torch.randn(R, d, generator=g),
+              coef=torch.randn(R, R + 4, generator=g),
+              upd_w=torch.randn(R + 4, generator=g))
+    if dtype == torch.int8:
+        q, s = tref.quantize_rows_ref(rows)
+        kw.update(old_rows=q, old_s=s, new_s=tref.row_scale(
+            torch.where(valid[:, None], G, 0.0)))
+    else:
+        kw.update(old_rows=rows.to(dtype), old_s=None, new_s=None)
+    for name in lanes:
+        kw[f"lane_{name}"] = torch.rand(K, generator=g) * valid
+    return {k: (v.to(device) if v is not None else None)
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("K,d,R,dtype,lanes", [
+    (16, 17226, 1, torch.int8, ()),                 # ACE
+    (16, 17226, 2, torch.int8, ("a", "b")),         # ACED
+    (16, 17226, 3, torch.int8, ("a", "g")),         # CA²FL
+    (16, (1 << 24) + 3, 3, torch.int8, ("a", "g")),
+    (4, 1000, 3, torch.float32, ("a", "b", "g")),
+    (3, 777, 2, torch.bfloat16, ("a",)),
+    (1, 1, 1, torch.int8, ("g",)),
+])
+def test_commit_batch_matches_plain(cuda, K, d, R, dtype, lanes):
+    kw = commit_inputs(5 + K, K, d, R, dtype, lanes, cuda)
+    r1, v1, u1 = ops.commit_batch(**kw)
+    r2, v2, u2 = ops.commit_batch(**kw, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2)
+    assert torch.isfinite(v1).all() and torch.isfinite(u1).all()
+    _close(v1, v2)
+    _close(u1, u2)
+
+
+def test_commit_batch_all_masked_batch(cuda):
+    kw = commit_inputs(9, 16, 17226, 2, torch.int8, ("a", "b"), cuda,
+                       valid=torch.zeros(16, dtype=torch.bool))
+    r1, v1, u1 = ops.commit_batch(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, kw["old_rows"])
+    _close(v1, kw["coef"][:, :2] @ kw["vecs"], 1e-5)
+
+
+def test_wrappers_raise_on_operands_the_kernel_does_not_take(cuda):
+    u, g, c, o, s = row_inputs(1, 64, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.row_delta(g.double(), c, o, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.row_delta(torch.randn(128, device=cuda)[::2], c, o, s)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        ops.row_delta(g, c.cpu(), o, s)
+
+
+@pytest.mark.parametrize("name,dtype,K,kernel", [
+    ("ace", "int8", 1, "cache_row_update"),
+    ("aced", "int8", 1, "row_delta"),
+    ("ca2fl", "int8", 1, "row_delta"),
+    ("ace", "int8", 4, "commit_batch"),
+    ("aced", "float32", 4, "commit_batch"),
+    ("ca2fl", "int8", 4, "commit_batch"),
+])
+def test_engine_runs_through_the_kernels(cuda, name, dtype, K, kernel):
+    """A short run of the engine on the card launches the rule's kernel and
+    ends where the same run through the plain versions ends."""
+    task = make_vision_task(n_clients=8, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+
+    def run(backend):
+        agg = {"ace": tagg.ACEIncremental(cache_dtype=dtype, backend=backend),
+               "aced": tagg.ACED(tau_algo=4, cache_dtype=dtype, max_cohort=K,
+                                 backend=backend),
+               "ca2fl": tagg.CA2FL(buffer_size=3, cache_dtype=dtype,
+                                   backend=backend)}[name]
+        return run_staleness_scan(grad_fn=task.grad_fn,
+                                  params0=task.params0, aggregator=agg,
+                                  n_clients=8, server_lr=0.2, T=20,
+                                  beta=2.0, k_batch=K, seed=3)
+    ops.reset_launch_counts()
+    r_kernel = run(None)
+    assert ops.launch_counts()[kernel] > 0
+    ops.reset_launch_counts()
+    r_plain = run("torch")
+    assert sum(ops.launch_counts().values()) == 0
+    assert np.isfinite(r_kernel.w).all()
+    np.testing.assert_allclose(r_kernel.w, r_plain.w, rtol=1e-4, atol=1e-5)
+    acc = task.eval_fn(unravel(torch.as_tensor(r_kernel.w, device=cuda),
+                               task.params0))
+    assert 0.0 <= acc["accuracy"] <= 1.0

@@ -1,0 +1,274 @@
+"""The port's kernels against the JAX package: each plain PyTorch version
+(`repro_torch.kernels.ref`) against `repro.kernels.ref` and against the
+Pallas kernel in interpret mode, on the same numpy inputs. int8 rows must be
+bit-identical; f32 outputs agree within 1e-6 (relative to the output's
+scale: the only differences are the order of f32 sums). The CUDA kernels
+against their plain versions on the card are in test_torch_cuda.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.cache_update import cache_row_update as pallas_cru  # noqa: E402
+from repro.kernels.commit_batch import commit_batch as pallas_cb  # noqa: E402
+from repro.kernels.row_delta import row_delta as pallas_rd  # noqa: E402
+from repro_torch.core import scan_staleness  # noqa: E402
+from repro_torch.kernels import backend, build, ops  # noqa: E402
+from repro_torch.kernels import cache_update as _cu  # noqa: E402
+from repro_torch.kernels import commit_batch as _cb  # noqa: E402
+from repro_torch.kernels import row_delta as _rd  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+F32_TOL = 1e-6
+
+
+def _t(x, device="cpu"):
+    return None if x is None else torch.as_tensor(np.array(x)).to(device)
+
+
+def _close(a, b, tol=F32_TOL):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = max(1.0, float(np.max(np.abs(b))) if b.size else 1.0)
+    assert np.max(np.abs(a - b), initial=0.0) <= tol * scale
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert np.array_equal(a, b)
+
+
+def row_inputs(seed, d):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=d).astype(np.float32)
+    g = (rng.normal(size=d) * 5).astype(np.float32)
+    # with max|g| = 127 the new scale is 1.0, so these are exact .5 ties of
+    # g / new_scale: they exercise round-half-to-even
+    g[: min(d, 5)] = np.float32([127.0, 2.5, -0.5, 1.5, 3.5])[: min(d, 5)]
+    q, s = jref.quantize_rows_ref(jnp.asarray(rng.normal(size=(1, d)),
+                                              jnp.float32))
+    return dict(u=u, g=g, crow=np.asarray(q[0]), osc=np.float32(s[0]),
+                nsc=np.float32(jref.row_scale(jnp.asarray(g))))
+
+
+@pytest.mark.parametrize("d", [1, 129, 300])
+def test_row_scale_and_quantize_match_jax(d):
+    rng = np.random.default_rng(d)
+    x = (rng.normal(size=(5, d)) * rng.uniform(0.1, 50, size=(5, 1))
+         ).astype(np.float32)
+    x[0] = 0.0                              # the 1e-12 scale clamp
+    _same(tref.row_scale(_t(x)).numpy(), jref.row_scale(jnp.asarray(x)))
+    q1, s1 = tref.quantize_rows_ref(_t(x))
+    q2, s2 = jref.quantize_rows_ref(jnp.asarray(x))
+    _same(q1.numpy(), q2)
+    _same(s1.numpy(), s2)
+    _same(tref.dequantize_rows_ref(q1, s1).numpy(),
+          jref.dequantize_rows_ref(q2, s2))
+
+
+@pytest.mark.parametrize("d", [1, 129, 300])
+def test_masked_agg_matches_jax(d):
+    rng = np.random.default_rng(d + 1)
+    q, s = jref.quantize_rows_ref(jnp.asarray(rng.normal(size=(6, d)),
+                                              jnp.float32))
+    for mask in (rng.random(6) < 0.5, np.zeros(6, bool)):
+        _close(tref.masked_agg_ref(_t(q), _t(s), _t(mask)).numpy(),
+               jref.masked_agg_ref(q, s, jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("d,blk", [(1, 128), (129, 128), (300, 2048)])
+def test_cache_row_update_plain_matches_jax(d, blk):
+    x = row_inputs(2 + d, d)
+    inv_n = np.float32(0.125)
+    u1, c1 = tref.cache_row_update_ref(_t(x["u"]), _t(x["g"]), _t(x["crow"]),
+                                       _t(x["osc"]), _t(x["nsc"]), _t(inv_n))
+    args = (jnp.asarray(x["u"]), jnp.asarray(x["g"]), jnp.asarray(x["crow"]),
+            x["osc"], x["nsc"], inv_n)
+    u2, c2 = jref.cache_row_update_ref(*args)
+    u3, c3 = pallas_cru(*args, interpret=True, block_d=blk)
+    _same(c1.numpy(), c2)
+    _same(c1.numpy(), c3)
+    _close(u1.numpy(), u2)
+    _close(u1.numpy(), u3)
+
+
+@pytest.mark.parametrize("d,blk", [(1, 128), (129, 128), (300, 2048)])
+def test_row_delta_plain_matches_jax(d, blk):
+    x = row_inputs(4 + d, d)
+    d1, c1 = tref.row_delta_ref(_t(x["g"]), _t(x["crow"]), _t(x["osc"]),
+                                _t(x["nsc"]))
+    args = (jnp.asarray(x["g"]), jnp.asarray(x["crow"]), x["osc"], x["nsc"])
+    d2, c2 = jref.row_delta_ref(*args)
+    d3, c3 = pallas_rd(*args, interpret=True, block_d=blk)
+    _same(c1.numpy(), c2)
+    _same(c1.numpy(), c3)
+    _close(d1.numpy(), d2)
+    _close(d1.numpy(), d3)
+
+
+def commit_inputs(seed, K, d, R, row_dtype, lanes, valid=None, nan=False):
+    """Random inputs in the aggregator calling convention: lane weights are
+    zero on invalid lanes and `new_s` scales the sanitized payloads, as
+    `flat_commit_batch` prepares them. ``nan`` poisons the invalid lanes'
+    payloads."""
+    rng = np.random.default_rng(seed)
+    G = (rng.normal(size=(K, d)) * 3).astype(np.float32)
+    if valid is None:
+        valid = rng.random(K) < 0.7
+    valid = np.asarray(valid, bool)
+    if nan:
+        G[~valid] = np.nan
+    rows_f = rng.normal(size=(K, d)).astype(np.float32)
+    kw = dict(G=G, valid=valid,
+              vecs=rng.normal(size=(R, d)).astype(np.float32),
+              coef=rng.normal(size=(R, R + 4)).astype(np.float32),
+              upd_w=rng.normal(size=(R + 4,)).astype(np.float32))
+    if row_dtype == "int8":
+        q, s = jref.quantize_rows_ref(jnp.asarray(rows_f))
+        kw.update(old_rows=np.asarray(q), old_s=np.asarray(s),
+                  new_s=np.asarray(jref.row_scale(
+                      jnp.where(valid[:, None], G, 0.0))))
+    else:
+        kw.update(old_rows=np.asarray(jnp.asarray(rows_f, row_dtype)),
+                  old_s=None, new_s=None)
+    for name in lanes:
+        kw[f"lane_{name}"] = (rng.random(K) * valid).astype(np.float32)
+    return kw
+
+
+def _torch_kw(kw, device="cpu"):
+    out = {}
+    for k, v in kw.items():
+        if v is not None and np.asarray(v).dtype == jnp.bfloat16:
+            out[k] = _t(np.asarray(v, np.float32), device).to(torch.bfloat16)
+        else:
+            out[k] = _t(v, device)
+    return out
+
+
+def _jax_kw(kw):
+    return {k: (None if v is None else jnp.asarray(v)) for k, v in kw.items()}
+
+
+def _rows_np(rows):
+    return (rows.float() if rows.dtype == torch.bfloat16 else rows).numpy()
+
+
+def _jrows_np(rows):
+    rows = np.asarray(rows)
+    return rows.astype(np.float32) if rows.dtype == jnp.bfloat16 else rows
+
+
+COMMIT_CASES = [
+    # K, d, R, rows, lanes, block_d of the Pallas run
+    (1, 257, 1, "int8", (), 128),               # ACE shape, ragged tile
+    (4, 300, 2, "int8", ("a", "b"), 2048),      # ACED shape
+    (3, 129, 3, "int8", ("a", "g"), 128),       # CA²FL shape
+    (4, 200, 3, "float32", ("a", "b", "g"), 128),
+    (2, 150, 2, "bfloat16", ("a",), 128),
+]
+
+
+@pytest.mark.parametrize("K,d,R,rows,lanes,blk", COMMIT_CASES)
+def test_commit_batch_plain_matches_jax(K, d, R, rows, lanes, blk):
+    kw = commit_inputs(7 * K + d, K, d, R, rows, lanes)
+    r1, v1, u1 = tref.commit_batch_ref(**_torch_kw(kw))
+    r2, v2, u2 = jref.commit_batch_ref(**_jax_kw(kw))
+    _same(_rows_np(r1), _jrows_np(r2))
+    _close(v1.numpy(), v2)
+    _close(u1.numpy(), u2)
+    if rows != "bfloat16":    # the Pallas kernel's interpreter: f32/int8
+        r3, v3, u3 = pallas_cb(**_jax_kw(kw), block_d=blk, interpret=True)
+        _same(_rows_np(r1), _jrows_np(r3))
+        _close(v1.numpy(), v3)
+        _close(u1.numpy(), u3)
+
+
+@pytest.mark.parametrize("rows", ["int8", "float32"])
+def test_commit_batch_nan_poisoned_invalid_lanes(rows):
+    """A NaN payload on an invalid lane leaves its row bit-exact and every
+    sum finite, as in the JAX package."""
+    valid = np.array([True, False, True, False])
+    kw = commit_inputs(11, 4, 300, 2, rows, ("a", "g"), valid=valid, nan=True)
+    r1, v1, u1 = tref.commit_batch_ref(**_torch_kw(kw))
+    assert np.array_equal(r1.numpy()[~valid], kw["old_rows"][~valid])
+    assert np.isfinite(v1.numpy()).all() and np.isfinite(u1.numpy()).all()
+    for r2, v2, u2 in (jref.commit_batch_ref(**_jax_kw(kw)),
+                       pallas_cb(**_jax_kw(kw), block_d=128, interpret=True)):
+        _same(r1.numpy(), r2)
+        _close(v1.numpy(), v2)
+        _close(u1.numpy(), u2)
+
+
+def test_commit_batch_all_masked_batch():
+    """An all-invalid batch keeps every row and reduces the output to the
+    affine recombination of the running-sum vectors."""
+    kw = commit_inputs(13, 4, 200, 2, "int8", ("a", "b"),
+                       valid=np.zeros(4, bool), nan=True)
+    r1, v1, u1 = tref.commit_batch_ref(**_torch_kw(kw))
+    _same(r1.numpy(), kw["old_rows"])
+    _close(v1.numpy(), kw["coef"][:, :2] @ kw["vecs"])
+    for r2, v2, u2 in (jref.commit_batch_ref(**_jax_kw(kw)),
+                       pallas_cb(**_jax_kw(kw), block_d=128, interpret=True)):
+        _same(r1.numpy(), r2)
+        _close(v1.numpy(), v2)
+        _close(u1.numpy(), u2)
+
+
+# --- dispatch and device policy ---------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version():
+    x = row_inputs(5, 64)
+    args = [_t(x[k]) for k in ("g", "crow", "osc", "nsc")]
+    before = ops.launch_counts()
+    d1, c1 = ops.row_delta(*args)
+    d2, c2 = ops.row_delta(*args, backend="torch")
+    assert torch.equal(d1, d2) and torch.equal(c1, c2)
+    assert ops.launch_counts() == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel modules' wrappers launch on CUDA tensors only: a CPU
+    tensor raises there instead of running anything."""
+    x = row_inputs(6, 64)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _rd.row_delta(*[_t(x[k]) for k in ("g", "crow", "osc", "nsc")])
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _cu.cache_row_update(*[_t(x[k]) for k in
+                               ("u", "g", "crow", "osc", "nsc")],
+                             _t(np.float32(0.5)))
+    kw = _torch_kw(commit_inputs(3, 2, 32, 1, "int8", ()))
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _cb.commit_batch(**kw)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.commit_batch(**kw, backend="cuda")
+
+
+def test_fused_commit_env_switch(monkeypatch):
+    monkeypatch.delenv("REPRO_NO_FUSED_COMMIT", raising=False)
+    assert backend.fused_commit_enabled() is True
+    monkeypatch.setenv("REPRO_NO_FUSED_COMMIT", "1")
+    assert backend.fused_commit_enabled() is False
+    assert backend.fused_commit_enabled(True) is True
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    """No silent CPU fallback: without a card and without device="cpu" the
+    port's entry points raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scan_staleness.build_staleness_randomness(0, 4, 3, 2.0)
+    assert backend.resolve_device("cpu").type == "cpu"
+
+
+def test_build_is_keyed_by_source_hash():
+    names = {p.name for p in map(build.library_path, build.KERNELS)}
+    assert len(names) == len(build.KERNELS)
+    assert all(n.endswith(".so") and "-" in n for n in names)
+    assert build.BUILD_DIR.name == "build"
+
