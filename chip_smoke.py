@@ -9,20 +9,30 @@ result line):
   2. build the hand-written kernels from src/repro_torch/kernels/csrc with
      nvcc for sm_90a (one process per source, all at once);
   3. each kernel against its plain PyTorch version on the card, at the
-     slice's shapes (d = 17,226, K = 16, R = 1, 2, 3) and at
-     d = 2^24 + 3: int8 rows bit-identical, f32 outputs within 1e-6 of the
-     output's scale; commit_batch with int8 and with f32 cache rows (the
-     two row types the main path runs), with NaN-poisoned invalid lanes and
-     an all-invalid batch, its rows bit-identical; each kernel timed beside its byte bound and the plain
-     version (no single PyTorch call computes any of these fused
-     functions, so there is no library yardstick);
+     main path's shapes and at a large width: int8 rows and scales
+     bit-identical, f32 outputs within 1e-6 of the output's scale.
+     row_delta / cache_row_update at d = 17,226 and 2^24 + 3;
+     commit_batch (K = 16, R = 1, 2, 3) with int8 and with f32 cache rows,
+     NaN-poisoned invalid lanes and an all-invalid batch; masked_agg at
+     (n, d) = (100, 17,226) and (100, 2^22 + 3) with random, all-true and
+     all-false masks; quantize_rows at (1, 17,226), (100, 17,226) and
+     (100, 2^22 + 3) with an all-zero row and a row of half-way ties;
+     dequantize_rows at (100, 17,226) and (100, 2^22 + 3). Each is timed
+     beside its bound and its plain version, and dequantize_rows beside
+     `torch.mul(q, s[:, None])`, the one PyTorch call that computes it (no
+     single call computes the other five: their library_ms is null);
   4. the main path: `run_staleness_scan` on the vision task at full width
-     (n = 100 clients, d = 17,226) for ACE, ACED and CA²FL — int8 cache at
-     K = 1 and K = 16, f32 cache at K = 16 — with the launch counts zeroed
-     just before and read just after; each rule's kernel must have been
-     launched, the final model finite and its test accuracy above chance;
-     the int8 K = 16 ACE run is repeated through the plain versions on the
-     card and must end within 1e-4 of the kernels' run;
+     (n = 100 clients, d = 17,226), with the launch counts zeroed just
+     before each run and read just after — ACE, ACED and CA²FL with an
+     int8 cache at K = 1 and K = 16 and an f32 cache at K = 1 and 16; ASGD,
+     delay-adaptive ASGD and FedBuff (buffer 10) at K = 1 and K = 16; the
+     direct ACE, ACED and CA²FL rules with int8 and f32 caches at K = 1.
+     Each rule's kernels must have been launched, the final model finite
+     and its test accuracy above 0.5 (chance is 0.1); the int8 K = 16 ACE
+     run and the int8 direct ACED run are repeated through the plain
+     versions on the card and must end within 1e-4 of the kernels' runs;
+     each incremental rule's final model is set beside its direct
+     reference's (int8 and f32, K = 1, same seed);
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -43,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
 F32_TOL = 1e-6
 D_SLICE, K_SLICE, D_LARGE = 17226, 16, (1 << 24) + 3
+N_SLICE, D_ROWS_LARGE = 100, (1 << 22) + 3      # (n, d) of the cache-wide kernels
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -52,7 +63,15 @@ KERNELS = {
                          "src/repro/kernels/cache_update.py:67"),
     "commit_batch": ("src/repro_torch/kernels/csrc/commit_batch.cu",
                      "src/repro/kernels/commit_batch.py:116"),
+    "masked_agg": ("src/repro_torch/kernels/csrc/masked_agg.cu",
+                   "src/repro/kernels/masked_agg.py:46"),
+    # one launch for both TPU phases: the |max| call at :53, quantize at :62
+    "quantize_rows": ("src/repro_torch/kernels/csrc/quant.cu",
+                      "src/repro/kernels/quant.py:53"),
+    "dequantize_rows": ("src/repro_torch/kernels/csrc/quant.cu",
+                        "src/repro/kernels/quant.py:83"),
 }
+ALSO_REPLACES = {"quantize_rows": "src/repro/kernels/quant.py:62"}
 RULE_LANES = {1: (), 2: ("a", "b"), 3: ("a", "g")}   # ACE, ACED, CA²FL
 
 
@@ -168,19 +187,11 @@ def compare_rows(torch, ops, name, d, dev, card):
     check(torch.equal(q1, q2), f"{name} d={d}: int8 row differs from plain")
     err, rel = _err(torch, f1, f2)
     check(rel <= F32_TOL, f"{name} d={d}: f32 error {err} > tolerance")
-    iters = 200 if d < 1e6 else 20
-    kern = "row_delta_kernel" if name == "row_delta" else "cache_update_kernel"
-    ms, ev = measure(torch, call, iters, kern)
-    plain_ms, plain_ev = measure(torch, lambda: call("torch"), iters)
-    bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
     print(f"kernel {name} d={d}: int8 identical, max_abs_err {err:.3e} "
-          f"(tolerance {F32_TOL:g} of the output's scale); "
-          f"kernel {_fmt(ms)} ms device ({ev:.5f} ms per call), plain "
-          f"{_fmt(plain_ms)} ms device ({plain_ev:.5f} ms per call), bound "
-          f"{bound:.6f} ms (bytes) [{card}]")
-    return err, dict(ms=ms if ms is not None else ev,
-                     plain_ms=plain_ms if plain_ms is not None else plain_ev,
-                     bound_ms=bound, bound_by="bytes")
+          f"(tolerance {F32_TOL:g} of the output's scale) [{card}]")
+    kern = "row_delta_kernel" if name == "row_delta" else "cache_update_kernel"
+    return err, _timing_row(torch, f"{name} d={d}", call, kern, nbytes, nops,
+                            200 if d < 1e6 else 20, card)
 
 
 def compare_commit(torch, ops, K, d, R, dev, card, valid=None, label="",
@@ -202,28 +213,141 @@ def compare_commit(torch, ops, K, d, R, dev, card, valid=None, label="",
     eu, ru = _err(torch, u1, u2)
     check(max(rv, ru) <= F32_TOL, f"{tag}: f32 error {max(ev_, eu)}")
     err = max(ev_, eu)
-    iters = 200 if d < 1e6 else 10
-    ms, evt = measure(torch, lambda: ops.commit_batch(**kw), iters,
-                      "commit_batch_kernel")
-    plain_ms, plain_ev = measure(
-        torch, lambda: ops.commit_batch(**kw, backend="torch"), iters)
+    print(f"kernel {tag}: {rows} rows identical, max_abs_err {err:.3e} "
+          f"(tolerance {F32_TOL:g} of the output's scale) [{card}]")
     n_l = len(lanes)
     row_b = kw["old_rows"].element_size()
     nbytes = d * (K * (4 + 2 * row_b) + 2 * R * 4 + 4) + 4 * (
         6 * K + (R + 1) * (R + 4))
     per_lane = 8 if rows == "int8" else 2    # dequant, quant, delta / delta
     nops = d * (K * (per_lane + 2 * n_l) + 2 * (R + 1) * (R + 1 + n_l))
-    bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / F32_OPS_PER_S \
-        else "operations"
-    print(f"kernel {tag}: {rows} rows identical, max_abs_err {err:.3e} (tolerance "
-          f"{F32_TOL:g} of the output's scale); kernel "
-          f"{_fmt(ms)} ms device ({evt:.5f} ms per call), plain "
-          f"{_fmt(plain_ms)} ms device ({plain_ev:.5f} ms per call), bound "
-          f"{bound:.6f} ms ({by}) [{card}]")
-    return err, dict(ms=ms if ms is not None else evt,
-                     plain_ms=plain_ms if plain_ms is not None else plain_ev,
-                     bound_ms=bound, bound_by=by)
+    call = lambda backend=None: ops.commit_batch(**kw, backend=backend)
+    return err, _timing_row(torch, tag, call, "commit_batch_kernel", nbytes,
+                            nops, 200 if d < 1e6 else 10, card)
+
+
+def _timed(torch, fn, iters, kernel_name, bound):
+    """(ms, source): the profiler's device time per call, unless it saw no
+    such kernel or less time than the bound — the trace then lost kernel
+    events (seen at the largest shapes) and the CUDA-event time per call of
+    a back-to-back loop is taken instead."""
+    dev_ms, ev_ms = measure(torch, fn, iters, kernel_name)
+    if dev_ms is not None and dev_ms >= bound:
+        return dev_ms, "device"
+    return ev_ms, "events"
+
+
+def _timing_row(torch, tag, call, kernel_name, nbytes, nops, iters, card,
+                library=None):
+    """Time the kernel, its plain version (fewer calls: it is many
+    launches) and, if given, the library call; print one line and return
+    the `kernels`-line fields."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    bound, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                            else "operations")
+    ms, src = _timed(torch, call, iters, kernel_name, bound)
+    plain_ms, plain_src = _timed(torch, lambda: call("torch"),
+                                 max(5, iters // 10), None, bound)
+    lib_ms, lib = None, "no library call"
+    if library is not None:
+        lib_ms, lib_src = _timed(torch, library, iters, None, bound)
+        lib = f"library {lib_ms:.5f} ms ({lib_src})"
+    print(f"kernel {tag}: kernel {ms:.5f} ms ({src}), plain "
+          f"{plain_ms:.5f} ms ({plain_src}), {lib}, bound {bound:.6f} ms "
+          f"({by}) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
+def quant_input(torch, n, d, dev, seed):
+    """Rows of mixed magnitudes; with n > 2 one all-zero row and one row of
+    half-way ties (max|x| = 127 makes its scale exactly 1.0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, d, generator=g, device=dev)
+         * torch.rand(n, 1, generator=g, device=dev) * 50)
+    if n > 2:
+        x[1] = 0.0
+        ties = torch.tensor([127.0, 2.5, -0.5, 1.5, 3.5, -2.5, 0.5, -126.5],
+                            device=dev)
+        x[2] = ties.repeat(d // 8 + 1)[:d]
+    return x
+
+
+def compare_quant(torch, ops, n, d, dev, card):
+    """quantize_rows at (n, d): q and s bit-identical to the plain version.
+    Returns (max abs error of s, timing row)."""
+    x = quant_input(torch, n, d, dev, seed=n + d % 1000)
+    q1, s1 = ops.quantize_rows(x)
+    q2, s2 = ops.quantize_rows(x, backend="torch")
+    torch.cuda.synchronize()
+    tag = f"quantize_rows n={n} d={d}"
+    check(torch.equal(q1, q2), f"{tag}: int8 codes differ from plain")
+    check(torch.equal(s1, s2), f"{tag}: scales differ from plain")
+    if n > 2:
+        check(float(s1[1]) > 0 and not bool(q1[1].any()),
+              f"{tag}: all-zero row")
+        check(q1[2, :8].tolist() == [127, 2, 0, 2, 4, -2, 0, -126],
+              f"{tag}: half-way ties not rounded to even")
+    print(f"kernel {tag}: q and s bit-identical (all-zero row and half-way "
+          f"ties included) [{card}]")
+    iters = 200 if n * d < 1e7 else 10
+    row = _timing_row(torch, tag, lambda b=None: ops.quantize_rows(
+        x, backend=b), "quantize_rows_kernel", n * d * 5 + n * 4,
+        n * d * 6, iters, card)
+    return 0.0, row
+
+
+def compare_dequant(torch, ops, n, d, dev, card):
+    q, s = ops.quantize_rows(quant_input(torch, n, d, dev, seed=7 + n),
+                             backend="torch")
+    x1 = ops.dequantize_rows(q, s)
+    x2 = ops.dequantize_rows(q, s, backend="torch")
+    x3 = torch.mul(q, s[:, None])
+    torch.cuda.synchronize()
+    tag = f"dequantize_rows n={n} d={d}"
+    check(torch.equal(x1, x2), f"{tag}: differs from plain")
+    check(torch.equal(x1, x3), f"{tag}: differs from torch.mul(q, s)")
+    print(f"kernel {tag}: bit-identical to the plain version and to "
+          f"torch.mul(q, s[:, None]) [{card}]")
+    iters = 200 if n * d < 1e7 else 10
+    row = _timing_row(torch, tag, lambda b=None: ops.dequantize_rows(
+        q, s, backend=b), "dequantize_rows_kernel", n * d * 5 + n * 4,
+        n * d, iters, card, library=lambda: torch.mul(q, s[:, None]))
+    return 0.0, row
+
+
+def compare_masked_agg(torch, ops, n, d, dev, card):
+    """masked_agg at (n, d) with random, all-true and all-false masks:
+    within 1e-6 of the output's scale (and reported bit-identical or not).
+    Returns (max abs error, timing row of the random mask)."""
+    g = torch.Generator(device=dev).manual_seed(n + d % 997)
+    q, s = ops.quantize_rows(torch.randn(n, d, generator=g, device=dev),
+                             backend="torch")
+    err, row = 0.0, None
+    masks = {"random": torch.rand(n, generator=g, device=dev) < 0.4,
+             "all-true": torch.ones(n, dtype=torch.bool, device=dev),
+             "all-false": torch.zeros(n, dtype=torch.bool, device=dev)}
+    for label, mask in masks.items():
+        u1 = ops.masked_agg(q, s, mask)
+        u2 = ops.masked_agg(q, s, mask, backend="torch")
+        torch.cuda.synchronize()
+        tag = f"masked_agg n={n} d={d} {label} mask"
+        e, rel = _err(torch, u1, u2)
+        check(rel <= F32_TOL, f"{tag}: f32 error {e} > tolerance")
+        if label == "all-false":
+            check(not bool(u1.any()), f"{tag}: not all zeros")
+        err = max(err, e)
+        print(f"kernel {tag}: max_abs_err {e:.3e} (tolerance {F32_TOL:g} of "
+              f"the output's scale), bit-identical: "
+              f"{bool(torch.equal(u1, u2))} [{card}]")
+        if label == "random":
+            iters = 200 if d < 1e6 else 5
+            row = _timing_row(
+                torch, tag, lambda b=None: ops.masked_agg(q, s, mask,
+                                                          backend=b),
+                "masked_agg_kernel", n * d + 5 * n + 4 * d, 2 * n * d,
+                iters, card)
+    return err, row
 
 
 def _fmt(x):
@@ -232,31 +356,74 @@ def _fmt(x):
 
 # --- phase 4: the main path -----------------------------------------------------
 
+BUFFERED = ("ca2fl", "ca2fl_direct", "fedbuff")    # buffer 10
+CACHE_INIT = ("ace", "aced", "ace_direct", "aced_direct")
+
+
+def _depth(rule, K):
+    """(T, n_events) of a 300-tick run: the cache-init rules spend
+    iteration 0 on the init batch; a buffered rule (buffer 10) emits every
+    10th arrival at K = 1 and every tick at K = 16."""
+    if rule in BUFFERED:
+        return (30, 300) if K == 1 else (300, 300)
+    return (300, 299) if rule in CACHE_INIT else (300, 300)
+
+
 def engine_runs():
-    """(rule, cache dtype, K, T, n_events, kernel) of the main path. ACE and
-    ACED emit every tick; CA²FL (buffer 10) every 10th arrival at K = 1 and
-    every tick at K = 16."""
+    """(rule, cache dtype, K, T, n_events, kernels it must launch) of the
+    main path: the incremental rules (ACE, ACED, CA²FL), then the rest of
+    the zoo (the baselines carry no cache and launch no kernel)."""
     runs = []
-    for dtype, K in (("int8", 1), ("int8", K_SLICE), ("float32", K_SLICE)):
+    for dtype, K in (("int8", 1), ("int8", K_SLICE), ("float32", 1),
+                     ("float32", K_SLICE)):
         for rule in ("ace", "aced", "ca2fl"):
-            if K == 1:
-                kernel = "cache_row_update" if rule == "ace" else "row_delta"
-                T, E = (30, 300) if rule == "ca2fl" else (300, 299)
+            if dtype == "float32" and K == 1:
+                kernels = ()                      # no kernel on this path
+            elif K == 1:
+                kernels = ("cache_row_update",) if rule == "ace" \
+                    else ("row_delta",)
             else:
-                kernel = "commit_batch"
-                T, E = (300, 300) if rule == "ca2fl" else (300, 299)
-            runs.append((rule, dtype, K, T, E, kernel))
+                kernels = ("commit_batch",)
+            if dtype == "int8" and rule in CACHE_INIT:
+                kernels += ("quantize_rows",)            # the int8 init
+            runs.append((rule, dtype, K) + _depth(rule, K) + (kernels,))
+    for K in (1, K_SLICE):
+        for rule in ("asgd", "delay_asgd", "fedbuff"):
+            runs.append((rule, None, K) + _depth(rule, K) + ((),))
+    for dtype in ("int8", "float32"):
+        for rule in ("ace_direct", "aced_direct", "ca2fl_direct"):
+            kernels = ()
+            if dtype == "int8":
+                kernels = (("masked_agg", "quantize_rows")
+                           if rule == "aced_direct"
+                           else ("quantize_rows", "dequantize_rows"))
+            runs.append((rule, dtype, 1) + _depth(rule, 1) + (kernels,))
     return runs
 
 
 def make_rule(rule, dtype, K, backend=None):
-    from repro_torch.core import ACED, CA2FL, ACEIncremental
+    from repro_torch.core import (ACED, CA2FL, ACEDDirect, ACEDirect,
+                                  ACEIncremental, CA2FLDirect,
+                                  DelayAdaptiveASGD, FedBuff, VanillaASGD)
     if rule == "ace":
         return ACEIncremental(cache_dtype=dtype, backend=backend)
     if rule == "aced":
         return ACED(tau_algo=10, cache_dtype=dtype, max_cohort=K,
                     backend=backend)
-    return CA2FL(buffer_size=10, cache_dtype=dtype, backend=backend)
+    if rule == "ca2fl":
+        return CA2FL(buffer_size=10, cache_dtype=dtype, backend=backend)
+    if rule == "asgd":
+        return VanillaASGD()
+    if rule == "delay_asgd":
+        # AFLConfig's defaults: τ_C = max_delay_scale · delay_beta = 4 · 5
+        return DelayAdaptiveASGD(tau_c=20.0)
+    if rule == "fedbuff":
+        return FedBuff(buffer_size=10)
+    if rule == "ace_direct":
+        return ACEDirect(cache_dtype=dtype, backend=backend)
+    if rule == "aced_direct":
+        return ACEDDirect(tau_algo=10, cache_dtype=dtype, backend=backend)
+    return CA2FLDirect(buffer_size=10, cache_dtype=dtype, backend=backend)
 
 
 def run_engine(task, rule, dtype, K, T, E, dev, backend=None, seed=0):
@@ -289,6 +456,7 @@ def main() -> int:
     from repro_torch.core import make_vision_task
     from repro_torch.kernels import build, ops
 
+    start = time.perf_counter()
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -313,6 +481,7 @@ def main() -> int:
               f"registers, {spills} bytes spilled")
 
     # 3. each kernel against its plain version, on the card
+    print(f"phase 3 starts at {time.perf_counter() - start:.1f} s")
     errs, rows = {}, {}
     for name in ("row_delta", "cache_row_update"):
         errs[name], rows[name] = compare_rows(torch, ops, name, D_SLICE, dev,
@@ -335,75 +504,112 @@ def main() -> int:
         e, _ = compare_commit(torch, ops, K_SLICE, D_SLICE, 2, dev, card,
                               valid=none, label=" all-invalid", rows=row_type)
         errs["commit_batch"] = max(errs["commit_batch"], e)
-    print("library yardstick: none — no single PyTorch call computes "
-          "row_delta, cache_row_update or commit_batch (library_ms null)")
+    errs["masked_agg"], rows["masked_agg"] = compare_masked_agg(
+        torch, ops, N_SLICE, D_SLICE, dev, card)
+    e_big, _ = compare_masked_agg(torch, ops, N_SLICE, D_ROWS_LARGE, dev,
+                                  card)
+    errs["masked_agg"] = max(errs["masked_agg"], e_big)
+    # the per-tick shape (one arriving row) is the main path's; the
+    # (100, d) shapes are the int8 init and the cache-wide dequantizer
+    errs["quantize_rows"], rows["quantize_rows"] = compare_quant(
+        torch, ops, 1, D_SLICE, dev, card)
+    for n, d in ((N_SLICE, D_SLICE), (N_SLICE, D_ROWS_LARGE)):
+        compare_quant(torch, ops, n, d, dev, card)
+    errs["dequantize_rows"], rows["dequantize_rows"] = compare_dequant(
+        torch, ops, N_SLICE, D_SLICE, dev, card)
+    compare_dequant(torch, ops, N_SLICE, D_ROWS_LARGE, dev, card)
+    print("library yardstick: torch.mul(q, s[:, None]) for dequantize_rows; "
+          "none for the other five — no single PyTorch call computes "
+          "row_delta, cache_row_update or commit_batch, torch.mv refuses "
+          "int8 rows with f32 weights (masked_agg), and no single call "
+          "forms quantize_rows' scales (library_ms null)")
 
     # 4. the main path, at full width
+    print(f"phase 4 starts at {time.perf_counter() - start:.1f} s")
     task = make_vision_task(device=dev)
     d = sum(p.numel() for layer in task.params0 for p in layer.values())
     check(d == D_SLICE, f"vision task has d={d}, expected {D_SLICE}")
     print(f"engine: vision task, n={task.n_clients} clients, d={d}, "
           f"batch 50 [{card}]")
     totals = dict.fromkeys(KERNELS, 0)
-    ace_int8_k = wall_ace_k = None
-    for rule, dtype, K, T, E, kernel in engine_runs():
+    results, walls = {}, {}
+    for rule, dtype, K, T, E, kernels in engine_runs():
         ops.reset_launch_counts()
         res, wall = run_engine(task, rule, dtype, K, T, E, dev)
         counts = ops.launch_counts()
         for k, v in counts.items():
             totals[k] += v
-        check(counts[kernel] > 0, f"{rule} {dtype} K={K}: {kernel} was not "
-              "launched")
+        label = f"{rule} {dtype or 'no-cache'} K={K}"
+        for kernel in kernels:
+            check(counts[kernel] > 0, f"{label}: {kernel} was not launched")
         check(bool(torch.isfinite(torch.as_tensor(res.w)).all()),
-              f"{rule} {dtype} K={K}: non-finite model")
+              f"{label}: non-finite model")
         acc = task.eval_fn(unravel(torch.as_tensor(res.w, device=dev),
                                    task.params0))["accuracy"]
-        check(acc > 0.5, f"{rule} {dtype} K={K}: accuracy {acc}, not well above "
-              "chance (0.1)")
-        print(f"engine {rule} {dtype} K={K}: T={T}, {E} ticks, "
+        check(acc > 0.5, f"{label}: accuracy {acc}, not well above chance "
+              "(0.1)")
+        print(f"engine {label}: T={T}, {E} ticks, "
               f"{len(res.ts)} updates, accuracy {acc:.4f}, {wall:.2f} s, "
               f"{E / wall:.1f} ticks/s, {E * K / wall:.1f} arrivals/s, "
               f"launches {counts} [{card}]")
-        if (rule, dtype, K) == ("ace", "int8", K_SLICE):
-            ace_int8_k, wall_ace_k = res, wall
-    ops.reset_launch_counts()
-    res, wall = run_engine(task, "ace", "int8", K_SLICE, 300, 299, dev,
-                           backend="torch")
-    check(sum(ops.launch_counts().values()) == 0,
-          "backend='torch' launched a kernel")
-    dev_w = float(abs(res.w - ace_int8_k.w).max()
-                  / max(1e-12, abs(ace_int8_k.w).max()))
-    check(dev_w <= 1e-4, f"ace int8 K=16: plain run deviates {dev_w}")
-    print(f"engine ace int8 K={K_SLICE} plain versions: {wall:.2f} s, "
-          f"{299 * K_SLICE / wall:.1f} arrivals/s, final w within "
-          f"{dev_w:.3e} (relative) of the kernels' run [{card}]")
+        results[rule, dtype, K], walls[rule, dtype, K] = res, wall
+    for rule, dtype, K in (("ace", "int8", K_SLICE),
+                           ("aced_direct", "int8", 1)):
+        T, E = _depth(rule, K)
+        ops.reset_launch_counts()
+        res, wall = run_engine(task, rule, dtype, K, T, E, dev,
+                               backend="torch")
+        check(sum(ops.launch_counts().values()) == 0,
+              "backend='torch' launched a kernel")
+        ref_w = results[rule, dtype, K].w
+        dev_w = float(abs(res.w - ref_w).max() / max(1e-12, abs(ref_w).max()))
+        check(dev_w <= 1e-4, f"{rule} {dtype} K={K}: plain run deviates "
+              f"{dev_w}")
+        print(f"engine {rule} {dtype} K={K} plain versions: {wall:.2f} s, "
+              f"{E * K / wall:.1f} arrivals/s, final w within {dev_w:.3e} "
+              f"(relative) of the kernels' run, bit-identical: "
+              f"{bool((res.w == ref_w).all())} [{card}]")
+    for inc in ("ace", "aced", "ca2fl"):
+        for dtype in ("int8", "float32"):
+            a = results[inc, dtype, 1].w
+            b = results[inc + "_direct", dtype, 1].w
+            print(f"engine {inc} vs {inc}_direct, {dtype} K=1, seed 0: final "
+                  f"w max |diff| {float(abs(a - b).max()):.3e}, relative "
+                  f"{float(abs(a - b).max() / max(1e-12, abs(b).max())):.3e} "
+                  f"[{card}]")
 
     # where a tick's time goes: device time of one traced run against the
     # untraced run's wall clock (the trace itself slows the host)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run_engine(task, "ace", "int8", K_SLICE, 300, 299, dev)
-    busy_ms = _device_us(torch, prof, None) / 1e3 / 299
-    tick_ms = 1e3 * wall_ace_k / 299
-    print(f"engine ace int8 K={K_SLICE}: device busy {busy_ms:.4f} ms per "
-          f"tick of {tick_ms:.4f} ms wall, idle share "
-          f"{1 - busy_ms / tick_ms:.3f} [{card}]")
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)[:6]
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3 / 299:.4f} ms/tick "
-              f"{e.count / 299:.1f} launches/tick  {e.key[:90]}")
+    for rule, dtype, K in (("ace", "int8", K_SLICE),
+                           ("aced_direct", "int8", 1)):
+        T, E = _depth(rule, K)
+        with torch.profiler.profile(activities=acts) as prof:
+            run_engine(task, rule, dtype, K, T, E, dev)
+        busy_ms = _device_us(torch, prof, None) / 1e3 / E
+        tick_ms = 1e3 * walls[rule, dtype, K] / E
+        print(f"engine {rule} {dtype} K={K}: device busy {busy_ms:.4f} ms "
+              f"per tick of {tick_ms:.4f} ms wall, idle share "
+              f"{1 - busy_ms / tick_ms:.3f} [{card}]")
+        top = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:6]
+        for e in top:
+            print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
+                  f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
 
     # 5. results
+    print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")
     report = []
     for name, (source, replaces) in KERNELS.items():
         check(totals[name] > 0, f"{name} never launched on the main path")
-        report.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": totals[name],
-                       "max_abs_err": errs[name], **rows[name],
-                       "library_ms": None})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": totals[name],
+                 "max_abs_err": errs[name], **rows[name]}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+        report.append(entry)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

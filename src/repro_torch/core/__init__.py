@@ -1,11 +1,17 @@
-"""The port's flat AFL server: the sampled-staleness engine, the ACE, ACED
-and CA²FL rules over the flat gradient cache, and the vision task — the
-counterpart of `repro.core`'s entry points."""
-from repro_torch.core.aggregators import (ACED, CA2FL, ACEIncremental,
+"""The port's flat AFL server: the sampled-staleness engine, the nine rules
+of the zoo (ASGD, delay-adaptive ASGD, FedBuff, CA²FL, ACE, ACED and the
+direct CA²FL/ACE/ACED references) over the flat gradient cache, and the
+vision task — the counterpart of `repro.core`'s entry points."""
+from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
+                                          ACEDirect, ACEIncremental,
+                                          CA2FLDirect, DelayAdaptiveASGD,
+                                          FedBuff, VanillaASGD,
                                           make_aggregator)
 from repro_torch.core.cache import FlatCache
 from repro_torch.core.fl_tasks import make_vision_task
 from repro_torch.core.scan_staleness import run_staleness_scan
 
-__all__ = ["ACED", "ACEIncremental", "CA2FL", "FlatCache", "make_aggregator",
-           "make_vision_task", "run_staleness_scan"]
+__all__ = ["ACED", "ACEDDirect", "ACEDirect", "ACEIncremental", "ALGORITHMS",
+           "CA2FL", "CA2FLDirect", "DelayAdaptiveASGD", "FedBuff",
+           "FlatCache", "VanillaASGD", "make_aggregator", "make_vision_task",
+           "run_staleness_scan"]

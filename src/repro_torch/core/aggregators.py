@@ -1,12 +1,26 @@
-"""Server aggregation rules of the flat engine — port of the ACE, ACED and
-CA²FL rules of `repro.core.aggregators`:
+"""Server aggregation rules of the flat engine — port of the rule zoo of
+`repro.core.aggregators` (its `ALGORITHMS` registry, all nine rules):
 
-  * CA²FL          [Wang et al., 2024]  buffer M + cached calibration, lazy
-                                        O(d) calibration sum
-  * ACE incremental (paper Alg. a.5)    u ← u + (g − dq(C_j))/n, O(d)
-  * ACED            (paper Alg. a.1)    bounded-delay active set τ_algo,
-                                        incremental O(d) sum + expiry
-                                        owner-ring
+  * Vanilla ASGD       [Mishchenko et al., 2022]  m = 1, immediate
+  * Delay-adaptive ASGD [Koloskova et al., 2022]  m = 1, lr ∝ τ_C/τ for
+                                                  stragglers
+  * FedBuff            [Nguyen et al., 2022]      buffer M
+  * CA²FL              [Wang et al., 2024]        buffer M + cached
+                                                  calibration, lazy O(d)
+                                                  calibration sum
+  * CA²FL direct       (paper Alg. a.3, literal)  re-reduces the (n, d)
+                                                  calibration cache per arrival
+  * ACE direct         (paper Alg. 1)             mean over all n cached rows
+  * ACE incremental    (paper Alg. a.5)           u ← u + (g − dq(C_j))/n, O(d)
+  * ACED               (paper Alg. a.1)           bounded-delay active set
+                                                  τ_algo, incremental O(d)
+                                                  sum + expiry owner-ring
+  * ACED direct        (paper Alg. a.1, literal)  masked mean over the whole
+                                                  cache (int8: the
+                                                  `masked_agg` kernel)
+
+The three direct rules are the O(n·d) references the incremental ones are
+held against; they take K = 1 arrivals only (`step_batch` raises).
 
 Every rule is a transition
 
@@ -14,11 +28,17 @@ Every rule is a transition
 
 with `torch.where`-gated emission: no Python branching on tensor values and
 no host read, so a tick of the engine never waits for the card. `step_batch`
-is the K-arrival form. States are dicts of tensors plus one `FlatCache`.
-The cache is updated **in place** (see `repro_torch.core.cache`); every
-other state entry is replaced by a new tensor, never written in place, so
-an engine can keep the previous state and select between the two. The
-server applies ``w ← w − η · lr_scale · update``.
+is the K-arrival form. States are dicts of tensors plus one `FlatCache`
+(ASGD's is empty). The cache is updated **in place** (see
+`repro_torch.core.cache`); every other state entry is replaced by a new
+tensor, never written in place, so an engine can keep the previous state
+and select between the two. The server applies
+``w ← w − η · lr_scale · update``.
+
+``state_dtype`` ("float32" | "bfloat16") is the dtype the running vectors
+(FedBuff's and CA²FL's buffers, ACE's u, ACED's sums) are stored in; they
+are accumulated in f32 (`_acc`, `_where_sub`, `_astate`). A non-f32 state
+keeps `step_batch` off the fused commit kernel, whose sums are f32.
 
 Step contract (as in the JAX package): across the `step` calls a state
 actually receives, `arr.t` must be strictly increasing (forward jumps
@@ -36,8 +56,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.cache import (cache_mean, cache_n,
-                                    cache_row, cache_rows, cache_set_row,
+from repro_torch.core.cache import (DTYPES, cache_mean, cache_n, cache_row,
+                                    cache_rows, cache_set_row,
                                     cache_set_row_delta, cache_set_rows_delta,
                                     cache_sum, flat_commit_batch,
                                     init_flat_cache, row_index)
@@ -76,6 +96,27 @@ def _int(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(())
 
 
+def _acc(a, x):
+    """``a + x`` accumulated in f32 and stored in `a`'s dtype (the state
+    dtype; an identity cast for f32 states)."""
+    return (a.float() + x.float()).to(a.dtype)
+
+
+def _where_sub(a, x, gate):
+    """``a − x`` where `gate` else ``a``, accumulated in f32 and stored in
+    `a`'s dtype — the expiry primitive of the running-sum rules."""
+    return torch.where(gate, a.float() - x.float(), a.float()).to(a.dtype)
+
+
+def _astate(vec, dtype: str):
+    """A running vector cast to the rule's state dtype."""
+    return vec.to(DTYPES[dtype])
+
+
+def _zeros_vec(d: int, dtype: str, device):
+    return torch.zeros((d,), dtype=DTYPES[dtype], device=device)
+
+
 def _masked_batch_sum(rows, mask):
     """``Σ_{k : mask[k]} rows[k]`` in f32, `where`-gated: a quarantined
     lane's payload may be NaN/inf, and ``NaN · 0`` would poison the sum."""
@@ -87,9 +128,29 @@ def _inv_count(count):
     return torch.clamp(count, min=1).float().reciprocal()
 
 
+def _batch_mean_inv(valid):
+    """``1 / n_valid`` where a lane is valid, else 0 (FedAsync's burst
+    average over the valid lanes)."""
+    nv = valid.float().sum()
+    return torch.where(nv > 0, torch.clamp(nv, min=1.0).reciprocal(), 0.0)
+
+
+def _fused_flat_commit(flag, vecs) -> bool:
+    """The fused K-arrival commit is taken only when every carried running
+    vector is f32 (the kernel's accumulation dtype — non-f32 `state_dtype`
+    rules stay on the op chain) and the wiring is enabled (`fused_commit`
+    field / ``REPRO_NO_FUSED_COMMIT``)."""
+    return (all(v.dtype == torch.float32 for v in vecs)
+            and kernel_ops.fused_commit_enabled(flag))
+
+
 class Aggregator:
     """Base: subclasses define init_state / step / step_batch."""
     name = "base"
+    #: whether every buffer flush is certain to emit; a rule whose emission
+    #: is data-dependent and refusable sets this False, so the engines
+    #: budget extra events (`scan_engine.default_n_events`)
+    guaranteed_emit = True
 
     def init_state(self, n: int, d: int, init_grads=None, device=None):
         """Initial server state for n clients of dimension d; `init_grads`
@@ -117,6 +178,97 @@ class Aggregator:
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class VanillaASGD(Aggregator):
+    """Every arrival is applied at once (m = 1). The state is empty."""
+    name = "asgd"
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        return {}
+
+    def step(self, state, arr):
+        true = torch.ones((), dtype=torch.bool, device=arr.payload.device)
+        return state, arr.payload, true, 1.0
+
+    def step_batch(self, state, batch):
+        # FedAsync's burst rule: average the simultaneously received
+        # contributions into one server step
+        update = (_masked_batch_sum(batch.payloads, batch.valid)
+                  * _batch_mean_inv(batch.valid))
+        return state, update, batch.valid.any(), 1.0
+
+
+def _delay_scale(staleness, tau_c: float, device):
+    """``1`` if τ ≤ τ_C else ``τ_C / max(τ, 1)``, per lane, in f32 (a true
+    division: a Python number over a tensor would be a reciprocal
+    multiply)."""
+    tau = torch.clamp(torch.as_tensor(staleness, device=device).float(),
+                      min=0.0)
+    tau_c_t = torch.full_like(tau, tau_c)
+    return torch.where(tau <= tau_c, 1.0, tau_c_t / torch.clamp(tau, min=1.0))
+
+
+@dataclasses.dataclass
+class DelayAdaptiveASGD(Aggregator):
+    """η_t = η if τ ≤ τ_C else η·τ_C/τ (down-weight stale gradients)."""
+    tau_c: float = 10.0
+    name = "delay_asgd"
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        return {}
+
+    def step(self, state, arr):
+        dev = arr.payload.device
+        scale = _delay_scale(arr.staleness, self.tau_c, dev).reshape(())
+        true = torch.ones((), dtype=torch.bool, device=dev)
+        return state, arr.payload, true, scale
+
+    def step_batch(self, state, batch):
+        # the per-lane discounts fold INTO the averaged update (one scalar
+        # lr_scale cannot carry K weights), so lr_scale = 1 here
+        scale = _delay_scale(batch.staleness, self.tau_c,
+                             batch.payloads.device).reshape(-1)
+        scaled = batch.payloads.float() * scale[:, None]
+        update = (_masked_batch_sum(scaled, batch.valid)
+                  * _batch_mean_inv(batch.valid))
+        return state, update, batch.valid.any(), 1.0
+
+
+@dataclasses.dataclass
+class FedBuff(Aggregator):
+    """Buffer M arrivals, then apply their mean."""
+    buffer_size: int = 10
+    state_dtype: str = "float32"
+    name = "fedbuff"
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        return {"accum": _zeros_vec(d, self.state_dtype, device),
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def _flush(self, accum, count, inv):
+        # emit-gated reciprocal: a buffered (non-flushing) arrival's
+        # "update" is a multiply by 0, not an O(d) divide
+        emit = count >= self.buffer_size
+        inv = torch.where(emit, inv, 0.0)
+        update = accum.float() * inv
+        return ({"accum": torch.where(emit, 0.0, accum),
+                 "count": torch.where(emit, 0, count)}, update, emit, 1.0)
+
+    def step(self, state, arr):
+        accum = _acc(state["accum"], arr.payload)
+        count = state["count"] + 1
+        return self._flush(accum, count, count.float().reciprocal())
+
+    def step_batch(self, state, batch):
+        # the buffer may overshoot `buffer_size` when a batch straddles the
+        # flush; dividing by the achieved count keeps the flush an exact
+        # mean of everything buffered
+        accum = _acc(state["accum"],
+                     _masked_batch_sum(batch.payloads, batch.valid))
+        count = state["count"] + batch.valid.sum(dtype=torch.int32)
+        return self._flush(accum, count, _inv_count(count))
+
+
+@dataclasses.dataclass
 class CA2FL(Aggregator):
     """Cache-aided calibration: v = h̄ + Σ_{i∈S}(Δ_i − h_i)/m (paper Alg. a.3)
     with a lazy calibration mean — O(d) per arrival.
@@ -128,16 +280,19 @@ class CA2FL(Aggregator):
     ``h̄ = h_sum/n`` folds into the emit-gated refresh only."""
     buffer_size: int = 10
     cache_dtype: str = "float32"
+    state_dtype: str = "float32"
     fused_commit: Optional[bool] = None
     backend: Optional[str] = None
     name = "ca2fl"
 
     def init_state(self, n, d, init_grads=None, device=None):
-        h = init_flat_cache(n, d, self.cache_dtype, init_grads, device)
-        mean = cache_mean(h)
+        h = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
+                            backend=self.backend)
+        mean = cache_mean(h, backend=self.backend)
         dev = h.data.device
-        return {"h": h, "h_bar": mean, "h_sum": mean * n,
-                "accum": torch.zeros((d,), dtype=torch.float32, device=dev),
+        return {"h": h, "h_bar": _astate(mean, self.state_dtype),
+                "h_sum": _astate(mean * n, self.state_dtype),
+                "accum": _zeros_vec(d, self.state_dtype, dev),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def _emit(self, count):
@@ -145,35 +300,42 @@ class CA2FL(Aggregator):
         inv = torch.where(emit, _inv_count(count), 0.0)
         return emit, inv
 
-    def step(self, state, arr):
-        j = row_index(arr.client, state["h"].data.device)
-        h, delta, old = cache_set_row_delta(state["h"], j, arr.payload,
-                                            backend=self.backend)
-        accum = state["accum"] + (arr.payload.float() - old)
-        h_sum = state["h_sum"] + delta
-        count = state["count"] + 1
+    def _refresh(self, state, h, accum, h_sum, count):
+        """The emit-gated tail shared by the op-chain forms: the update and
+        the lazy h̄ = h_sum/n refresh."""
         emit, inv = self._emit(count)
-        update = state["h_bar"] * emit.float() + accum * inv
-        h_bar = torch.where(emit, h_sum * (1.0 / cache_n(h)), state["h_bar"])
+        h_bar = state["h_bar"]
+        update = h_bar.float() * emit.float() + accum.float() * inv
+        h_bar = torch.where(emit, h_sum.float() * (1.0 / cache_n(h)),
+                            h_bar.float()).to(h_bar.dtype)
         new_state = {"h": h, "h_bar": h_bar, "h_sum": h_sum,
                      "accum": torch.where(emit, 0.0, accum),
                      "count": torch.where(emit, 0, count)}
         return new_state, update, emit, 1.0
+
+    def step(self, state, arr):
+        j = row_index(arr.client, state["h"].data.device)
+        h, delta, old = cache_set_row_delta(state["h"], j, arr.payload,
+                                            backend=self.backend)
+        accum = _acc(state["accum"], arr.payload.float() - old)
+        h_sum = _acc(state["h_sum"], delta)
+        return self._refresh(state, h, accum, h_sum, state["count"] + 1)
 
     def step_batch(self, state, batch):
         h = state["h"]
         js = row_index(batch.clients, h.data.device)
         valid = batch.valid
         count = state["count"] + valid.sum(dtype=torch.int32)
-        emit, inv = self._emit(count)
-        inv_n = 1.0 / cache_n(h)
-        if kernel_ops.fused_commit_enabled(self.fused_commit):
+        vecs = (state["accum"], state["h_sum"], state["h_bar"])
+        if _fused_flat_commit(self.fused_commit, vecs):
             # fused commit, basis [accum, h_sum, h_bar, S_Δ, S_A, S_B, S_G]
             # with lane_a = lane_g = valid (S_G − S_A = Σ_valid(g − old)):
             #   accum' = (1−g)·(accum + S_G − S_A)
             #   h_sum' = h_sum + S_Δ
             #   h_bar' = g·inv_n·h_sum' + (1−g)·h_bar
             #   update = g·h_bar + inv·(accum + S_G − S_A)
+            emit, inv = self._emit(count)
+            inv_n = 1.0 / cache_n(h)
             g = emit.float()
             one, zero = torch.ones_like(g), torch.zeros_like(g)
             keep = 1.0 - g
@@ -185,26 +347,82 @@ class CA2FL(Aggregator):
             upd_w = torch.stack([inv, zero, g, zero, -inv, zero, inv])
             vf = valid.float()
             h, out, update = flat_commit_batch(
-                h, js, batch.payloads, valid,
-                torch.stack((state["accum"], state["h_sum"], state["h_bar"])),
-                coef, upd_w, lane_a=vf, lane_g=vf, backend=self.backend)
+                h, js, batch.payloads, valid, torch.stack(vecs), coef, upd_w,
+                lane_a=vf, lane_g=vf, backend=self.backend)
             new_state = {"h": h, "h_bar": out[2], "h_sum": out[1],
                          "accum": out[0],
                          "count": torch.where(emit, 0, count)}
             return new_state, update, emit, 1.0
         h, delta, old = cache_set_rows_delta(h, js, batch.payloads, valid)
-        accum = state["accum"] + _masked_batch_sum(
-            batch.payloads.float() - old, valid)
-        h_sum = state["h_sum"] + delta.sum(0)
-        update = state["h_bar"] * emit.float() + accum * inv
-        h_bar = torch.where(emit, h_sum * inv_n, state["h_bar"])
-        new_state = {"h": h, "h_bar": h_bar, "h_sum": h_sum,
+        accum = _acc(state["accum"], _masked_batch_sum(
+            batch.payloads.float() - old, valid))
+        h_sum = _acc(state["h_sum"], delta.sum(0))
+        return self._refresh(state, h, accum, h_sum, count)
+
+    def resync(self, state):
+        return {**state, "h_sum": _astate(
+            cache_sum(state["h"], backend=self.backend), self.state_dtype)}
+
+
+@dataclasses.dataclass
+class CA2FLDirect(Aggregator):
+    """Paper Alg. a.3, literal: re-reduces ``cache_mean(h)`` over the whole
+    (n, d) calibration cache on every arrival — the O(n·d) reference the
+    lazy `CA2FL` is held against. K = 1 only."""
+    buffer_size: int = 10
+    cache_dtype: str = "float32"
+    state_dtype: str = "float32"
+    backend: Optional[str] = None
+    name = "ca2fl_direct"
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        h = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
+                            backend=self.backend)
+        dev = h.data.device
+        return {"h": h,
+                "h_bar": _astate(cache_mean(h, backend=self.backend),
+                                 self.state_dtype),
+                "accum": _zeros_vec(d, self.state_dtype, dev),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def step(self, state, arr):
+        h = state["h"]
+        j = row_index(arr.client, h.data.device)
+        # read the old row before the write: the cache is updated in place
+        old = cache_row(h, j, backend=self.backend)
+        accum = _acc(state["accum"], arr.payload.float() - old)
+        h = cache_set_row(h, j, arr.payload, backend=self.backend)
+        count = state["count"] + 1
+        emit = count >= self.buffer_size
+        h_bar = state["h_bar"]
+        update = h_bar.float() + accum.float() / count.float()
+        h_bar = torch.where(emit, cache_mean(h, backend=self.backend),
+                            h_bar.float()).to(h_bar.dtype)
+        new_state = {"h": h, "h_bar": h_bar,
                      "accum": torch.where(emit, 0.0, accum),
                      "count": torch.where(emit, 0, count)}
         return new_state, update, emit, 1.0
 
-    def resync(self, state):
-        return {**state, "h_sum": cache_sum(state["h"])}
+
+@dataclasses.dataclass
+class ACEDirect(Aggregator):
+    """Paper Algorithm 1: cache row j ← g, update = mean over all n rows.
+    K = 1 only."""
+    cache_dtype: str = "float32"
+    backend: Optional[str] = None
+    name = "ace_direct"
+    cache_init = True
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        return {"cache": init_flat_cache(n, d, self.cache_dtype, init_grads,
+                                         device, backend=self.backend)}
+
+    def step(self, state, arr):
+        cache = cache_set_row(state["cache"], arr.client, arr.payload,
+                              backend=self.backend)
+        true = torch.ones((), dtype=torch.bool, device=cache.data.device)
+        return ({"cache": cache}, cache_mean(cache, backend=self.backend),
+                true, 1.0)
 
 
 @dataclasses.dataclass
@@ -216,14 +434,18 @@ class ACEIncremental(Aggregator):
     K = 1 int8 step goes through the fused `cache_row_update` kernel; the
     K-arrival step through the fused commit kernel."""
     cache_dtype: str = "float32"
+    state_dtype: str = "float32"
     fused_commit: Optional[bool] = None
     backend: Optional[str] = None
     name = "ace"
     cache_init = True
 
     def init_state(self, n, d, init_grads=None, device=None):
-        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device)
-        return {"cache": cache, "u": cache_mean(cache)}
+        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
+                                backend=self.backend)
+        return {"cache": cache,
+                "u": _astate(cache_mean(cache, backend=self.backend),
+                             self.state_dtype)}
 
     def step(self, state, arr):
         cache, u = state["cache"], state["u"]
@@ -236,9 +458,11 @@ class ACEIncremental(Aggregator):
             new_scale = kernel_ref.row_scale(arr.payload)
             inv_n = torch.full((), 1.0 / cache.n, dtype=torch.float32,
                                device=dev)
-            u, q_row = kernel_ops.cache_row_update(
-                u, arr.payload, c_row, old_scale, new_scale, inv_n,
+            # the kernel adds in f32; the sum is stored in the state dtype
+            u_new, q_row = kernel_ops.cache_row_update(
+                u.float(), arr.payload, c_row, old_scale, new_scale, inv_n,
                 backend=self.backend)
+            u = u_new.to(u.dtype)
             cache.data.index_copy_(0, j, q_row[None])
             cache.scale.index_copy_(0, j, new_scale.reshape(1))
             return {"cache": cache, "u": u}, u, true, 1.0
@@ -246,7 +470,7 @@ class ACEIncremental(Aggregator):
         old = cache_row(cache, j)
         cache = cache_set_row(cache, j, arr.payload)
         new = cache_row(cache, j)
-        u = u + (new - old) / n
+        u = (u.float() + (new - old) / n).to(u.dtype)
         return {"cache": cache, "u": u}, u, true, 1.0
 
     def step_batch(self, state, batch):
@@ -258,7 +482,7 @@ class ACEIncremental(Aggregator):
         js = row_index(batch.clients, dev)
         n = cache_n(cache)
         emit = batch.valid.any()
-        if kernel_ops.fused_commit_enabled(self.fused_commit):
+        if _fused_flat_commit(self.fused_commit, (state["u"],)):
             coef = torch.zeros((1, 5), dtype=torch.float32, device=dev)
             coef[0, 0] = 1.0
             coef[0, 1] = 1.0 / n
@@ -268,11 +492,14 @@ class ACEIncremental(Aggregator):
             return {"cache": cache, "u": u}, u, emit, 1.0
         cache, delta, _ = cache_set_rows_delta(cache, js, batch.payloads,
                                                batch.valid)
-        u = state["u"] + delta.sum(0) / n
+        u = state["u"]
+        u = (u.float() + delta.sum(0) / n).to(u.dtype)
         return {"cache": cache, "u": u}, u, emit, 1.0
 
     def resync(self, state):
-        return {**state, "u": cache_mean(state["cache"])}
+        return {**state, "u": _astate(
+            cache_mean(state["cache"], backend=self.backend),
+            self.state_dtype)}
 
 
 @dataclasses.dataclass
@@ -296,9 +523,11 @@ class ACED(Aggregator):
     The JAX package's expiry sweep is a `fori_loop` with a traced trip count
     Δt; here every one of the P slots is visited, masked by ``slot < Δt``,
     so the count never has to be read on the host. The slots are disjoint,
-    so the masked sweep retires exactly the owners the loop would."""
+    and an unvisited slot subtracts an exact zero, so the masked sweep
+    retires exactly the owners the loop would, in the loop's order."""
     tau_algo: int = 10
     cache_dtype: str = "float32"
+    state_dtype: str = "float32"
     #: owner-ring cohort width (= the engine's K); 1 keeps the (P,) ring
     max_cohort: int = 1
     fused_commit: Optional[bool] = None
@@ -311,11 +540,13 @@ class ACED(Aggregator):
         return self.tau_algo + 2
 
     def init_state(self, n, d, init_grads=None, device=None):
-        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device)
+        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
+                                backend=self.backend)
         dev = cache.data.device
         ring_shape = ((self.ring_size,) if self.max_cohort == 1
                       else (self.ring_size, self.max_cohort))
-        asum = cache_sum(cache)
+        asum = _astate(cache_sum(cache, backend=self.backend),
+                       self.state_dtype)
         return {"cache": cache,
                 "t_start": torch.ones((n,), dtype=torch.int32, device=dev),
                 "ring": torch.full(ring_shape, -1, dtype=torch.int32,
@@ -328,12 +559,14 @@ class ACED(Aggregator):
                                          device=dev),
                 "init_mask": torch.ones((n,), dtype=torch.bool, device=dev)}
 
-    def _sweep(self, state, t, first_slot):
+    def _sweep(self, state, asum, t, first_slot):
         """Expiry sweep over ring slots ``first_slot..P-1``: slot i holds
         the owners with t_start ≡ t−τ−1−i (mod P); it is visited when
-        i < Δt and retires each owner whose t_start ≤ t−τ−1. Returns
-        ``(dead_sum (d,), n_dead, ring')`` — the O(d) sum of the retired
-        dequantized rows, read from the pre-arrival cache."""
+        i < Δt and retires each owner whose t_start ≤ t−τ−1. Each slot's
+        retired rows (one sum over its cohort) leave `asum` in slot order,
+        where-gated, as the iterations of the JAX loop do. Returns
+        ``(asum', n_dead, ring')``; the rows are read from the pre-arrival
+        cache."""
         cache, ring = state["cache"], state["ring"]
         P, tau = self.ring_size, self.tau_algo
         dev = ring.device
@@ -344,10 +577,16 @@ class ACED(Aggregator):
         ow = torch.clamp(owners, min=0).long()
         visit = (i < dt).reshape((-1,) + (1,) * (owners.dim() - 1))
         gone = visit & (owners >= 0) & (state["t_start"][ow] <= t - tau - 1)
-        rows = cache_rows(cache, ow.reshape(-1))
-        dead = (rows * gone.reshape(-1, 1).float()).sum(0)
+        rows = cache_rows(cache, ow.reshape(-1), backend=self.backend)
+        slot_gone = gone
+        if owners.dim() == 2:            # a cohort per slot: sum its lanes
+            rows = torch.where(gone.reshape(-1, 1), rows, 0.0).reshape(
+                owners.shape + rows.shape[-1:]).sum(1)
+            slot_gone = gone.any(1)
+        for k in range(rows.shape[0]):
+            asum = _where_sub(asum, rows[k], slot_gone[k])
         ring = ring.index_copy(0, s, torch.where(gone, -1, owners))
-        return dead, gone.sum(dtype=torch.int32), ring
+        return asum, gone.sum(dtype=torch.int32), ring
 
     def _fire(self, state, t, count):
         """Init-batch one-shot expiry at t = τ_algo+2 (also when a jump
@@ -383,10 +622,10 @@ class ACED(Aggregator):
         k0 = ring.index_select(0, s0)
         k0c = torch.clamp(k0, min=0).long()
         dead = (dt >= 1) & (k0 >= 0) & (t_start[k0c] <= t - tau - 1)
-        dead_row = cache_row(cache, k0c)
+        dead_row = cache_row(cache, k0c, backend=self.backend)
         ring = ring.index_copy(0, s0, torch.where(dead, -1, k0))
-        jump_sum, n_jump, ring = self._sweep({**state, "ring": ring}, t, 1)
-        asum = state["asum"] - jump_sum
+        asum, n_jump, ring = self._sweep({**state, "ring": ring},
+                                         state["asum"], t, 1)
         count = state["count"] - dead[0].int() - n_jump
 
         # 2. init-batch one-shot
@@ -405,9 +644,11 @@ class ACED(Aggregator):
         g_fire = fire.float()
         g_ret = 1.0 - was_active.float()
         init_sum = state["init_sum"]
-        asum = asum - g_dead * dead_row - g_fire * init_sum + delta + g_ret * old
+        asum = (asum.float() - g_dead * dead_row - g_fire * init_sum.float()
+                + delta + g_ret * old).to(asum.dtype)
         count = count + 1 - was_active[0].int()
-        init_sum = (1.0 - g_fire) * init_sum - was_init.float() * old
+        init_sum = ((1.0 - g_fire) * init_sum.float()
+                    - was_init.float() * old).to(init_sum.dtype)
         init_count = init_count - was_init[0].int()
         init_mask = init_mask.index_copy(
             0, j, torch.zeros((1,), dtype=torch.bool, device=dev))
@@ -420,7 +661,7 @@ class ACED(Aggregator):
                                j.int())
         t_start = t_start.index_copy(0, j, (t + 1).reshape(1))
 
-        update = asum * _inv_count(count)
+        update = asum.float() * _inv_count(count)
         new_state = {"cache": cache, "t_start": t_start, "ring": ring,
                      "asum": asum, "count": count, "t_prev": t,
                      "init_sum": init_sum, "init_count": init_count,
@@ -445,8 +686,7 @@ class ACED(Aggregator):
         tau, P, C = self.tau_algo, self.ring_size, self.max_cohort
 
         # 1. expiry sweep over all P slots, masked by slot < Δt
-        dead_sum, n_dead, ring = self._sweep(state, t, 0)
-        asum = state["asum"] - dead_sum
+        asum, n_dead, ring = self._sweep(state, state["asum"], t, 0)
         count = state["count"] - n_dead
 
         # 2. init-batch one-shot (identical to the K=1 rule)
@@ -464,7 +704,7 @@ class ACED(Aggregator):
         count = count + ret.sum(dtype=torch.int32)
         inv = _inv_count(count)
         init_sum = state["init_sum"]
-        if kernel_ops.fused_commit_enabled(self.fused_commit):
+        if _fused_flat_commit(self.fused_commit, (asum, init_sum)):
             # basis [asum, init_sum, S_Δ, S_A, S_B, S_G], lane_a = ret,
             # lane_b = was_init:
             #   asum'     = asum − g_fire·init_sum + S_Δ + S_A
@@ -484,11 +724,12 @@ class ACED(Aggregator):
         else:
             cache, delta, old = cache_set_rows_delta(cache, js,
                                                      batch.payloads, valid)
-            asum = (asum - g_fire * init_sum + delta.sum(0)
-                    + _masked_batch_sum(old, ret))
-            init_sum = ((1.0 - g_fire) * init_sum
-                        - _masked_batch_sum(old, was_init))
-            update = asum * inv
+            asum = (asum.float() - g_fire * init_sum.float() + delta.sum(0)
+                    + _masked_batch_sum(old, ret)).to(asum.dtype)
+            init_sum = ((1.0 - g_fire) * init_sum.float()
+                        - _masked_batch_sum(old, was_init)
+                        ).to(init_sum.dtype)
+            update = asum.float() * inv
         init_count = init_count - was_init.sum(dtype=torch.int32)
         init_mask = init_mask.index_copy(0, js, init_mask[js] & ~valid)
         t_start = t_start.index_copy(
@@ -517,23 +758,92 @@ class ACED(Aggregator):
         cache, t_start = state["cache"], state["t_start"]
         active = (state["t_prev"] - t_start) <= self.tau_algo
         init_mask = state["init_mask"]
-        return {**state, "asum": cache_sum(cache, active),
+        return {**state,
+                "asum": _astate(cache_sum(cache, active, self.backend),
+                                self.state_dtype),
                 "count": active.sum(dtype=torch.int32),
-                "init_sum": cache_sum(cache, init_mask),
+                "init_sum": _astate(cache_sum(cache, init_mask, self.backend),
+                                    self.state_dtype),
                 "init_count": init_mask.sum(dtype=torch.int32)}
 
 
+@dataclasses.dataclass
+class ACEDDirect(Aggregator):
+    """Paper Algorithm a.1, literal: masked mean over the whole (n, d) cache
+    on every arrival — the O(n·d) reference the incremental `ACED` is held
+    against. On an int8 cache the masked mean is the `masked_agg` kernel.
+    K = 1 only."""
+    tau_algo: int = 10
+    cache_dtype: str = "float32"
+    backend: Optional[str] = None
+    name = "aced_direct"
+    cache_init = True
+
+    def init_state(self, n, d, init_grads=None, device=None):
+        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
+                                backend=self.backend)
+        return {"cache": cache,
+                "t_start": torch.ones((n,), dtype=torch.int32,
+                                      device=cache.data.device)}
+
+    def step(self, state, arr):
+        cache = state["cache"]
+        dev = cache.data.device
+        j = row_index(arr.client, dev)
+        cache = cache_set_row(cache, j, arr.payload, backend=self.backend)
+        t = _int(arr.t, dev)
+        t_start = state["t_start"].index_copy(0, j, (t + 1).reshape(1))
+        active = (t - t_start) <= self.tau_algo
+        if cache.quantized:
+            update = kernel_ops.masked_agg(cache.data, cache.scale, active,
+                                           backend=self.backend)
+        else:
+            update = cache_mean(cache, active, backend=self.backend)
+        return ({"cache": cache, "t_start": t_start}, update, active.any(),
+                1.0)
+
+
+ALGORITHMS = {
+    "asgd": VanillaASGD,
+    "delay_asgd": DelayAdaptiveASGD,
+    "fedbuff": FedBuff,
+    "ca2fl": CA2FL,
+    "ca2fl_direct": CA2FLDirect,
+    "ace_direct": ACEDirect,
+    "ace": ACEIncremental,
+    "aced": ACED,
+    "aced_direct": ACEDDirect,
+}
+
+
 def make_aggregator(cfg) -> Aggregator:
-    """Build from a config with the fields of `repro.configs.AFLConfig`
-    (``algorithm``, ``cache_dtype``, ``buffer_size``, ``tau_algo``,
-    ``k_batch``); the port has the ace, aced and ca2fl rules."""
+    """Build any rule of `ALGORITHMS` from an object with the fields of
+    `repro.configs.AFLConfig` (``algorithm``, ``cache_dtype``,
+    ``state_dtype`` (default "float32"), ``buffer_size``, ``tau_algo``,
+    ``k_batch``, ``max_delay_scale``, ``delay_beta``)."""
     a = cfg.algorithm
+    sd = getattr(cfg, "state_dtype", "float32")
+    if a == "asgd":
+        return VanillaASGD()
+    if a == "delay_asgd":
+        return DelayAdaptiveASGD(tau_c=cfg.max_delay_scale * cfg.delay_beta)
+    if a == "fedbuff":
+        return FedBuff(buffer_size=cfg.buffer_size, state_dtype=sd)
     if a == "ca2fl":
-        return CA2FL(buffer_size=cfg.buffer_size, cache_dtype=cfg.cache_dtype)
+        return CA2FL(buffer_size=cfg.buffer_size, cache_dtype=cfg.cache_dtype,
+                     state_dtype=sd)
+    if a == "ca2fl_direct":
+        return CA2FLDirect(buffer_size=cfg.buffer_size,
+                           cache_dtype=cfg.cache_dtype, state_dtype=sd)
+    if a == "ace_direct":
+        return ACEDirect(cache_dtype=cfg.cache_dtype)
     if a == "ace":
-        return ACEIncremental(cache_dtype=cfg.cache_dtype)
+        return ACEIncremental(cache_dtype=cfg.cache_dtype, state_dtype=sd)
     if a == "aced":
         # k_batch > 1 sizes the owner-ring for whole-cohort expiry
         return ACED(tau_algo=cfg.tau_algo, cache_dtype=cfg.cache_dtype,
+                    state_dtype=sd,
                     max_cohort=max(1, getattr(cfg, "k_batch", 1)))
-    raise ValueError(f"unknown or not yet ported AFL algorithm {a!r}")
+    if a == "aced_direct":
+        return ACEDDirect(tau_algo=cfg.tau_algo, cache_dtype=cfg.cache_dtype)
+    raise ValueError(f"unknown AFL algorithm {a!r}")

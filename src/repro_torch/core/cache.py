@@ -14,6 +14,13 @@ place**: the row writes (`set_row`, `set_row_delta`, `set_rows_delta`,
 object, so a step never copies the (n, d) cache. Row indices may be Python
 ints or integer tensors on the cache's device; tensor indices are never
 read on the host.
+
+The int8 quantizer and dequantizer route through the kernel dispatch
+(`kernels.ops.quantize_rows` / `dequantize_rows`): the CUDA kernels for a
+CUDA tensor, the plain versions for a CPU tensor or ``backend="torch"``.
+`set_row`, the int8 `init_flat_cache`, `rows`/`row`, `dequant` and through
+it `mean` and `cache_sum` take them; `set_rows_delta` quantizes inline, and
+`set_row_delta` goes through the fused `row_delta` kernel.
 """
 from __future__ import annotations
 
@@ -27,16 +34,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}
 
 
-def quantize_rows(x, axis=-1):
-    """x (..., d) -> (q int8, scale (...,)); the scale formula is
+def quantize_rows(x, backend=None):
+    """x (d,) or (n, d) -> (q int8 of x's shape, scale () or (n,) f32): the
+    `quantize_rows` kernel on a 2-D view. The scale formula is
     `kernels.ref.row_scale`'s — all int8 cache writers share it."""
-    scale = torch.clamp(torch.amax(torch.abs(x), dim=axis), min=1e-12) / INT8_MAX
-    q = torch.clamp(torch.round(x / scale.unsqueeze(axis)), -INT8_MAX, INT8_MAX)
-    return q.to(torch.int8), scale.float()
+    q, s = kernel_ops.quantize_rows(x.reshape(-1, x.shape[-1]).contiguous(),
+                                    backend=backend)
+    return q.reshape(x.shape), s.float().reshape(x.shape[:-1])
 
 
-def dequantize_rows(q, scale, axis=-1):
-    return q.float() * scale.unsqueeze(axis)
+def dequantize_rows(q, scale, backend=None):
+    """(n, d) int8 codes and (n,) scales -> (n, d) f32."""
+    return kernel_ops.dequantize_rows(q, scale, backend=backend)
 
 
 def row_index(i, device) -> torch.Tensor:
@@ -61,23 +70,24 @@ class FlatCache:
     def quantized(self) -> bool:
         return self.data.dtype == torch.int8
 
-    def row(self, i):
+    def row(self, i, backend=None):
         """Dequantized f32 row i, (d,)."""
-        return self.rows(i)[0]
+        return self.rows(i, backend)[0]
 
-    def rows(self, idx):
+    def rows(self, idx, backend=None):
         """Dequantized f32 gather of rows ``idx`` (K,) -> (K, d)."""
         idx = row_index(idx, self.data.device)
-        r = self.data.index_select(0, idx).float()
+        r = self.data.index_select(0, idx)
         if self.quantized:
-            r = r * self.scale.index_select(0, idx)[:, None]
-        return r
+            return dequantize_rows(r, self.scale.index_select(0, idx),
+                                   backend)
+        return r.float()
 
-    def set_row(self, i, g):
+    def set_row(self, i, g, backend=None):
         """Write row i (re-quantizing an int8 cache) in place; returns self."""
         i = row_index(i, self.data.device)
         if self.quantized:
-            q, s = quantize_rows(g)
+            q, s = quantize_rows(g, backend)
             self.data.index_copy_(0, i, q[None])
             self.scale.index_copy_(0, i, s.reshape(1))
         else:
@@ -141,15 +151,15 @@ class FlatCache:
         self.data.index_copy_(0, idx, torch.where(vcol, new_raw, old_raw))
         return self, delta, old
 
-    def dequant(self):
+    def dequant(self, backend=None):
         """(n, d) f32 view."""
         if self.quantized:
-            return self.data.float() * self.scale[:, None]
+            return dequantize_rows(self.data, self.scale, backend)
         return self.data.float()
 
-    def mean(self, mask=None):
+    def mean(self, mask=None, backend=None):
         """Direct aggregation (paper Alg. 1 line 10 / Alg. a.1 line 7)."""
-        rows = self.dequant()
+        rows = self.dequant(backend)
         if mask is None:
             return rows.mean(0)
         m = mask.float()
@@ -161,7 +171,7 @@ class FlatCache:
 
 
 def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
-                    device=None) -> FlatCache:
+                    device=None, backend=None) -> FlatCache:
     """An (n, d) cache of `dtype`, zero or seeded with `init_rows` (on their
     device unless `device` is given)."""
     dt = DTYPES[dtype]
@@ -169,7 +179,7 @@ def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
         device = init_rows.device if device is None else device
         init_rows = init_rows.to(device)
         if dt == torch.int8:
-            return FlatCache(*quantize_rows(init_rows))
+            return FlatCache(*quantize_rows(init_rows, backend))
         return FlatCache(init_rows.to(dt).clone(),
                          torch.ones((n,), dtype=torch.float32, device=device))
     return FlatCache(torch.zeros((n, d), dtype=dt, device=device),
@@ -221,16 +231,16 @@ def cache_n(cache: FlatCache) -> int:
     return cache.n
 
 
-def cache_row(cache: FlatCache, i):
-    return cache.row(i)
+def cache_row(cache: FlatCache, i, backend=None):
+    return cache.row(i, backend)
 
 
-def cache_rows(cache: FlatCache, idx):
-    return cache.rows(idx)
+def cache_rows(cache: FlatCache, idx, backend=None):
+    return cache.rows(idx, backend)
 
 
-def cache_set_row(cache: FlatCache, i, g):
-    return cache.set_row(i, g)
+def cache_set_row(cache: FlatCache, i, g, backend=None):
+    return cache.set_row(i, g, backend)
 
 
 def cache_set_row_delta(cache: FlatCache, i, g, backend=None):
@@ -241,15 +251,15 @@ def cache_set_rows_delta(cache: FlatCache, idx, G, valid=None):
     return cache.set_rows_delta(idx, G, valid)
 
 
-def cache_mean(cache: FlatCache, mask=None):
-    return cache.mean(mask)
+def cache_mean(cache: FlatCache, mask=None, backend=None):
+    return cache.mean(mask, backend)
 
 
-def cache_sum(cache: FlatCache, mask=None):
+def cache_sum(cache: FlatCache, mask=None, backend=None):
     """Σ over dequantized client rows (optionally ``mask``-gated) — the
     one-time O(n·d) seed of the incremental rules' running sums and the
     `Aggregator.resync` exact recompute; never on a per-event hot path."""
-    rows = cache.dequant()
+    rows = cache.dequant(backend)
     if mask is None:
         return rows.sum(0)
     return (rows * mask.float()[:, None]).sum(0)

@@ -1,8 +1,8 @@
 """Pieces of `repro.core.scan_engine` the staleness engine shares: the
 trajectory record (`ScanResult`, `_to_result`), the event budget
-(`default_n_events`) and the client payload chain (`_payload_chain`).
-The event engine itself (`run_scan`, `sweep`) and the eval/fault fields of
-the record are not ported yet."""
+(`default_n_events`, for every rule of the zoo) and the client payload
+chain (`_payload_chain`). The event engine itself (`run_scan`, `sweep`) and
+the eval/fault fields of the record are not ported yet (ROADMAP A6, A8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,11 +49,16 @@ def _payload_chain(grad_fn: Callable, local_steps: int, local_lr: float):
 def default_n_events(aggregator: Aggregator, T: int,
                      init_cache_grads: bool = True) -> int:
     """Events needed to reach T server iterations: buffered rules emit every
-    `buffer_size`-th arrival; cache-init rules consume iteration 0. (Every
-    ported rule emits on each flush; ACED's arriving client always re-enters
-    its active set.)"""
+    `buffer_size`-th arrival; cache-init rules consume iteration 0. Rules
+    whose emission is not certain per flush (``guaranteed_emit = False``)
+    get headroom. (Every rule of the zoo guarantees emission — ACED's
+    arriving client always re-enters its active set — so none takes that
+    branch; `_to_result` raises if a budget starves before T.)"""
     t0 = 1 if (init_cache_grads and wants_cache_init(aggregator)) else 0
-    return max(T - t0, 0) * int(getattr(aggregator, "buffer_size", 1))
+    base = max(T - t0, 0) * int(getattr(aggregator, "buffer_size", 1))
+    if not getattr(aggregator, "guaranteed_emit", True):
+        base += max(base // 2, 16)
+    return base
 
 
 def _to_result(w, outs, T: int, n_init_comms: int) -> ScanResult:

@@ -205,7 +205,9 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     The run is on the GPU unless ``device="cpu"``; with no GPU and no CPU
     request it raises. ``randomness`` / ``payload_noise`` replace the
     streams drawn from `seed` (the event count is then theirs).
-    ``k_batch > 1`` consumes K arrivals per tick through `step_batch`."""
+    ``k_batch > 1`` consumes K arrivals per tick through `step_batch` (the
+    direct rules have none and raise `NotImplementedError`, as in the JAX
+    package)."""
     device = resolve_device(device)
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("cache_update", "row_delta", "commit_batch")
+KERNELS = ("cache_update", "row_delta", "commit_batch", "masked_agg", "quant")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

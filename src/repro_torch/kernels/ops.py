@@ -9,10 +9,10 @@ comparisons use it). There is no environment switch that sends the main path to 
 `fused_commit_enabled` (``REPRO_NO_FUSED_COMMIT``) only picks between the
 fused commit kernel and the op chain, both on the tensors' device.
 
-Each kernel module counts its launches; `launch_counts` reads them and
-`reset_launch_counts` zeroes them. The TPU package's `masked_agg` and
-`quantize_rows`/`dequantize_rows` kernels are off this path and not ported
-yet; their plain versions are in `ref.py`.
+Every TPU kernel of the JAX package has its kernel here: `commit_batch`,
+`row_delta`, `cache_row_update`, `masked_agg`, `quantize_rows` and
+`dequantize_rows`. Each counts its launches; `launch_counts` reads them and
+`reset_launch_counts` zeroes them.
 """
 from __future__ import annotations
 
@@ -20,16 +20,25 @@ from typing import Dict, Optional
 
 from repro_torch.kernels import cache_update as _cu
 from repro_torch.kernels import commit_batch as _cb
+from repro_torch.kernels import masked_agg as _ma
+from repro_torch.kernels import quant as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import row_delta as _rd
 from repro_torch.kernels.backend import fused_commit_enabled
 
 __all__ = [
-    "cache_row_update", "commit_batch", "fused_commit_enabled",
-    "launch_counts", "reset_launch_counts", "row_delta",
+    "cache_row_update", "commit_batch", "dequantize_rows",
+    "fused_commit_enabled", "launch_counts", "masked_agg", "quantize_rows",
+    "reset_launch_counts", "row_delta",
 ]
 
-_KERNELS = {"cache_row_update": _cu, "row_delta": _rd, "commit_batch": _cb}
+# kernel name -> (module, name of its launch counter)
+_KERNELS = {"cache_row_update": (_cu, "launches"),
+            "row_delta": (_rd, "launches"),
+            "commit_batch": (_cb, "launches"),
+            "masked_agg": (_ma, "launches"),
+            "quantize_rows": (_q, "quantize_launches"),
+            "dequantize_rows": (_q, "dequantize_launches")}
 
 
 def _plain(x, backend: Optional[str]) -> bool:
@@ -39,12 +48,12 @@ def _plain(x, backend: Optional[str]) -> bool:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def cache_row_update(u, g, c_row, old_scale, new_scale, inv_n, backend=None):
@@ -75,3 +84,23 @@ def commit_batch(G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
                             upd_w, lane_a=lane_a, lane_b=lane_b,
                             lane_g=lane_g)
 
+
+def masked_agg(cache, scales, mask, backend=None):
+    """``Σ_i m_i·s_i·C[i] / max(Σm, 1)`` over an (n, d) int8 cache."""
+    if _plain(cache, backend):
+        return ref.masked_agg_ref(cache, scales, mask)
+    return _ma.masked_agg(cache, scales, mask)
+
+
+def quantize_rows(x, backend=None):
+    """(n, d) f32 -> (q (n, d) int8, scales (n,) f32), per-row symmetric."""
+    if _plain(x, backend):
+        return ref.quantize_rows_ref(x)
+    return _q.quantize_rows(x)
+
+
+def dequantize_rows(q, s, backend=None):
+    """(n, d) int8 codes and (n,) scales -> (n, d) f32."""
+    if _plain(q, backend):
+        return ref.dequantize_rows_ref(q, s)
+    return _q.dequantize_rows(q, s)

@@ -6,7 +6,7 @@ Semantics (all f32 accumulation):
         u' = u + (q(g)·new_scale − c_row·old_scale)·inv_n
         c_row' = q(g)  (int8)
   * masked_agg: ACED bounded-delay aggregation over the whole cache
-        u = Σ_i m_i·(C[i]·s_i) / max(Σ_i m_i, 1)
+        u = Σ_i (m_i·s_i / max(Σ_i m_i, 1))·C[i]   (rows in order)
   * row_delta: fused cache-row swap for the incremental running-sum rules
         delta  = dq(q(g)) − dq(c_row),   c_row' = q(g)  (int8)
   * quantize_rows / dequantize_rows: symmetric per-row int8.
@@ -17,7 +17,10 @@ Semantics (all f32 accumulation):
 
 Rounding contract (shared with the CUDA kernels, required for int8 rows to
 match the JAX package bit for bit):
-  * the scale is ``max(max|g|, 1e-12) / 127``;
+  * the scale is ``max(max|g|, 1e-12) / 127``, a true division on every
+    device (on CUDA, PyTorch computes ``tensor / python_float`` as a
+    multiply by the f32 reciprocal, which differs in the last bit for some
+    rows, so `row_scale` divides by a tensor);
   * quantize with a true division ``g / scale``, never a multiply by the
     reciprocal;
   * ``torch.round`` rounds half to even, like ``jnp.round`` and ``rintf``;
@@ -32,7 +35,8 @@ INT8_MAX = 127.0
 
 
 def row_scale(g: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.amax(torch.abs(g), dim=-1), min=1e-12) / INT8_MAX
+    m = torch.clamp(torch.amax(torch.abs(g), dim=-1), min=1e-12)
+    return m / m.new_full((), INT8_MAX)
 
 
 def _quant(g, scale):
@@ -65,11 +69,18 @@ def row_delta_ref(g, c_row, old_scale, new_scale):
 
 
 def masked_agg_ref(cache, scales, mask):
-    """cache (n, d) int8; scales (n,) f32; mask (n,) bool -> (d,) f32."""
+    """cache (n, d) int8; scales (n,) f32; mask (n,) bool -> (d,) f32.
+
+    The weights ``m·s / max(Σm, 1)`` are formed first (as the TPU kernel's
+    wrapper does) and the rows summed in order 0..n−1 — the CUDA kernel's
+    order, so the two agree bit for bit."""
     m = mask.float()
-    w = m * scales
-    acc = torch.einsum("nd,n->d", cache.float(), w)
-    return acc / torch.clamp(m.sum(), min=1.0)
+    w = m * scales / torch.clamp(m.sum(), min=1.0)
+    acc = torch.zeros(cache.shape[1:], dtype=torch.float32,
+                      device=cache.device)
+    for i in range(cache.shape[0]):
+        acc = acc + w[i] * cache[i].float()
+    return acc
 
 
 def quantize_rows_ref(x):

@@ -249,3 +249,32 @@ def test_aced_init_cohort_expiry_and_thaw_jump(K):
     assert counts[-1] <= 2 * K
     # and the running sum equals an exact recompute from the cache
     _close(ts_["asum"], t_agg.resync(ts_)["asum"])
+
+
+def test_int8_cache_routes_quantizer_and_dequantizer_through_the_dispatch(
+        monkeypatch):
+    """`set_row`, the int8 init, `rows`, `dequant` and through it `mean` and
+    `cache_sum` go through `kernels.ops.quantize_rows` / `dequantize_rows`
+    (the kernels on a CUDA tensor), and pass ``backend`` on."""
+    from repro_torch.kernels import ops
+    calls = []
+    for name in ("quantize_rows", "dequantize_rows"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _r=real, **k: (
+            calls.append((_n, k.get("backend"))) or _r(*a, **k)))
+    rng = np.random.default_rng(7)
+    init = torch.as_tensor(rng.normal(size=(4, 10)).astype(np.float32))
+    tc = tcache.init_flat_cache(4, 10, "int8", init, backend="torch")
+    tc.set_row(1, torch.as_tensor(rng.normal(size=10).astype(np.float32)))
+    tc.rows(torch.tensor([0, 2]))
+    tc.mean()
+    tcache.cache_sum(tc, torch.tensor([True, False, True, True]))
+    assert calls == [("quantize_rows", "torch"), ("quantize_rows", None),
+                     ("dequantize_rows", None), ("dequantize_rows", None),
+                     ("dequantize_rows", None)]
+    # a float cache quantizes nothing
+    calls.clear()
+    fc = tcache.init_flat_cache(4, 10, "float32", init)
+    fc.set_row(1, init[0])
+    fc.mean()
+    assert calls == []

@@ -5,9 +5,11 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-int8 rows must be bit-identical; f32 outputs agree within 1e-6 relative to
-the output's scale (the kernels build with -fmad=false, so the remaining
-differences are the order of the commit kernel's f32 sums)."""
+int8 rows and scales must be bit-identical; f32 outputs agree within 1e-6
+relative to the output's scale (the kernels build with -fmad=false, so the
+remaining differences are the order of the commit kernel's f32 sums;
+masked_agg and dequantize_rows sum and multiply in their plain versions'
+order and must agree bit for bit)."""
 import numpy as np
 import pytest
 
@@ -117,6 +119,56 @@ def test_commit_batch_all_masked_batch(cuda):
     _close(v1, kw["coef"][:, :2] @ kw["vecs"], 1e-5)
 
 
+def quant_rows(seed, n, d, device):
+    """Rows of mixed magnitudes, one all-zero row and one row of half-way
+    ties (max|x| = 127 makes its scale exactly 1.0)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g) * torch.rand(n, 1, generator=g) * 50
+    if n > 1:
+        x[1] = 0.0
+    if n > 2:
+        ties = torch.tensor([127.0, 2.5, -0.5, 1.5, 3.5, -2.5, 0.5, -126.5])
+        x[2] = ties.repeat(d // 8 + 1)[:d]
+    return x.to(device)
+
+
+@pytest.mark.parametrize("n,d", [(1, 17226), (3, 1), (100, 17226),
+                                 (100, (1 << 22) + 3)])
+def test_quant_kernels_match_plain(cuda, n, d):
+    x = quant_rows(n + d % 7, n, d, cuda)
+    before = ops.launch_counts()
+    q1, s1 = ops.quantize_rows(x)
+    q2, s2 = ops.quantize_rows(x, backend="torch")
+    x1 = ops.dequantize_rows(q1, s1)
+    x2 = ops.dequantize_rows(q1, s1, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q2) and torch.equal(s1, s2)
+    assert torch.equal(x1, x2)
+    after = ops.launch_counts()
+    assert after["quantize_rows"] == before["quantize_rows"] + 1
+    assert after["dequantize_rows"] == before["dequantize_rows"] + 1
+    # the scale is a true division, the same bits as on the CPU
+    assert torch.equal(s1.cpu(), tref.row_scale(x.cpu()))
+
+
+@pytest.mark.parametrize("n,d", [(100, 17226), (7, 1), (3000, 513),
+                                 (100, (1 << 22) + 3)])
+def test_masked_agg_matches_plain(cuda, n, d):
+    g = torch.Generator().manual_seed(n + d)
+    q, s = tref.quantize_rows_ref(torch.randn(n, d, generator=g))
+    q, s = q.to(cuda), s.to(cuda)
+    for mask in (torch.rand(n, generator=g) < 0.4,
+                 torch.ones(n, dtype=torch.bool),
+                 torch.zeros(n, dtype=torch.bool)):
+        mask = mask.to(cuda)
+        u1 = ops.masked_agg(q, s, mask)
+        u2 = ops.masked_agg(q, s, mask, backend="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(u1, u2)
+        if not bool(mask.any()):
+            assert not bool(u1.any())
+
+
 def test_wrappers_raise_on_operands_the_kernel_does_not_take(cuda):
     u, g, c, o, s = row_inputs(1, 64, cuda)
     with pytest.raises(TypeError, match="dtype"):
@@ -162,3 +214,43 @@ def test_engine_runs_through_the_kernels(cuda, name, dtype, K, kernel):
     acc = task.eval_fn(unravel(torch.as_tensor(r_kernel.w, device=cuda),
                                task.params0))
     assert 0.0 <= acc["accuracy"] <= 1.0
+
+
+@pytest.mark.parametrize("name,dtype,kernels", [
+    ("aced_direct", "int8", ("masked_agg", "quantize_rows")),
+    ("ace_direct", "int8", ("quantize_rows", "dequantize_rows")),
+    ("ca2fl_direct", "int8", ("quantize_rows", "dequantize_rows")),
+    ("aced_direct", "float32", ()),
+    ("fedbuff", "float32", ()),
+    ("delay_asgd", "float32", ()),
+])
+def test_zoo_engine_runs_through_the_kernels(cuda, name, dtype, kernels):
+    """The direct rules' int8 ticks launch masked_agg and the quantizer and
+    dequantizer; the run through the plain versions ends bit for bit where
+    the kernels' run ends (every sum is taken in the kernels' order)."""
+    task = make_vision_task(n_clients=8, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+
+    def run(backend):
+        agg = {"aced_direct": tagg.ACEDDirect(tau_algo=4, cache_dtype=dtype,
+                                              backend=backend),
+               "ace_direct": tagg.ACEDirect(cache_dtype=dtype,
+                                            backend=backend),
+               "ca2fl_direct": tagg.CA2FLDirect(buffer_size=3,
+                                                cache_dtype=dtype,
+                                                backend=backend),
+               "fedbuff": tagg.FedBuff(buffer_size=3),
+               "delay_asgd": tagg.DelayAdaptiveASGD(tau_c=2.0)}[name]
+        return run_staleness_scan(grad_fn=task.grad_fn,
+                                  params0=task.params0, aggregator=agg,
+                                  n_clients=8, server_lr=0.2, T=20,
+                                  beta=2.0, seed=3)
+    ops.reset_launch_counts()
+    r_kernel = run(None)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in kernels)
+    ops.reset_launch_counts()
+    r_plain = run("torch")
+    assert sum(ops.launch_counts().values()) == 0
+    assert np.isfinite(r_kernel.w).all()
+    assert np.array_equal(r_kernel.w, r_plain.w)

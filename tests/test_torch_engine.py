@@ -5,10 +5,13 @@ and the payload noise that JAX's key chain hands to each client call
 (replayed here: one split per call for the init batch and K = 1 ticks,
 ``split(key, K+1)`` then one split per lane for K > 1 ticks).
 
-  * Quadratic testbed (paper Fig. 2): ACE, ACED, CA²FL × K ∈ {1, 4} ×
-    {f32, int8} with an availability window that freezes the run and thaws
-    it. Final model and update norms agree within 1e-5, the repo's contract
-    between its engines.
+  * Quadratic testbed (paper Fig. 2): every rule of the zoo — ACE, ACED,
+    CA²FL × K ∈ {1, 4} × {f32, int8}; ASGD, delay-adaptive ASGD and FedBuff
+    at K ∈ {1, 4}; the direct ACE/ACED/CA²FL rules × {f32, int8} at K = 1 —
+    with an availability window that freezes the run and thaws it. Final
+    model, trajectory and update norms agree within 1e-5, the repo's
+    contract between its engines. Inside the port, each incremental rule
+    follows its direct reference within 1e-5.
   * The slice: the vision task (MLP) at reduced widths, models carried
     across with `repro_torch.convert`.
 """
@@ -21,6 +24,7 @@ import jax  # noqa: E402
 import jax.flatten_util  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs.base import AFLConfig  # noqa: E402
 from repro.core import aggregators as jagg  # noqa: E402
 from repro.core import fl_tasks as jtasks  # noqa: E402
 from repro.core.scan_engine import default_n_events  # noqa: E402
@@ -107,13 +111,41 @@ WINDOWS = (np.full(N, 6, np.int32),
            np.array([10, 10, 13, 13, 13, 13], np.int32))
 
 
+def _make_zoo(name, dtype, K, lib):
+    """Any rule of the zoo through its package's `make_aggregator`
+    (delay-adaptive τ_C = 0.4 · 5 = 2, below most of the run's delays)."""
+    cfg = AFLConfig(algorithm=name, n_clients=N, cache_dtype=dtype,
+                    tau_algo=4, buffer_size=2, k_batch=K,
+                    max_delay_scale=0.4, delay_beta=5.0)
+    return (tagg if lib == "torch" else jagg).make_aggregator(cfg)
+
+
 @pytest.mark.parametrize("K", [1, 4])
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 @pytest.mark.parametrize("name", ["ace", "aced", "ca2fl"])
 def test_quadratic_trajectory_matches_jax(name, dtype, K):
+    _quadratic_run_matches_jax(_make(name, dtype, K, "jax"),
+                               _make(name, dtype, K, "torch"), K)
+
+
+ZOO_CASES = ([(r, "float32", K) for r in ("asgd", "delay_asgd", "fedbuff")
+              for K in (1, 4)]
+             + [(r, dt, 1) for r in ("ace_direct", "aced_direct",
+                                     "ca2fl_direct")
+                for dt in ("float32", "int8")])
+
+
+@pytest.mark.parametrize("name,dtype,K", ZOO_CASES)
+def test_quadratic_trajectory_of_the_zoo_matches_jax(name, dtype, K):
+    """The rest of the rule zoo on the same testbed, freeze and thaw
+    included."""
+    _quadratic_run_matches_jax(_make_zoo(name, dtype, K, "jax"),
+                               _make_zoo(name, dtype, K, "torch"), K)
+
+
+def _quadratic_run_matches_jax(j_agg, t_agg, K):
     T, beta, seed, lr = 18, 2.0, 3, 0.1
     jax_grad, torch_grad, noise_of = quadratic()
-    j_agg, t_agg = _make(name, dtype, K, "jax"), _make(name, dtype, K, "torch")
     n_events = default_n_events(j_agg, T) + N      # + the windows' slack
     kw = dict(n_clients=N, server_lr=lr, T=T, beta=beta, tau_max=6,
               n_events=n_events, seed=seed, k_batch=K, windows=WINDOWS,
@@ -136,6 +168,42 @@ def test_quadratic_trajectory_matches_jax(name, dtype, K):
     assert np.max(np.abs(tr.ws - np.asarray(jr.ws))) <= 1e-5
     np.testing.assert_allclose(tr.update_norms, jr.update_norms, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("inc,direct", [("ace", "ace_direct"),
+                                        ("aced", "aced_direct"),
+                                        ("ca2fl", "ca2fl_direct")])
+def test_incremental_rule_follows_its_direct_reference(inc, direct, dtype):
+    """Inside the port, on one stream with a freeze and thaw: each O(d)
+    incremental rule and its literal O(n·d) reference emit at the same
+    ticks and end within 1e-5 (the port's counterpart of
+    tests/test_scan_staleness.py's incremental-vs-direct suite)."""
+    _, torch_grad, _ = quadratic()
+    runs = []
+    for name in (inc, direct):
+        runs.append(torch_run(
+            grad_fn=torch_grad, params0=torch.ones(D),
+            aggregator=_make_zoo(name, dtype, 1, "torch"), n_clients=N,
+            server_lr=0.1, T=18, beta=2.0, tau_max=6, windows=WINDOWS,
+            seed=4, record_w=True, device="cpu"))
+    a, b = runs
+    assert np.any(np.diff(a.ts) > 1)
+    assert np.array_equal(a.emit, b.emit) and np.array_equal(a.ts, b.ts)
+    assert np.max(np.abs(a.ws - b.ws)) <= 1e-5
+    np.testing.assert_allclose(a.update_norms, b.update_norms, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_direct_rule_refuses_k_batch():
+    """A direct rule has no K-arrival form: the engine raises, as the JAX
+    package's does."""
+    _, torch_grad, _ = quadratic()
+    with pytest.raises(NotImplementedError):
+        torch_run(grad_fn=torch_grad, params0=torch.ones(D),
+                  aggregator=_make_zoo("aced_direct", "int8", 4, "torch"),
+                  n_clients=N, server_lr=0.1, T=6, beta=2.0, k_batch=4,
+                  device="cpu")
 
 
 # --- the slice: the vision task ---------------------------------------------

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.cache_update import cache_row_update as pallas_cru  # noqa: E402
 from repro.kernels.commit_batch import commit_batch as pallas_cb  # noqa: E402
@@ -19,6 +20,8 @@ from repro_torch.core import scan_staleness  # noqa: E402
 from repro_torch.kernels import backend, build, ops  # noqa: E402
 from repro_torch.kernels import cache_update as _cu  # noqa: E402
 from repro_torch.kernels import commit_batch as _cb  # noqa: E402
+from repro_torch.kernels import masked_agg as _ma  # noqa: E402
+from repro_torch.kernels import quant as _q  # noqa: E402
 from repro_torch.kernels import row_delta as _rd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -218,6 +221,90 @@ def test_commit_batch_all_masked_batch():
         _close(u1.numpy(), u2)
 
 
+# --- masked_agg, quantize_rows, dequantize_rows -------------------------------
+# The port's dispatch on CPU tensors (the plain versions) against the JAX
+# package's dispatch with backend="interpret" (the Pallas bodies run by the
+# interpreter) and backend="xla" (its oracles), at odd widths.
+
+JAX_BACKENDS = ["interpret", "xla"]
+ODD_D = [1, 129, 2051]
+# with max|x| = 127 a row's scale is exactly 1.0, so these are .5 ties of
+# x / scale: round half to even gives 2, -0, 2, 4, -2, 0, -126
+TIES = np.float32([127.0, 2.5, -0.5, 1.5, 3.5, -2.5, 0.5, -126.5])
+
+
+def quant_rows(seed, d, n=5):
+    """Rows of mixed magnitudes, one all-zero row (the 1e-12 scale clamp)
+    and one row of half-way ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, d)) * rng.uniform(0.1, 50, size=(n, 1))
+         ).astype(np.float32)
+    x[1] = 0.0
+    x[2] = np.resize(TIES, d)
+    return x
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("d", ODD_D)
+def test_quantize_rows_plain_matches_jax(d, backend):
+    """q bit-identical to both JAX routes. The scale is the oracle's true
+    division ``max(max|x|, 1e-12) / 127``, bit for bit; the Pallas wrapper
+    is jitted, and XLA compiles its division by the constant 127 into a
+    multiply by the f32 reciprocal, which is that product bit for bit."""
+    x = quant_rows(d, d)
+    q1, s1 = ops.quantize_rows(_t(x))
+    q2, s2 = jops.quantize_rows(jnp.asarray(x), backend=backend)
+    _same(q1.numpy(), q2)
+    m = np.maximum(np.abs(x).max(1), np.float32(1e-12))
+    _same(s1.numpy(), m / np.float32(127.0))
+    if backend == "xla":
+        _same(s1.numpy(), s2)
+    else:
+        _same(np.asarray(s2), m * (np.float32(1.0) / np.float32(127.0)))
+        assert np.all(np.abs(s1.numpy() - s2) <= np.spacing(s2))
+    assert float(s1[1]) == np.float32(1e-12) / np.float32(127.0)
+    assert not q1[1].any()
+    expect = np.int8([127, 2, 0, 2, 4, -2, 0, -126])[:d]
+    assert np.array_equal(q1[2, :8].numpy(), expect)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("d", ODD_D)
+def test_dequantize_rows_plain_matches_jax(d, backend):
+    q, s = jref.quantize_rows_ref(jnp.asarray(quant_rows(d + 3, d)))
+    x1 = ops.dequantize_rows(_t(q), _t(s))
+    x2 = jops.dequantize_rows(q, s, backend=backend)
+    _same(x1.numpy(), x2)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("d", ODD_D)
+def test_masked_agg_plain_matches_jax_kernel(d, backend):
+    n = 7
+    rng = np.random.default_rng(d + 11)
+    q, s = jref.quantize_rows_ref(jnp.asarray(quant_rows(d + 5, d, n)))
+    for mask in (rng.random(n) < 0.5, np.zeros(n, bool), np.ones(n, bool)):
+        u1 = ops.masked_agg(_t(q), _t(s), _t(mask))
+        u2 = jops.masked_agg(q, s, jnp.asarray(mask), backend=backend)
+        assert u1.dtype == torch.float32 and u1.shape == (d,)
+        _close(u1.numpy(), u2)
+        if not mask.any():
+            assert not u1.any()
+
+
+def test_masked_agg_plain_sums_rows_in_order():
+    """The plain version forms ``w = m·s / max(Σm, 1)`` and adds the rows
+    0..n−1 one after another — the CUDA kernel's order, so the two agree
+    bit for bit on the card."""
+    q, s = tref.quantize_rows_ref(torch.as_tensor(quant_rows(4, 300, 6)))
+    mask = torch.tensor([True, False, True, True, False, True])
+    w = mask.float() * s / mask.float().sum()
+    acc = torch.zeros(300)
+    for i in range(6):
+        acc = acc + w[i] * q[i].float()
+    assert torch.equal(tref.masked_agg_ref(q, s, mask), acc)
+
+
 # --- dispatch and device policy ---------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -272,3 +359,38 @@ def test_build_is_keyed_by_source_hash():
     assert all(n.endswith(".so") and "-" in n for n in names)
     assert build.BUILD_DIR.name == "build"
 
+
+
+def test_cpu_tensors_take_the_plain_version_for_the_new_kernels():
+    x = torch.as_tensor(quant_rows(1, 64))
+    mask = torch.tensor([True, False, True, True, False])
+    before = ops.launch_counts()
+    assert set(before) == {"cache_row_update", "row_delta", "commit_batch",
+                           "masked_agg", "quantize_rows", "dequantize_rows"}
+    q, s = ops.quantize_rows(x)
+    q2, s2 = ops.quantize_rows(x, backend="torch")
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert torch.equal(ops.dequantize_rows(q, s),
+                       tref.dequantize_rows_ref(q, s))
+    assert torch.equal(ops.masked_agg(q, s, mask),
+                       ops.masked_agg(q, s, mask, backend="torch"))
+    assert ops.launch_counts() == before
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    """`masked_agg`, `quantize_rows` and `dequantize_rows` launch on CUDA
+    tensors only; a CPU tensor raises in the wrapper, and an unknown
+    backend in the dispatch."""
+    x = torch.as_tensor(quant_rows(2, 32))
+    q, s = tref.quantize_rows_ref(x)
+    mask = torch.ones(5, dtype=torch.bool)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _q.quantize_rows(x)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _q.dequantize_rows(q, s)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _ma.masked_agg(q, s, mask)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.masked_agg(q, s, mask, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.quantize_rows(x, backend="pallas")
