@@ -13,10 +13,13 @@ result line):
      bit-identical, f32 outputs within 1e-6 of the output's scale.
      row_delta / cache_row_update at d = 17,226 and 2^24 + 3;
      commit_batch (K = 16, R = 1, 2, 3) with int8 and with f32 cache rows,
-     NaN-poisoned invalid lanes and an all-invalid batch; masked_agg at
-     (n, d) = (100, 17,226) and (100, 2^22 + 3) with random, all-true and
-     all-false masks; quantize_rows at (1, 17,226), (100, 17,226) and
-     (100, 2^22 + 3) with an all-zero row and a row of half-way ties;
+     NaN-poisoned invalid lanes and an all-invalid batch, also at d = 128,
+     d = 130 and K = 17, each timing row beside the device time of the
+     whole `ops.commit_batch` call and its device launches per call;
+     masked_agg at (n, d) = (100, 17,226) and (100, 2^22 + 3) with random,
+     all-true and all-false masks; quantize_rows at (1, 17,226),
+     (100, 17,226) and (100, 2^22 + 3) with an all-zero row and a row of
+     half-way ties;
      dequantize_rows at (100, 17,226) and (100, 2^22 + 3). Each is timed
      beside its bound and its plain version, and dequantize_rows beside
      `torch.mul(q, s[:, None])`, the one PyTorch call that computes it (no
@@ -86,25 +89,27 @@ def check(cond, msg):
 
 # --- timing -----------------------------------------------------------------
 
-def _device_us(torch, prof, name_part):
-    """Device time (µs) in a profile: of the kernels whose name holds
-    `name_part`, or of every kernel when it is None. Only the device-side
-    events count (a CPU op's own device time is its kernels' again)."""
+def _device_us(torch, prof, name_part, launches=False):
+    """Device time (µs) in a profile, or with `launches` the number of
+    device events: of the kernels whose name holds `name_part`, or of every
+    kernel when it is None. Only the device-side events count (a CPU op's
+    own device time is its kernels' again)."""
     total = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if name_part is None or name_part in e.key:
-            total += e.self_device_time_total
+            total += e.count if launches else e.self_device_time_total
     return total
 
 
 def measure(torch, fn, iters, kernel_name=None):
-    """(device ms per call, event ms per call). Device time comes from
-    torch.profiler's CUDA trace: the named kernel's own time, or all the
-    call's kernels for the plain version; None when the profiler saw no
-    device time. Event time is CUDA events around `iters` back-to-back
-    calls (what a caller pays, host overhead included)."""
+    """(device ms per call, event ms per call, device launches per call).
+    Device time comes from torch.profiler's CUDA trace: the named kernel's
+    own time, or all the call's kernels for the plain version; None when
+    the profiler saw no device time. Event time is CUDA events around
+    `iters` back-to-back calls (what a caller pays, host overhead
+    included)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -123,7 +128,8 @@ def measure(torch, fn, iters, kernel_name=None):
             fn()
         torch.cuda.synchronize()
     dev_us = _device_us(torch, prof, kernel_name)
-    return (dev_us / 1e3 / iters if dev_us > 0 else None), event_ms
+    n = _device_us(torch, prof, kernel_name, launches=True) / iters
+    return (dev_us / 1e3 / iters if dev_us > 0 else None), event_ms, n
 
 
 # --- phase 3: kernels against their plain versions -----------------------------
@@ -217,13 +223,23 @@ def compare_commit(torch, ops, K, d, R, dev, card, valid=None, label="",
           f"(tolerance {F32_TOL:g} of the output's scale) [{card}]")
     n_l = len(lanes)
     row_b = kw["old_rows"].element_size()
-    nbytes = d * (K * (4 + 2 * row_b) + 2 * R * 4 + 4) + 4 * (
-        6 * K + (R + 1) * (R + 4))
+    # every operand read once, every output written once: the (K, d) rows
+    # and payloads, V in and out, the update, and the lane scalars (scales,
+    # the bool mask, the lane weights) and the recombination matrix
+    scales = 8 * K if rows == "int8" else 0
+    nbytes = d * (K * (4 + 2 * row_b) + 2 * R * 4 + 4) + scales + K + (
+        4 * (n_l * K + (R + 1) * (R + 4)))
     per_lane = 8 if rows == "int8" else 2    # dequant, quant, delta / delta
     nops = d * (K * (per_lane + 2 * n_l) + 2 * (R + 1) * (R + 1 + n_l))
     call = lambda backend=None: ops.commit_batch(**kw, backend=backend)
-    return err, _timing_row(torch, tag, call, "commit_batch_kernel", nbytes,
-                            nops, 200 if d < 1e6 else 10, card)
+    iters = 200 if d < 1e6 else 10
+    row = _timing_row(torch, tag, call, "commit_batch_kernel", nbytes, nops,
+                      iters, card)
+    # the whole ops.commit_batch call: every kernel it puts on the card
+    call_ms, _, per_call = measure(torch, call, iters, kernel_name=None)
+    print(f"kernel {tag}: whole ops.commit_batch call {_fmt(call_ms)} ms "
+          f"device, {per_call:g} device launches per call [{card}]")
+    return err, row
 
 
 def _timed(torch, fn, iters, kernel_name, bound):
@@ -231,7 +247,7 @@ def _timed(torch, fn, iters, kernel_name, bound):
     such kernel or less time than the bound — the trace then lost kernel
     events (seen at the largest shapes) and the CUDA-event time per call of
     a back-to-back loop is taken instead."""
-    dev_ms, ev_ms = measure(torch, fn, iters, kernel_name)
+    dev_ms, ev_ms, _ = measure(torch, fn, iters, kernel_name)
     if dev_ms is not None and dev_ms >= bound:
         return dev_ms, "device"
     return ev_ms, "events"
@@ -504,6 +520,13 @@ def main() -> int:
         e, _ = compare_commit(torch, ops, K_SLICE, D_SLICE, 2, dev, card,
                               valid=none, label=" all-invalid", rows=row_type)
         errs["commit_batch"] = max(errs["commit_batch"], e)
+        # one block's width, a ragged last block (d ≡ 2 mod 4), and K off
+        # the K = 16 instantiation
+        for K, d in ((K_SLICE, 128), (K_SLICE, 130), (K_SLICE + 1, D_SLICE)):
+            for R in (1, 2, 3):
+                e, _ = compare_commit(torch, ops, K, d, R, dev, card,
+                                      rows=row_type)
+                errs["commit_batch"] = max(errs["commit_batch"], e)
     errs["masked_agg"], rows["masked_agg"] = compare_masked_agg(
         torch, ops, N_SLICE, D_SLICE, dev, card)
     e_big, _ = compare_masked_agg(torch, ops, N_SLICE, D_ROWS_LARGE, dev,

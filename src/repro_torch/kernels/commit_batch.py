@@ -10,9 +10,10 @@ One pass over the features performs the whole batched commit that
     masked segment sums                       S_Δ, S_A, S_B, S_G
     running sums + model update               [V'; u] = mats @ [V; S_*]
 
-The per-lane scalars travel as one (6, K) f32 block [old_s, new_s, valid,
-w_a, w_b, w_g] and the recombination as one (R+1, R+4) f32 block
-[coef; upd_w], both read by the kernel from device memory. The kernel is
+The per-lane scalars (`old_s`, `new_s`, `valid`, the lane weights) and
+the recombination (`coef`, `upd_w`) travel as their own device tensors,
+absent ones as null pointers, and the kernel stages them in shared
+memory: a call launches the kernel and nothing else. The kernel is
 ``csrc/commit_batch.cu``; its plain version is `ref.commit_batch_ref`
 (``plain`` below), which `ops.commit_batch` takes for CPU tensors."""
 from __future__ import annotations
@@ -29,6 +30,12 @@ from repro_torch.kernels.ref import commit_batch_ref as plain  # noqa: F401
 launches = 0
 _entry = None
 _ROW_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _ptr(x):
+    """A device pointer for the C entry; None (a null pointer) for an
+    absent operand."""
+    return None if x is None else x.data_ptr()
 
 
 def commit_batch(G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
@@ -62,20 +69,10 @@ def commit_batch(G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
         cuda_operand(new_s, "new_s", torch.float32, (K,), dev)
     elif old_s is not None or new_s is not None:
         raise ValueError("old_s/new_s are for int8 rows only")
-    ones = torch.ones((K,), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((K,), dtype=torch.float32, device=dev)
-    weights = []
     for name, w in (("lane_a", lane_a), ("lane_b", lane_b),
                     ("lane_g", lane_g)):
         if w is not None:
             cuda_operand(w, name, torch.float32, (K,), dev)
-        weights.append(w if w is not None else zeros)
-    flags = sum(1 << i for i, w in enumerate((lane_a, lane_b, lane_g))
-                if w is not None)
-    lanes = torch.stack([old_s if quantized else ones,
-                         new_s if quantized else ones,
-                         valid.float(), *weights])
-    mats = torch.cat([coef, upd_w[None]], 0)
     new_rows = torch.empty_like(old_rows)
     vecs_out = torch.empty((R, d), dtype=torch.float32, device=dev)
     update = torch.empty((d,), dtype=torch.float32, device=dev)
@@ -83,12 +80,13 @@ def commit_batch(G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
         P = ctypes.c_void_p
         _entry = build.function(
             "commit_batch", "commit_batch",
-            [ctypes.c_int, ctypes.c_int] + [P] * 8
+            [ctypes.c_int] + [P] * 14
             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P])
     build.check("commit_batch", _entry(
-        _ROW_TYPES[old_rows.dtype], flags, G.data_ptr(), old_rows.data_ptr(),
-        lanes.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
-        new_rows.data_ptr(), vecs_out.data_ptr(), update.data_ptr(), K, R, d,
-        stream_handle(dev)))
+        _ROW_TYPES[old_rows.dtype],
+        *(_ptr(x) for x in (G, old_rows, old_s, new_s, valid, lane_a, lane_b,
+                            lane_g, coef, upd_w, vecs, new_rows, vecs_out,
+                            update)),
+        K, R, d, stream_handle(dev)))
     launches += 1
     return new_rows, vecs_out, update

@@ -90,6 +90,17 @@ def commit_inputs(seed, K, d, R, dtype, lanes, device, valid=None):
             for k, v in kw.items()}
 
 
+# R -> the lane weights of the rule with R running-sum vectors
+RULE_LANES = {1: (), 2: ("a", "b"), 3: ("a", "g")}   # ACE, ACED, CA²FL
+# every residue of d mod 4, widths below one warp, a ragged last block and
+# the engine's width; K on both sides of the K = 16 instantiation
+EDGE_CASES = [(K, d, R, dtype, RULE_LANES[R])
+              for dtype in (torch.int8, torch.float32, torch.bfloat16)
+              for d in (1, 3, 5, 128, 130, 17226)
+              for K in (1, 2, 15, 16, 17)
+              for R in (1, 2, 3)]
+
+
 @pytest.mark.parametrize("K,d,R,dtype,lanes", [
     (16, 17226, 1, torch.int8, ()),                 # ACE
     (16, 17226, 2, torch.int8, ("a", "b")),         # ACED
@@ -98,7 +109,7 @@ def commit_inputs(seed, K, d, R, dtype, lanes, device, valid=None):
     (4, 1000, 3, torch.float32, ("a", "b", "g")),
     (3, 777, 2, torch.bfloat16, ("a",)),
     (1, 1, 1, torch.int8, ("g",)),
-])
+] + EDGE_CASES)
 def test_commit_batch_matches_plain(cuda, K, d, R, dtype, lanes):
     kw = commit_inputs(5 + K, K, d, R, dtype, lanes, cuda)
     r1, v1, u1 = ops.commit_batch(**kw)
@@ -106,6 +117,86 @@ def test_commit_batch_matches_plain(cuda, K, d, R, dtype, lanes):
     torch.cuda.synchronize()
     assert torch.equal(r1, r2)
     assert torch.isfinite(v1).all() and torch.isfinite(u1).all()
+    _close(v1, v2)
+    _close(u1, u2)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("operand,offset", [("G", 1), ("old_rows", 2)])
+def test_commit_batch_offset_operands(cuda, dtype, operand, offset):
+    """An operand that starts `offset` elements into its storage (a
+    contiguous view) is read where it lies: the kernel matches the plain
+    version bit for bit whatever the operands' alignment."""
+    K, d = 16, 1030
+    kw = commit_inputs(11, K, d, 3, dtype, ("a", "g"), cuda)
+    x = kw[operand]
+    flat = torch.empty(K * d + offset, dtype=x.dtype, device=cuda)
+    kw[operand] = flat[offset:].view(K, d).copy_(x)
+    r1, v1, u1 = ops.commit_batch(**kw)
+    r2, v2, u2 = ops.commit_batch(**kw, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2)
+    _close(v1, v2)
+    _close(u1, u2)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("K", [16, 17])
+def test_commit_batch_is_one_launch(cuda, dtype, K):
+    """One `ops.commit_batch` call puts exactly one kernel on the card: the
+    lane scalars and the recombination reach it as their own tensors. Over
+    n calls the wrapper counts n launches, and the trace holds no other
+    device work and no more than n commit kernels. (The profiler on the
+    H100 machine sometimes drops events, so the trace may hold fewer, and a
+    trace with none at all is taken again.)"""
+    kw = commit_inputs(4, K, 17226, 3, dtype, ("a", "g"), cuda)
+    ops.commit_batch(**kw)          # build and load the library first
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = 20
+    for _ in range(3):
+        before = ops.launch_counts()["commit_batch"]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                ops.commit_batch(**kw)
+            torch.cuda.synchronize()
+        assert ops.launch_counts()["commit_batch"] == before + n
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    assert 0 < len(on_card) <= n, on_card
+    assert all("commit_batch_kernel" in name for name in on_card), on_card
+
+
+@pytest.mark.parametrize("K,d", [(16, 17226), (16, 40000), (17, 1000)])
+def test_commit_batch_rounding_ties(cuda, K, d):
+    """Payloads on int8 rounding ties (power-of-two scales make g / s an
+    exact half-integer), a few ulps off them, on both sides of the kernel's
+    1e-4 tie margin, past the ±127 clip, and on a lane whose subnormal
+    scale has no finite reciprocal: the codes must be the plain version's,
+    which divides."""
+    kw = commit_inputs(2, K, d, 3, torch.int8, ("a", "g"), cuda)
+    g = torch.Generator().manual_seed(K + d)
+    pow2 = 2.0 ** -torch.randint(3, 9, (K,), generator=g).float()
+    scales = torch.where(torch.arange(K) % 2 == 0, pow2,
+                         torch.rand(K, generator=g) * 0.05 + 1e-3)
+    scales[1] = 1e-40
+    kw["valid"][1] = True
+    n = torch.randint(-131, 131, (K, d), generator=g).float()
+    offsets = torch.tensor([0.0, 0.0, 0.0, 2.0 ** -20, -2.0 ** -20, 1e-5,
+                            -1e-5, 9e-5, -9e-5, 1.1e-4, -1.1e-4, 0.3])
+    pick = torch.randint(len(offsets), (K, d), generator=g)
+    G = (n + 0.5 + offsets[pick]) * scales[:, None]
+    valid = kw["valid"].cpu()
+    G[~valid] = float("nan")
+    kw.update(G=G.to(cuda), new_s=scales.to(cuda))
+    r1, v1, u1 = ops.commit_batch(**kw)
+    r2, v2, u2 = ops.commit_batch(**kw, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2)
     _close(v1, v2)
     _close(u1, u2)
 

@@ -112,6 +112,53 @@ def test_row_delta_plain_matches_jax(d, blk):
     _close(d1.numpy(), d3)
 
 
+def _quant_multiply(g, s):
+    """numpy float32 copy of `quant_fast` in kernels/csrc/common.cuh, the
+    CUDA kernels' int8 rounding by one multiply: (codes, decided). Where
+    `decided` is false the kernel divides instead."""
+    with np.errstate(divide="ignore", over="ignore"):
+        inv = np.float32(1.0) / s
+    inv = np.where(np.isfinite(inv), inv, np.float32(np.nan))
+    q0 = g * inv
+    n = np.rint(q0)
+    margin = np.float32(0.5) - np.float32(1e-4)
+    with np.errstate(invalid="ignore"):
+        decided = (np.abs(q0) >= 129) | (np.abs(q0 - n) < margin)
+    return np.clip(n, -127, 127), decided
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quant_multiply_shortcut_matches_division(seed):
+    """Wherever the kernels' multiply decides an int8 code, the code is the
+    one the JAX reference's division gives: on random payloads and scales
+    from 1e-8 to 1e2 (the multiply decides nearly all of them), on a
+    subnormal scale whose reciprocal overflows, and on payloads placed on
+    half-way ties and a few ulps to 2e-4 off them (it must leave those
+    within 1e-4 of a tie to the division)."""
+    rng = np.random.default_rng(seed)
+    rows, d = 48, 4096
+    s = np.float32(10.0 ** rng.uniform(-8, 2, size=(rows, 1)))
+    s[::3] = np.float32(2.0 ** -rng.integers(3, 12, size=(len(s[::3]), 1)))
+    q_true = rng.uniform(-200, 200, size=(rows, d))
+    ties = np.floor(q_true[: rows // 2]) + 0.5 + rng.choice(
+        [0.0, 2.0 ** -20, -2.0 ** -20, 1e-5, -1e-5, 9e-5, -9e-5, 1.1e-4,
+         -1.1e-4, 2e-4, -2e-4], size=(rows // 2, d))
+    q_true[: rows // 2] = ties
+    s[rows - 2] = np.float32(1e-40)       # 1 / s overflows: all divide
+    g = np.float32(q_true * s)
+    g[rows - 1, :4] = [0.0, -0.0, np.inf, -np.inf]
+    q_div = np.clip(np.rint(g / s), -127, 127)
+    q_mul, decided = _quant_multiply(g, s)
+    assert np.array_equal(q_mul[decided], q_div[decided])
+    assert decided[rows // 2:rows - 2].mean() > 0.99
+    assert not decided[rows - 2].any()
+    assert not decided[: rows // 2].all()
+    for r in (0, rows // 2, rows - 1):     # the division is JAX's
+        _, c = jref.row_delta_ref(jnp.asarray(g[r]), jnp.zeros(d, jnp.int8),
+                                  np.float32(1.0), s[r, 0])
+        _same(np.asarray(c), q_div[r].astype(np.int8))
+
+
 def commit_inputs(seed, K, d, R, row_dtype, lanes, valid=None, nan=False):
     """Random inputs in the aggregator calling convention: lane weights are
     zero on invalid lanes and `new_s` scales the sanitized payloads, as
