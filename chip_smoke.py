@@ -19,8 +19,10 @@ result line):
      masked_agg at (n, d) = (100, 17,226) and (100, 2^22 + 3) with random,
      all-true and all-false masks; quantize_rows at (1, 17,226),
      (100, 17,226) and (100, 2^22 + 3) with an all-zero row and a row of
-     half-way ties;
-     dequantize_rows at (100, 17,226) and (100, 2^22 + 3). Each is timed
+     half-way ties, x also at offsets of 4, 8 and 12 bytes;
+     dequantize_rows at (100, 17,226) and (100, 2^22 + 3), q also at
+     offsets of 1-3, 4, 8 and 12 bytes; both also at (1, 17,227) and
+     (2, 7), untimed, and each prints its launch plan. Each is timed
      beside its bound and its plain version, and dequantize_rows beside
      `torch.mul(q, s[:, None])`, the one PyTorch call that computes it (no
      single call computes the other five: their library_ms is null);
@@ -35,7 +37,9 @@ result line):
      run and the int8 direct ACED run are repeated through the plain
      versions on the card and must end within 1e-4 of the kernels' runs;
      each incremental rule's final model is set beside its direct
-     reference's (int8 and f32, K = 1, same seed);
+     reference's (int8 and f32, K = 1, same seed); one traced run each of
+     int8 ACE at K = 16 and int8 ACED- and ACE-direct at K = 1 gives the
+     device's busy time per tick and its largest kernels;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -75,6 +79,13 @@ KERNELS = {
                         "src/repro/kernels/quant.py:83"),
 }
 ALSO_REPLACES = {"quantize_rows": "src/repro/kernels/quant.py:62"}
+# the CUDA function each kernel's launches carry in a profiler trace
+KERNEL_SYMBOLS = {"row_delta": "row_delta_kernel",
+                  "cache_row_update": "cache_update_kernel",
+                  "commit_batch": "commit_batch_kernel",
+                  "masked_agg": "masked_agg_kernel",
+                  "quantize_rows": "quantize_rows_kernel",
+                  "dequantize_rows": "dequantize_rows_kernel"}
 RULE_LANES = {1: (), 2: ("a", "b"), 3: ("a", "g")}   # ACE, ACED, CA²FL
 
 
@@ -289,9 +300,20 @@ def quant_input(torch, n, d, dev, seed):
     return x
 
 
-def compare_quant(torch, ops, n, d, dev, card):
-    """quantize_rows at (n, d): q and s bit-identical to the plain version.
-    Returns (max abs error of s, timing row)."""
+def _offset(torch, t, offset):
+    """A contiguous copy of `t` starting `offset` elements into its
+    allocation (a row of a batch tensor, as `FlatCache.set_row` passes)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def compare_quant(torch, ops, n, d, dev, card, timed=True):
+    """quantize_rows at (n, d), also with x at 4, 8 and 12 bytes past a
+    16-byte line: q and s bit-identical to the plain version. Prints the
+    launch plan. Returns (max abs error of s, timing row or None)."""
+    from repro_torch.kernels import quant as kq
     x = quant_input(torch, n, d, dev, seed=n + d % 1000)
     q1, s1 = ops.quantize_rows(x)
     q2, s2 = ops.quantize_rows(x, backend="torch")
@@ -304,8 +326,19 @@ def compare_quant(torch, ops, n, d, dev, card):
               f"{tag}: all-zero row")
         check(q1[2, :8].tolist() == [127, 2, 0, 2, 4, -2, 0, -126],
               f"{tag}: half-way ties not rounded to even")
-    print(f"kernel {tag}: q and s bit-identical (all-zero row and half-way "
-          f"ties included) [{card}]")
+    for off in (1, 2, 3):
+        qo, so = ops.quantize_rows(_offset(torch, x, off))
+        check(torch.equal(qo, q2) and torch.equal(so, s2),
+              f"{tag}: x at offset {4 * off} B differs from plain")
+    C, T, V, on_chip = kq._quant_plan(n, d, kq._sm_count(dev))
+    rows_note = "all-zero row, half-way ties and " if n > 2 else ""
+    print(f"kernel {tag}: q and s bit-identical ({rows_note}x at offsets "
+          f"4/8/12 B included); plan: cluster {C}, "
+          f"{T} threads a block, slice in {on_chip}"
+          f"{f' ({V} vectors a thread)' if on_chip == 'registers' else ''}"
+          f" [{card}]")
+    if not timed:
+        return 0.0, None
     iters = 200 if n * d < 1e7 else 10
     row = _timing_row(torch, tag, lambda b=None: ops.quantize_rows(
         x, backend=b), "quantize_rows_kernel", n * d * 5 + n * 4,
@@ -313,7 +346,11 @@ def compare_quant(torch, ops, n, d, dev, card):
     return 0.0, row
 
 
-def compare_dequant(torch, ops, n, d, dev, card):
+def compare_dequant(torch, ops, n, d, dev, card, timed=True):
+    """dequantize_rows at (n, d), also with q 1-3, 4, 8 and 12 bytes past
+    an aligned address: bit-identical to the plain version and to
+    torch.mul(q, s[:, None]). Prints the launch plan."""
+    from repro_torch.kernels import quant as kq
     q, s = ops.quantize_rows(quant_input(torch, n, d, dev, seed=7 + n),
                              backend="torch")
     x1 = ops.dequantize_rows(q, s)
@@ -323,8 +360,16 @@ def compare_dequant(torch, ops, n, d, dev, card):
     tag = f"dequantize_rows n={n} d={d}"
     check(torch.equal(x1, x2), f"{tag}: differs from plain")
     check(torch.equal(x1, x3), f"{tag}: differs from torch.mul(q, s)")
+    for off in (1, 2, 3, 4, 8, 12):
+        check(torch.equal(ops.dequantize_rows(_offset(torch, q, off), s), x2),
+              f"{tag}: q at offset {off} B differs from plain")
+    head, W, vec_q, T, blocks = kq._dequant_plan(n, d, q.data_ptr(),
+                                                 x1.data_ptr())
     print(f"kernel {tag}: bit-identical to the plain version and to "
-          f"torch.mul(q, s[:, None]) [{card}]")
+          f"torch.mul(q, s[:, None]) (q at offsets 1-3/4/8/12 B included); "
+          f"plan: {W} codes a thread, {blocks} blocks of {T} [{card}]")
+    if not timed:
+        return 0.0, None
     iters = 200 if n * d < 1e7 else 10
     row = _timing_row(torch, tag, lambda b=None: ops.dequantize_rows(
         q, s, backend=b), "dequantize_rows_kernel", n * d * 5 + n * 4,
@@ -541,6 +586,11 @@ def main() -> int:
     errs["dequantize_rows"], rows["dequantize_rows"] = compare_dequant(
         torch, ops, N_SLICE, D_SLICE, dev, card)
     compare_dequant(torch, ops, N_SLICE, D_ROWS_LARGE, dev, card)
+    # odd shapes: a ragged row at the engine's width, and rows shorter than
+    # a vector
+    for n, d in ((1, D_SLICE + 1), (2, 7)):
+        compare_quant(torch, ops, n, d, dev, card, timed=False)
+        compare_dequant(torch, ops, n, d, dev, card, timed=False)
     print("library yardstick: torch.mul(q, s[:, None]) for dequantize_rows; "
           "none for the other five — no single PyTorch call computes "
           "row_delta, cache_row_update or commit_batch, torch.mv refuses "
@@ -606,21 +656,35 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for rule, dtype, K in (("ace", "int8", K_SLICE),
-                           ("aced_direct", "int8", 1)):
+                           ("aced_direct", "int8", 1),
+                           ("ace_direct", "int8", 1)):
         T, E = _depth(rule, K)
         with torch.profiler.profile(activities=acts) as prof:
             run_engine(task, rule, dtype, K, T, E, dev)
-        busy_ms = _device_us(torch, prof, None) / 1e3 / E
+        # aggregated once: key_averages() over a whole run takes seconds
+        device_events = [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total
+                      for e in device_events) / 1e3 / E
         tick_ms = 1e3 * walls[rule, dtype, K] / E
         print(f"engine {rule} {dtype} K={K}: device busy {busy_ms:.4f} ms "
               f"per tick of {tick_ms:.4f} ms wall, idle share "
               f"{1 - busy_ms / tick_ms:.3f} [{card}]")
-        top = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+        top = sorted(device_events,
                      key=lambda e: -e.self_device_time_total)[:6]
         for e in top:
             print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
                   f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
+        ours = []
+        for name, symbol in KERNEL_SYMBOLS.items():
+            evs = [e for e in device_events
+                   if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
+            if evs:
+                ms = sum(e.self_device_time_total for e in evs) / 1e3 / E
+                per = sum(e.count for e in evs) / E
+                ours.append(f"{name} {ms:.4f} ms/tick ({per:.1f} "
+                            "launches/tick)")
+        print(f"  the port's kernels: {'; '.join(ours) or 'none'}")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")
@@ -633,6 +697,7 @@ def main() -> int:
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         report.append(entry)
+    print(f"wall time {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,7 @@ from repro_torch.core.cache import (DTYPES, cache_mean, cache_n, cache_row,
                                     init_flat_cache, row_index)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels.backend import resolve_device
 
 
 class Arrival(NamedTuple):
@@ -241,6 +242,7 @@ class FedBuff(Aggregator):
     name = "fedbuff"
 
     def init_state(self, n, d, init_grads=None, device=None):
+        device = resolve_device(device)
         return {"accum": _zeros_vec(d, self.state_dtype, device),
                 "count": torch.zeros((), dtype=torch.int32, device=device)}
 

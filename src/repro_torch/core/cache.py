@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels.backend import resolve_device
 
 INT8_MAX = 127.0
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -173,10 +174,13 @@ class FlatCache:
 def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
                     device=None, backend=None) -> FlatCache:
     """An (n, d) cache of `dtype`, zero or seeded with `init_rows` (on their
-    device unless `device` is given)."""
+    device unless `device` is given). With neither, it goes on the card, or
+    raises without one (`resolve_device`)."""
     dt = DTYPES[dtype]
+    if init_rows is not None and device is None:
+        device = init_rows.device
+    device = resolve_device(device)
     if init_rows is not None:
-        device = init_rows.device if device is None else device
         init_rows = init_rows.to(device)
         if dt == torch.int8:
             return FlatCache(*quantize_rows(init_rows, backend))

@@ -15,93 +15,409 @@
 // q (1 B) per element, plus 4 B of scale per row; dequantize_rows reads
 // 1 B and writes 4 B per element. At (100, 17,226) each moves 8.6 MB,
 // about 2.6 µs at 3.35 TB/s; at (1, 17,226) the quantizer's 86 KB take
-// 0.026 µs, far below the launch latency: one block on one SM is all the
-// work there is, so that call is launch-bound.
+// 0.026 µs, far below the launch latency, so that call is latency-bound:
+// what counts there is how many SMs share the row and how few dependent
+// steps each takes.
 //
-// quantize_rows: one block per row and one launch for both TPU phases.
-// Pass 1 is a block |max| reduction (warp shuffles, then shared memory);
-// max is order-free, so the scale is bit-exact whatever the order. NaN
-// propagates through the max, as through torch.amax. Thread 0 writes the
-// scale; pass 2 re-reads the row (L2-resident at the engine's d) and writes
-// the codes with repro::quant, the rounding contract every int8 writer of
-// the port shares (IEEE division, round half to even, clip).
-// dequantize_rows: a 2-D grid, features on x and rows on y (strided when
-// n > 65,535), so no thread divides to find its row.
+// quantize_rows: one launch for both TPU phases. A row is split over a
+// thread-block cluster of C blocks (C = 1, 2, 4 or 8; the host plan,
+// kernels/quant.py `_quant_plan`, picks C, the block size and where the
+// slice lives). Each block owns one contiguous slice: block 0 a scalar head
+// up to x's next 16-byte boundary, every block a run of float4 vectors,
+// block C-1 the scalar tail. A block loads its whole slice once, every
+// load issued before the first use, and keeps it on chip: in registers
+// (`kRegisters`, 2, 4 or 8 vectors a thread), else in shared memory
+// (`kShared`); only a slice that fits neither is read twice (`kStream`,
+// its second pass walking backwards, so the most recently read part may
+// still be in L2). The block's |max| (warp shuffles, then one warp over
+// the warps' maxima) is pushed through distributed shared memory into every
+// cluster block, each push followed by an arrival on that block's mbarrier;
+// a block waits for its C arrivals and combines the C maxima. max is
+// order-free, so every block derives the same scale bits; NaN propagates
+// through it, as through torch.amax. Block 0 writes the scale. The codes go
+// out through repro::quant, the rounding contract every int8 writer of the
+// port shares (IEEE division, round half to even, clip), as char4 where q
+// is aligned. The push keeps the one cluster barrier, which guards the
+// mbarriers' set-up, off the critical path: a pull (cluster.sync(), each
+// block reading its peers' maxima, a second barrier before leaving) took
+// 3.55 µs at (1, 17,226) against the push's 2.94 (tools/quant_designs.py;
+// NVIDIA H100 80GB HBM3, 700.00 W).
+//
+// dequantize_rows: the (n, d) codes as one flat array, in vectors of 4
+// consecutive codes, one a thread (one char4 load, one float4 store: a
+// warp's access is 128 B of q and 512 B of x, contiguous), on as many
+// blocks as that takes. A thread finds its vector's row with one division
+// (32-bit while n·d < 2^31), and since d ≥ 4 a vector crosses at most one
+// row boundary: each code takes s[r] or s[r + 1]. A scalar head aligns the
+// output to 16 bytes, a scalar tail ends it. Where q's alignment disagrees
+// with x's, the codes are loaded a byte at a time and still stored as
+// float4; where d < 4 every element is scalar. The host plan
+// (`_dequant_plan`) computes the split. A grid-stride grid of 8 blocks per
+// SM took 0.77-0.78 ms at (100, 2^22 + 3) against 0.71 for one vector a
+// thread (tools/quant_designs.py; NVIDIA H100 80GB HBM3, 700.00 W);
+// sixteen consecutive codes a thread would spread a warp's float4 stores
+// over 2 KB at a 64-byte stride.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kQuantThreads = 1024;
+constexpr int kMaxThreads = 1024;
+// dynamic shared memory a kShared block may take: an SM's 227 KB less the
+// block's static arrays
+constexpr int kSmemBytes = 227 * 1024 - 1024;
+enum OnChip { kRegisters = 0, kShared = 1, kStream = 2 };
+// loads a thread keeps in flight per step of the shared and streaming loops
+constexpr int kUnroll = 4;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-__global__ void quantize_rows_kernel(const float* __restrict__ x,
-                                     int8_t* __restrict__ q,
-                                     float* __restrict__ scales, long long d) {
-  __shared__ float warp_max[kQuantThreads / 32];
-  __shared__ float row_scale;
-  const long long base = static_cast<long long>(blockIdx.x) * d;
-
-  float m = 0.f;
-  for (long long j = threadIdx.x; j < d; j += blockDim.x)
-    m = nan_max(fabsf(x[base + j]), m);
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(__shfl_down_sync(0xffffffffu, m, off), m);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = warp_max[0];
-    for (int k = 1; k < static_cast<int>(blockDim.x >> 5); ++k)
-      r = nan_max(warp_max[k], r);
-    // clamp before dividing, as kernels/ref.row_scale does (NaN stays NaN)
-    const float s = (r < 1e-12f ? 1e-12f : r) / 127.f;
-    row_scale = s;
-    scales[blockIdx.x] = s;
-  }
-  __syncthreads();
-
-  const float s = row_scale;
-  for (long long j = threadIdx.x; j < d; j += blockDim.x)
-    q[base + j] = static_cast<int8_t>(repro::quant(x[base + j], s));
+__device__ __forceinline__ float abs_max4(float4 v, float m) {
+  m = nan_max(fabsf(v.x), m);
+  m = nan_max(fabsf(v.y), m);
+  m = nan_max(fabsf(v.z), m);
+  return nan_max(fabsf(v.w), m);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared variable in cluster block `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(__shfl_xor_sync(0xffffffffu, m, off), m);
+  return m;
+}
+
+// The codes of vector i of the row's aligned run, as one char4 where q is
+// 4-byte aligned there (`q4`), else byte by byte.
+__device__ __forceinline__ void put_codes(int8_t* qv, long long i, float4 v,
+                                          float s, bool q4) {
+  const int8_t a = static_cast<int8_t>(repro::quant(v.x, s));
+  const int8_t b = static_cast<int8_t>(repro::quant(v.y, s));
+  const int8_t c = static_cast<int8_t>(repro::quant(v.z, s));
+  const int8_t e = static_cast<int8_t>(repro::quant(v.w, s));
+  if (q4) {
+    reinterpret_cast<char4*>(qv)[i] = make_char4(a, b, c, e);
+  } else {
+    int8_t* p = qv + 4 * i;
+    p[0] = a;
+    p[1] = b;
+    p[2] = c;
+    p[3] = e;
+  }
+}
+
+// Grid: n·C blocks, clusters of C along x; block b serves row b / C as
+// cluster rank b % C. kRegisters holds V vectors a thread; kShared and
+// kStream walk the slice kUnroll vectors a thread at a time.
+template <int kMode, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+    quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ scales, long long d) {
+  extern __shared__ float4 slice[];
+  __shared__ float warp_part[kMaxThreads / 32];
+  __shared__ float cluster_part[8];       // the maximum of each cluster block
+  __shared__ alignas(8) unsigned long long parts_in;   // mbarrier: C arrivals
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());  // a power of two
+  const int log2c = __ffs(C) - 1;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x >> log2c;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  // the row's split: scalar head to x's 16-byte boundary, float4 run,
+  // scalar tail; this block's share of the run is [vlo, vhi)
+  const float* xr = x + row * d;
+  int8_t* qr = q + row * d;
+  const long long h = min(
+      static_cast<long long>(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) &
+                              15) >> 2), d);
+  const long long nv = (d - h) >> 2;
+  const int tail = static_cast<int>((d - h) & 3);
+  const long long vlo = (rank * nv) >> log2c;
+  const long long vhi = ((rank + 1) * nv) >> log2c;
+  const float4* xv = reinterpret_cast<const float4*>(xr + h);
+  int8_t* qv = qr + h;
+  const bool q4 = (reinterpret_cast<uintptr_t>(qv) & 3) == 0;
+
+  // head elements on threads [0, h) of rank 0, tail on [3, 3 + tail) of
+  // rank C - 1: at most one scalar a thread
+  long long ej = -1;
+  if (rank == 0 && tid < h) ej = tid;
+  if (rank == C - 1 && tid >= 3 && tid < 3 + tail) ej = h + 4 * nv + tid - 3;
+  const float e = ej >= 0 ? xr[ej] : 0.f;
+
+  // every block's barrier is set up before a peer arrives on it: the
+  // cluster barrier's wait comes after pass 1, long after all arrived
+  const uint32_t bar = smem_addr(&parts_in);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(bar), "r"(C) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // pass 1: load the slice once and take its |max|
+  float m = 0.f;
+  float4 reg[kMode == kRegisters ? V : 1];
+  if constexpr (kMode == kRegisters) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long i = vlo + tid + static_cast<long long>(k) * T;
+      reg[k] = i < vhi ? xv[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) m = abs_max4(reg[k], m);
+  } else {
+    for (long long base = vlo + tid; base < vhi;
+         base += static_cast<long long>(kUnroll) * T) {
+      float4 a[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * T;
+        a[u] = i < vhi ? xv[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * T;
+        if (kMode == kShared && i < vhi) slice[i - vlo] = a[u];
+        m = abs_max4(a[u], m);
+      }
+    }
+  }
+
+  // the block's max; lane k of warp 0 pushes it into block k's
+  // cluster_part[rank] and arrives on block k's barrier, and every block
+  // waits for its C arrivals. A block leaves only after all its peers have
+  // pushed to it, so no push finds its target gone.
+  m = warp_max(nan_max(fabsf(e), m));
+  if (lane == 0) warp_part[warp] = m;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (warp == 0) {
+    m = warp_max(lane < ((T + 31) >> 5) ? warp_part[lane] : 0.f);
+    if (lane < C) {
+      asm volatile("st.shared::cluster.f32 [%0], %1;"
+                   :: "r"(peer_addr(smem_addr(&cluster_part[rank]), lane)),
+                      "f"(m) : "memory");
+      asm volatile(
+          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+          :: "r"(peer_addr(bar, lane)) : "memory");
+    }
+  }
+  for (uint32_t done = 0; !done;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;"
+        "\nselp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar) : "memory");
+  }
+  float r = 0.f;
+  for (int k = 0; k < C; ++k) r = nan_max(cluster_part[k], r);
+  // clamp before dividing, as kernels/ref.row_scale does (NaN stays NaN)
+  const float s = (r < 1e-12f ? 1e-12f : r) / 127.f;
+  if (rank == 0 && tid == 0) scales[row] = s;
+
+  // pass 2: the codes, from where pass 1 left the slice
+  if (ej >= 0) qr[ej] = static_cast<int8_t>(repro::quant(e, s));
+  if constexpr (kMode == kRegisters) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long i = vlo + tid + static_cast<long long>(k) * T;
+      if (i < vhi) put_codes(qv, i, reg[k], s, q4);
+    }
+  } else {
+    const long long step = static_cast<long long>(kUnroll) * T;
+    const long long steps = (vhi - vlo + step - 1) / step;
+    for (long long it = steps - 1; it >= 0; --it) {
+      const long long base = vlo + tid + it * step;
+      float4 a[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * T;
+        if (i < vhi) a[u] = kMode == kShared ? slice[i - vlo] : xv[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * T;
+        if (i < vhi) put_codes(qv, i, a[u], s, q4);
+      }
+    }
+  }
+}
+
+// Thread v: the codes of vector v, W = 4 codes from i = head + 4v; row
+// r = i / d, and since d ≥ 4 the codes from (r + 1)·d on belong to row
+// r + 1. kVecQ loads the four codes as one char4 (q + i aligned to 4),
+// else byte by byte; x + i is 16-byte aligned. The first threads also take
+// the scalar head and tail. W = 1 is the scalar path (d < 4).
+template <int W, bool kVecQ, typename I>
 __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ scales,
-                                       float* __restrict__ x, int n,
-                                       long long d) {
-  const long long j =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  for (int r = blockIdx.y; r < n; r += gridDim.y) {
-    const long long i = static_cast<long long>(r) * d + j;
-    x[i] = static_cast<float>(q[i]) * scales[r];
+                                       float* __restrict__ x, I d, I N, I head,
+                                       I nvec) {
+  const I v = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const I tail0 = head + nvec * W;
+  if (v < head) x[v] = static_cast<float>(q[v]) * scales[v / d];
+  if (v < N - tail0) x[tail0 + v] =
+      static_cast<float>(q[tail0 + v]) * scales[(tail0 + v) / d];
+  if (v >= nvec) return;
+  const I i = head + v * W;
+  if constexpr (W == 1) {
+    x[i] = static_cast<float>(q[i]) * scales[i / d];
+  } else {
+    const char4 c = kVecQ ? *reinterpret_cast<const char4*>(q + i)
+                          : make_char4(q[i], q[i + 1], q[i + 2], q[i + 3]);
+    const I r = i / d;
+    const I next = (r + 1) * d;        // first code of row r + 1
+    const float s0 = scales[r];
+    const float s1 = next < i + W ? scales[r + 1] : s0;
+    *reinterpret_cast<float4*>(x + i) = make_float4(
+        static_cast<float>(c.x) * s0,
+        static_cast<float>(c.y) * (i + 1 < next ? s0 : s1),
+        static_cast<float>(c.z) * (i + 2 < next ? s0 : s1),
+        static_cast<float>(c.w) * (i + 3 < next ? s0 : s1));
   }
+}
+
+template <int kMode, int V>
+cudaError_t launch_quant(const float* x, int8_t* q, float* scales, int n,
+                         long long d, int cluster, int threads, size_t smem,
+                         cudaStream_t stream) {
+  auto kernel = quantize_rows_kernel<kMode, V>;
+  if (kMode == kShared) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (set != cudaSuccess) return set;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n) * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x, q, scales, d);
+}
+
+template <int W, bool kVecQ, typename I>
+cudaError_t launch_dequant(const int8_t* q, const float* s, float* x,
+                           long long d, long long N, long long head,
+                           int threads, long long blocks, cudaStream_t st) {
+  dequantize_rows_kernel<W, kVecQ, I>
+      <<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+          q, s, x, static_cast<I>(d), static_cast<I>(N), static_cast<I>(head),
+          static_cast<I>((N - head) / W));
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t dequant_plan(const int8_t* q, const float* s, float* x,
+                         long long d, long long N, long long head, int width,
+                         bool vec_q, int threads, long long blocks,
+                         cudaStream_t st) {
+  if (width == 1)
+    return launch_dequant<1, false, I>(q, s, x, d, N, head, threads, blocks,
+                                       st);
+  return vec_q ? launch_dequant<4, true, I>(q, s, x, d, N, head, threads,
+                                            blocks, st)
+               : launch_dequant<4, false, I>(q, s, x, d, N, head, threads,
+                                             blocks, st);
 }
 
 }  // namespace
 
+// plan: `cluster` blocks per row (1, 2, 4 or 8) of `threads` threads;
+// `on_chip` 0 = registers (`per_thread` 2, 4 or 8 vectors a thread), 1 =
+// shared memory, 2 = stream. A plan whose slices do not fit where it
+// says is refused (cudaErrorInvalidValue), never run.
 REPRO_EXPORT int quantize_rows(const void* x, void* q, void* scales, int n,
-                               long long d, void* stream) {
-  if (n > 0 && d > 0) {
-    quantize_rows_kernel<<<n, kQuantThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scales), d);
-  }
-  return static_cast<int>(cudaGetLastError());
+                               long long d, int cluster, int threads,
+                               int per_thread, int on_chip, void* stream) {
+  if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  const long long slice = ((d >> 2) + cluster - 1) / cluster;  // vectors
+  const bool ok =
+      (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
+      static_cast<long long>(n) * cluster < (1LL << 31) && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 &&
+      (on_chip != kRegisters ||
+       ((per_thread == 2 || per_thread == 4 || per_thread == 8) &&
+        slice <= static_cast<long long>(threads) * per_thread)) &&
+      (on_chip != kShared || slice * 16 <= kSmemBytes) &&
+      (on_chip >= kRegisters && on_chip <= kStream);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  auto* qi = static_cast<int8_t*>(q);
+  auto* sf = static_cast<float*>(scales);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (on_chip == kRegisters && per_thread == 2)
+    err = launch_quant<kRegisters, 2>(xf, qi, sf, n, d, cluster, threads, 0,
+                                      st);
+  else if (on_chip == kRegisters && per_thread == 4)
+    err = launch_quant<kRegisters, 4>(xf, qi, sf, n, d, cluster, threads, 0,
+                                      st);
+  else if (on_chip == kRegisters)
+    err = launch_quant<kRegisters, 8>(xf, qi, sf, n, d, cluster, threads, 0,
+                                      st);
+  else if (on_chip == kShared)
+    err = launch_quant<kShared, 1>(xf, qi, sf, n, d, cluster, threads,
+                                   static_cast<size_t>(slice) * 16, st);
+  else
+    err = launch_quant<kStream, 1>(xf, qi, sf, n, d, cluster, threads, 0,
+                                   st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// plan: `head` scalar codes, then vectors of `width` codes (4; 1 is the
+// scalar path), one a thread, loaded as one char4 when `vec_q`, on
+// `blocks` blocks of `threads`. A plan that would misalign a vector or
+// leave one out is refused.
 REPRO_EXPORT int dequantize_rows(const void* q, const void* scales, void* x,
-                                 int n, long long d, void* stream) {
-  if (n > 0 && d > 0) {
-    const dim3 grid(repro::blocks_for(d),
-                    static_cast<unsigned>(n < 65535 ? n : 65535));
-    dequantize_rows_kernel<<<grid, repro::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<float*>(x), n, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int n, long long d, long long head,
+                                 int width, int vec_q, int threads,
+                                 long long blocks, void* stream) {
+  if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  const long long N = static_cast<long long>(n) * d;
+  const auto qa = reinterpret_cast<uintptr_t>(q) + head;
+  const auto xa = reinterpret_cast<uintptr_t>(x) + 4 * head;
+  const bool ok =
+      (width == 1 || (width == 4 && d >= 4 && xa % 16 == 0 &&
+                      (!vec_q || qa % 4 == 0))) &&
+      head >= 0 && head < 4 && (width == 4 || head == 0) && threads >= 32 &&
+      threads <= kMaxThreads && blocks >= 1 && blocks < (1LL << 31) &&
+      blocks * threads >= (N - head) / width;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qi = static_cast<const int8_t*>(q);
+  const auto* sf = static_cast<const float*>(scales);
+  auto* xf = static_cast<float*>(x);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      N < (1LL << 31)
+          ? dequant_plan<unsigned>(qi, sf, xf, d, N, head, width, vec_q != 0,
+                                   threads, blocks, st)
+          : dequant_plan<unsigned long long>(qi, sf, xf, d, N, head, width,
+                                             vec_q != 0, threads, blocks, st);
+  return static_cast<int>(err);
 }

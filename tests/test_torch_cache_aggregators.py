@@ -152,8 +152,10 @@ def _drive(agg, lib, stream, n, d, K):
     ts, clients, payloads, valid, init = stream
     arr = torch.as_tensor if lib == "torch" else jnp.asarray
     mod = tagg if lib == "torch" else jagg
+    # the port's init_state takes the card unless told otherwise
+    kw = {"device": "cpu"} if lib == "torch" else {}
     state = agg.init_state(n, d, arr(init) if getattr(agg, "cache_init",
-                                                      False) else None)
+                                                      False) else None, **kw)
     ups, emits = [], []
     for e in range(len(ts)):
         if K == 1:

@@ -20,6 +20,7 @@ from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
 from repro_torch.core.scan_staleness import run_staleness_scan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quant as _q  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -223,23 +224,99 @@ def quant_rows(seed, n, d, device):
     return x.to(device)
 
 
-@pytest.mark.parametrize("n,d", [(1, 17226), (3, 1), (100, 17226),
-                                 (100, (1 << 22) + 3)])
+QUANT_SHAPES = [(1, 1), (1, 3), (1, 4), (1, 5), (2, 7), (1, 17226),
+                (1, 17227), (3, 1), (100, 17226), (100, (1 << 22) + 3)]
+
+
+def _offset(t, offset):
+    """A contiguous copy of `t` that starts `offset` elements into its
+    allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("n,d", QUANT_SHAPES)
 def test_quant_kernels_match_plain(cuda, n, d):
-    x = quant_rows(n + d % 7, n, d, cuda)
+    """Both kernels bit-identical to their plain versions (the dequantizer
+    also to torch.mul), one launch each, with x at every 4-byte phase of a
+    16-byte line and q at every byte phase of a 4-byte word and at each
+    4-byte phase of a 16-byte line."""
+    x0 = quant_rows(n + d % 7, n, d, cuda)
+    q0, s0 = ops.quantize_rows(x0, backend="torch")
     before = ops.launch_counts()
-    q1, s1 = ops.quantize_rows(x)
-    q2, s2 = ops.quantize_rows(x, backend="torch")
+    q1, s1 = ops.quantize_rows(x0)
     x1 = ops.dequantize_rows(q1, s1)
-    x2 = ops.dequantize_rows(q1, s1, backend="torch")
     torch.cuda.synchronize()
-    assert torch.equal(q1, q2) and torch.equal(s1, s2)
-    assert torch.equal(x1, x2)
     after = ops.launch_counts()
     assert after["quantize_rows"] == before["quantize_rows"] + 1
     assert after["dequantize_rows"] == before["dequantize_rows"] + 1
+    assert torch.equal(q1, q0) and torch.equal(s1, s0)
+    assert torch.equal(x1, ops.dequantize_rows(q0, s0, backend="torch"))
+    assert torch.equal(x1, torch.mul(q0, s0[:, None]))
     # the scale is a true division, the same bits as on the CPU
-    assert torch.equal(s1.cpu(), tref.row_scale(x.cpu()))
+    assert torch.equal(s1.cpu(), tref.row_scale(x0.cpu()))
+    for off in (1, 2, 3):
+        q2, s2 = ops.quantize_rows(_offset(x0, off))
+        assert torch.equal(q2, q0) and torch.equal(s2, s0)
+    for off in (1, 2, 3, 4, 8, 12):     # byte loads, then aligned heads
+        assert torch.equal(ops.dequantize_rows(_offset(q0, off), s0), x1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,d", [(2, 7), (1, 17227), (3, 17226),
+                                 (2, 100003)])
+def test_quantize_rows_every_plan(cuda, n, d, cluster):
+    """Each cluster size with the slice in registers, shared memory and
+    streamed (where it fits), against the plain version; x also at a
+    4-byte offset, so that every head/tail split is taken."""
+    x = quant_rows(cluster + d, n, d, cuda)
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for on_chip in ("registers", "shared", "stream"):
+        try:
+            plan = _q._quant_plan(n, d, sms, cluster, on_chip)
+        except ValueError:      # the slice does not fit there
+            continue
+        for off in (0, 1, 3):
+            q1, s1 = _q.quantize_rows(_offset(x, off), plan=plan)
+            assert torch.equal(q1, q0) and torch.equal(s1, s0), (plan, off)
+
+
+@pytest.mark.parametrize("n,d", [(1, 17226), (3, 17227), (100, 17226)])
+def test_quantize_rows_nan_outside_rank_0(cuda, n, d):
+    """A NaN that cluster rank 0 does not own still reaches every block's
+    scale: the row's scale is NaN and all its codes take repro::quant's
+    clip of a NaN quotient (fmaxf drops it: -127), on every cluster size;
+    the other rows match the plain version."""
+    x = quant_rows(5, n, d, cuda)
+    nan_rows = [0, n - 1]
+    x[0, d - 1] = float("nan")              # the scalar tail of rank C - 1
+    x[n - 1, (3 * d) // 4] = float("nan")   # inside a later rank's slice
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[nan_rows] = False
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for cluster in (None, 1, 2, 4, 8):
+        plan = _q._quant_plan(n, d, sms, cluster)
+        q1, s1 = _q.quantize_rows(x, plan=plan)
+        assert bool(torch.isnan(s1[nan_rows]).all()), plan
+        assert bool((q1[nan_rows] == -127).all()), plan
+        assert torch.equal(q1[keep], q0[keep]), plan
+        assert torch.equal(s1[keep], s0[keep]), plan
+        x1 = ops.dequantize_rows(q1, s1)
+        assert bool(torch.isnan(x1[nan_rows]).all())
+        assert torch.equal(x1[keep], torch.mul(q1, s1[:, None])[keep])
+
+
+def test_quant_plan_refused_by_the_kernel(cuda):
+    """A plan whose slices do not fit where it says is refused at launch
+    (cudaErrorInvalidValue), never run."""
+    x = torch.randn(1, 1 << 16, device=cuda)
+    with pytest.raises(RuntimeError, match="quant kernel launch failed"):
+        _q.quantize_rows(x, plan=(1, 32, 4, "registers"))
 
 
 @pytest.mark.parametrize("n,d", [(100, 17226), (7, 1), (3000, 513),

@@ -16,6 +16,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.cache_update import cache_row_update as pallas_cru  # noqa: E402
 from repro.kernels.commit_batch import commit_batch as pallas_cb  # noqa: E402
 from repro.kernels.row_delta import row_delta as pallas_rd  # noqa: E402
+from repro_torch.core import aggregators as tagg  # noqa: E402
+from repro_torch.core import cache as tcache  # noqa: E402
 from repro_torch.core import scan_staleness  # noqa: E402
 from repro_torch.kernels import backend, build, ops  # noqa: E402
 from repro_torch.kernels import cache_update as _cu  # noqa: E402
@@ -400,6 +402,36 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     assert backend.resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("name", sorted(tagg.ALGORITHMS))
+def test_init_state_without_a_device_takes_the_card(monkeypatch, name):
+    """With no device and no rows to take it from, a rule's state and the
+    flat cache go on the card, so without one they raise; device="cpu"
+    still builds them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    agg = tagg.ALGORITHMS[name]()
+    state = agg.init_state(4, 8, device="cpu")
+    assert all(t.device.type == "cpu" for t in _tensors(state))
+    if _tensors(state):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            agg.init_state(4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcache.init_flat_cache(4, 8, "int8")
+    assert tcache.init_flat_cache(4, 8, "int8", device="cpu").data.device \
+        == torch.device("cpu")
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif hasattr(tree, "__dict__"):
+        tree = list(vars(tree).values())
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [t for x in tree for t in _tensors(x)]
+
+
 def test_build_is_keyed_by_source_hash():
     names = {p.name for p in map(build.library_path, build.KERNELS)}
     assert len(names) == len(build.KERNELS)
@@ -441,3 +473,81 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
         ops.masked_agg(q, s, mask, backend="cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         ops.quantize_rows(x, backend="pallas")
+
+
+# --- launch geometry of the quantizer kernels (pure Python) -------------------
+
+H100_SMS = 132
+QUANT_SHAPES = [(1, 1), (1, 3), (1, 4), (1, 5), (2, 7), (1, 17226),
+                (1, 17227), (3, 1), (100, 17226), (100, (1 << 22) + 3),
+                # n·d around 2^31, on both sides
+                (65536, 32767), (1, (1 << 31) - 1), (2, 1 << 30),
+                (512, (1 << 22) + 1)]
+
+
+@pytest.mark.parametrize("n,d", QUANT_SHAPES)
+def test_quant_plan_geometry(n, d):
+    """Every quantize_rows plan (the rule's cluster and each forced one)
+    stays within CUDA's limits and the block's on-chip capacity, and its
+    slices tile each row exactly once, whatever x's 16-byte phase."""
+    for forced in (None, 1, 2, 4, 8):
+        C, T, V, on_chip = _q._quant_plan(n, d, H100_SMS, cluster=forced)
+        assert C in (1, 2, 4, 8) and forced in (None, C)
+        assert n * C < 2 ** 31 and T % 32 == 0 and 32 <= T <= _q.MAX_THREADS
+        most = -(-(d // 4) // C)             # vectors of the largest slice
+        if on_chip == "registers":
+            assert V in (2, 4, 8) and most <= T * V
+        elif on_chip == "shared":
+            assert most > 8 * _q.MAX_THREADS and 16 * most <= _q.SMEM_BYTES
+        else:
+            assert on_chip == "stream" and 16 * most > _q.SMEM_BYTES
+        for head in range(4):
+            slices = _q._quant_slices(d, head, C)
+            assert len(slices) == C
+            ranges = sorted(r for block in slices for r in block)
+            assert ranges[0][0] == 0 and ranges[-1][1] == d
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(hi - lo <= max(4 * most, 3)
+                       for block in slices for lo, hi in block)
+
+
+def test_quant_plan_cluster_rule():
+    """A row spreads over the largest cluster that leaves each block 128
+    vectors; a thread holds as few vectors as the card's resident threads
+    allow; a forced place the slice does not fit raises."""
+    assert _q._quant_plan(1, 17226, H100_SMS)[:3] == (8, 288, 2)
+    assert _q._quant_plan(100, 17226, H100_SMS)[:3] == (8, 160, 4)
+    assert _q._quant_plan(1, 700, H100_SMS)[0] == 1
+    assert _q._quant_plan(1, 2048, H100_SMS)[0] == 4
+    assert _q._quant_plan(3, 17226, H100_SMS, on_chip="shared")[3] == \
+        "shared"
+    with pytest.raises(ValueError, match="does not fit"):
+        _q._quant_plan(1, 1 << 20, H100_SMS, cluster=1, on_chip="registers")
+
+
+@pytest.mark.parametrize("n,d", QUANT_SHAPES)
+def test_dequant_plan_geometry(n, d):
+    """dequantize_rows' split of the n·d flat codes: a scalar head that
+    aligns x to 16 bytes, whole vectors of 4 codes with d ≥ 4 (so a vector
+    crosses at most one row boundary), a scalar tail, one vector a thread;
+    q vector-loaded exactly where its alignment agrees with x's; the grid
+    within CUDA's limits and the 32-bit index arithmetic (n·d < 2^31) free
+    of overflow."""
+    N = n * d
+    for q_off in range(16):
+        for x_off in (0, 4, 8, 12):
+            head, W, vec_q, T, blocks = _q._dequant_plan(
+                n, d, 4096 + q_off, 8192 + x_off)
+            assert W == (1 if d < 4 else 4)
+            vectors, tail = divmod(N - head, W)
+            assert 0 <= head < 4 and 0 <= tail < W
+            if W > 1:
+                assert (x_off + 4 * head) % 16 == 0
+                assert vec_q == ((q_off + head) % 4 == 0)
+                if q_off == 0 and x_off == 0:       # fresh allocations
+                    assert vec_q and head == 0
+            assert T % 32 == 0 and T <= _q.MAX_THREADS
+            assert vectors <= T * blocks < vectors + T + 1
+            assert 1 <= blocks < 2 ** 31 and max(head, tail) <= T
+            if N < 2 ** 31:         # thread index, (r + 1)·d, i + 4
+                assert T * blocks < 2 ** 31 and N + d < 2 ** 32

@@ -73,8 +73,10 @@ def _drive(agg, lib, stream, K, keep_dtypes=False):
     ts, clients, payloads, staleness, valid, init = stream
     arr = torch.as_tensor if lib == "torch" else jnp.asarray
     mod = tagg if lib == "torch" else jagg
+    # the port's init_state takes the card unless told otherwise
+    kw = {"device": "cpu"} if lib == "torch" else {}
     state = agg.init_state(N, D, arr(init) if mod.wants_cache_init(agg)
-                           else None)
+                           else None, **kw)
     dtypes = {k: v.dtype for k, v in dict(state).items()
               if hasattr(v, "dtype")}
     ups, emits, scales = [], [], []
