@@ -11,7 +11,12 @@ result line):
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at a large width: int8 rows and scales
      bit-identical, f32 outputs within 1e-6 of the output's scale.
-     row_delta / cache_row_update at d = 17,226 and 2^24 + 3;
+     the fused int8 row swap row_delta (new scale, gather, swap and
+     scatter in one launch) on a 4-row cache at d = 17,226 and 2^24 + 3:
+     every row and scale, delta and old bit-identical, the other rows
+     untouched, a payload holding a NaN, +inf or -inf coded 0, timed beside
+     the device time and device launches of the whole
+     FlatCache.set_row_delta call; cache_row_update at the same widths;
      commit_batch (K = 16, R = 1, 2, 3) with int8 and with f32 cache rows,
      NaN-poisoned invalid lanes and an all-invalid batch, also at d = 128,
      d = 130 and K = 17, each timing row beside the device time of the
@@ -38,8 +43,9 @@ result line):
      versions on the card and must end within 1e-4 of the kernels' runs;
      each incremental rule's final model is set beside its direct
      reference's (int8 and f32, K = 1, same seed); one traced run each of
-     int8 ACE at K = 16 and int8 ACED- and ACE-direct at K = 1 gives the
-     device's busy time per tick and its largest kernels;
+     int8 ACE at K = 16 and int8 ACED, ACED-direct and ACE-direct at K = 1
+     gives the device's busy time, idle share and device kernels per tick
+     and its largest kernels;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -80,7 +86,7 @@ KERNELS = {
 }
 ALSO_REPLACES = {"quantize_rows": "src/repro/kernels/quant.py:62"}
 # the CUDA function each kernel's launches carry in a profiler trace
-KERNEL_SYMBOLS = {"row_delta": "row_delta_kernel",
+KERNEL_SYMBOLS = {"row_delta": "row_delta",
                   "cache_row_update": "cache_update_kernel",
                   "commit_batch": "commit_batch_kernel",
                   "masked_agg": "masked_agg_kernel",
@@ -186,29 +192,95 @@ def _err(torch, a, b):
     return err, err / max(1.0, float(b.double().abs().max()))
 
 
-def compare_rows(torch, ops, name, d, dev, card):
-    """row_delta / cache_row_update against their plain versions at d.
-    Returns (max abs f32 error, timing row)."""
+def compare_rows(torch, ops, d, dev, card):
+    """cache_row_update against its plain version at d. Returns (max abs f32
+    error, timing row)."""
     u, g, c, o, s = row_inputs(torch, d, dev, seed=d % 1000)
     inv_n = torch.full((), 0.01, device=dev)
-    if name == "row_delta":
-        call = lambda backend=None: ops.row_delta(g, c, o, s, backend=backend)
-        nbytes, nops = 10 * d, 7 * d
-    else:
-        call = lambda backend=None: ops.cache_row_update(
-            u, g, c, o, s, inv_n, backend=backend)
-        nbytes, nops = 14 * d, 9 * d
+    call = lambda backend=None: ops.cache_row_update(
+        u, g, c, o, s, inv_n, backend=backend)
     f1, q1 = call()
     f2, q2 = call("torch")
     torch.cuda.synchronize()
-    check(torch.equal(q1, q2), f"{name} d={d}: int8 row differs from plain")
+    tag = f"cache_row_update d={d}"
+    check(torch.equal(q1, q2), f"{tag}: int8 row differs from plain")
     err, rel = _err(torch, f1, f2)
-    check(rel <= F32_TOL, f"{name} d={d}: f32 error {err} > tolerance")
-    print(f"kernel {name} d={d}: int8 identical, max_abs_err {err:.3e} "
+    check(rel <= F32_TOL, f"{tag}: f32 error {err} > tolerance")
+    print(f"kernel {tag}: int8 identical, max_abs_err {err:.3e} "
           f"(tolerance {F32_TOL:g} of the output's scale) [{card}]")
-    kern = "row_delta_kernel" if name == "row_delta" else "cache_update_kernel"
-    return err, _timing_row(torch, f"{name} d={d}", call, kern, nbytes, nops,
-                            200 if d < 1e6 else 20, card)
+    return err, _timing_row(torch, tag, call, "cache_update_kernel", 14 * d,
+                            9 * d, 200 if d < 1e6 else 20, card)
+
+
+def _same(torch, a, b):
+    """Bit for bit, a NaN matching a NaN (its payload bits may differ
+    between a kernel and PyTorch's ops)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def compare_swap(torch, ops, d, dev, card):
+    """The fused int8 row swap (ops.row_delta) against its plain version at
+    d, on row 1 of a 4-row cache (2-byte aligned at an even d ≡ 2 mod 4):
+    every row and scale, delta and old bit for bit, the other rows
+    untouched; payloads holding a NaN, +inf or -inf must code the row 0.
+    Timed as the kernel and as the whole FlatCache.set_row_delta call
+    (device time and device launches per call). Returns (max abs f32
+    error, timing row)."""
+    from repro_torch.core.cache import FlatCache
+    from repro_torch.kernels import ref
+    n, j = 4, 1
+    g = torch.Generator(device=dev).manual_seed(d % 1000)
+    data, scale = ref.quantize_rows_ref(
+        torch.randn(n, d, generator=g, device=dev) * 3)
+    row = torch.tensor([j], device=dev)
+    others = torch.arange(n, device=dev) != j
+    x = torch.randn(d, generator=g, device=dev) * 5
+    tag = f"row_delta d={d}"
+    err = 0.0
+    for label, val in (("random", None), ("NaN", float("nan")),
+                       ("+inf", float("inf")), ("-inf", -float("inf"))):
+        p = x.clone()
+        if val is not None:
+            p[d // 3] = val
+        d1, s1, d2, s2 = data.clone(), scale.clone(), data.clone(), \
+            scale.clone()
+        delta1, old1 = ops.row_delta(d1, s1, row, p)
+        delta2, old2 = ops.row_delta(d2, s2, row, p, backend="torch")
+        torch.cuda.synchronize()
+        check(torch.equal(d1, d2), f"{tag} {label}: int8 rows differ")
+        check(torch.equal(d1[others], data[others]) and
+              torch.equal(s1[others], scale[others]),
+              f"{tag} {label}: another row changed")
+        check(_same(torch, s1, s2), f"{tag} {label}: scales differ")
+        check(_same(torch, delta1, delta2) and _same(torch, old1, old2),
+              f"{tag} {label}: delta or old differs from plain")
+        if val is not None:
+            check(not bool(d1[j].any()), f"{tag} {label}: codes not 0")
+        else:
+            err = max(_err(torch, delta1, delta2)[0],
+                      _err(torch, old1, old2)[0])
+    print(f"kernel {tag}: int8 rows, scales, delta and old bit-identical, "
+          f"other rows untouched, NaN/+inf/-inf rows coded 0, max_abs_err "
+          f"{err:.3e} [{card}]")
+    iters = 200 if d < 1e6 else 20
+    call = lambda backend=None: ops.row_delta(data, scale, row, x,
+                                              backend=backend)
+    # per feature: g and the old code read, the new code, delta and old
+    # written; the index, the old scale and the new scale
+    # "row_delta" names both of its kernels: the cluster's and the grid's
+    timing = _timing_row(torch, tag, call, "row_delta", 14 * d + 16, 8 * d,
+                         iters, card)
+    cache = FlatCache(data, scale)
+    for backend in (None, "torch"):
+        call_ms, _, per_call = measure(
+            torch, lambda: cache.set_row_delta(row, x, backend=backend),
+            iters if backend is None else max(5, iters // 10))
+        print(f"kernel {tag}: whole FlatCache.set_row_delta call"
+              f"{' (plain versions)' if backend else ''} {_fmt(call_ms)} ms "
+              f"device, {per_call:g} device launches per call [{card}]")
+    return err, timing
 
 
 def compare_commit(torch, ops, K, d, R, dev, card, valid=None, label="",
@@ -544,11 +616,14 @@ def main() -> int:
     # 3. each kernel against its plain version, on the card
     print(f"phase 3 starts at {time.perf_counter() - start:.1f} s")
     errs, rows = {}, {}
-    for name in ("row_delta", "cache_row_update"):
-        errs[name], rows[name] = compare_rows(torch, ops, name, D_SLICE, dev,
-                                              card)
-        e_big, _ = compare_rows(torch, ops, name, D_LARGE, dev, card)
-        errs[name] = max(errs[name], e_big)
+    errs["row_delta"], rows["row_delta"] = compare_swap(torch, ops, D_SLICE,
+                                                        dev, card)
+    errs["row_delta"] = max(errs["row_delta"],
+                            compare_swap(torch, ops, D_LARGE, dev, card)[0])
+    errs["cache_row_update"], rows["cache_row_update"] = compare_rows(
+        torch, ops, D_SLICE, dev, card)
+    errs["cache_row_update"] = max(errs["cache_row_update"], compare_rows(
+        torch, ops, D_LARGE, dev, card)[0])
     # both row types of the main path: the int8 cache and the f32 cache
     errs["commit_batch"] = 0.0
     none = torch.zeros(K_SLICE, dtype=torch.bool, device=dev)
@@ -655,7 +730,7 @@ def main() -> int:
     # untraced run's wall clock (the trace itself slows the host)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for rule, dtype, K in (("ace", "int8", K_SLICE),
+    for rule, dtype, K in (("ace", "int8", K_SLICE), ("aced", "int8", 1),
                            ("aced_direct", "int8", 1),
                            ("ace_direct", "int8", 1)):
         T, E = _depth(rule, K)
@@ -666,10 +741,12 @@ def main() -> int:
                          if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total
                       for e in device_events) / 1e3 / E
+        per_tick = sum(e.count for e in device_events) / E
         tick_ms = 1e3 * walls[rule, dtype, K] / E
         print(f"engine {rule} {dtype} K={K}: device busy {busy_ms:.4f} ms "
               f"per tick of {tick_ms:.4f} ms wall, idle share "
-              f"{1 - busy_ms / tick_ms:.3f} [{card}]")
+              f"{1 - busy_ms / tick_ms:.3f}, {per_tick:.1f} device kernels "
+              f"per tick [{card}]")
         top = sorted(device_events,
                      key=lambda e: -e.self_device_time_total)[:6]
         for e in top:

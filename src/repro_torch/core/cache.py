@@ -20,7 +20,7 @@ The int8 quantizer and dequantizer route through the kernel dispatch
 CUDA tensor, the plain versions for a CPU tensor or ``backend="torch"``.
 `set_row`, the int8 `init_flat_cache`, `rows`/`row`, `dequant` and through
 it `mean` and `cache_sum` take them; `set_rows_delta` quantizes inline, and
-`set_row_delta` goes through the fused `row_delta` kernel.
+`set_row_delta` is one launch of the `row_delta` kernel.
 """
 from __future__ import annotations
 
@@ -99,22 +99,14 @@ class FlatCache:
         """Write row i in place and return ``(self, delta, old)`` where
         ``old = dq(row_i)`` before the write and ``delta = dq(row_i') − old``
         — the exact change a running sum of dequantized rows sees. The int8
-        path goes through the fused `row_delta` kernel (one pass:
-        dequantize-old + quantize-new + delta); float paths are a read and a
-        write."""
+        path is one `row_delta` kernel (the new scale, the old row's
+        gather, the swap and the scatter in one launch); float paths are a
+        read and a write."""
         i = row_index(i, self.data.device)
         if self.quantized:
-            c_row = self.data.index_select(0, i)[0]
-            old_scale = self.scale.index_select(0, i)[0]
-            new_scale = kernel_ref.row_scale(g)
-            delta, q = kernel_ops.row_delta(g, c_row, old_scale, new_scale,
-                                            backend=backend)
-            self.data.index_copy_(0, i, q[None])
-            self.scale.index_copy_(0, i, new_scale.float().reshape(1))
-            # dequantize the old row directly — reconstructing it as
-            # q·new_scale − delta would cancel catastrophically when the
-            # client's successive gradients differ by orders of magnitude
-            return self, delta, c_row.float() * old_scale
+            delta, old = kernel_ops.row_delta(self.data, self.scale, i, g,
+                                              backend=backend)
+            return self, delta, old
         old = self.row(i)
         self.set_row(i, g)
         new = g.to(self.data.dtype).float()

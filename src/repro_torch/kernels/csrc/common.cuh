@@ -13,9 +13,13 @@ namespace repro {
 constexpr int kThreads = 256;
 
 // q(g) = clip(rint(g / scale), -127, 127): IEEE division (no fast math) and
-// round-half-to-even, like jnp.round / torch.round. Kept in f32.
+// round-half-to-even, like jnp.round / torch.round. Kept in f32. A NaN
+// quotient (a NaN element or scale, or ±inf/inf in a row whose scale is
+// inf) gives 0, the code XLA's and PyTorch's float→int8 conversions give
+// it; fmaxf alone would drop the NaN and clip it to -127.
 __device__ __forceinline__ float quant(float g, float scale) {
-  return fminf(fmaxf(rintf(g / scale), -127.f), 127.f);
+  const float r = g / scale;
+  return r != r ? 0.f : fminf(fmaxf(rintf(r), -127.f), 127.f);
 }
 
 // quant(g, scale) with one multiply in place of the division, where that

@@ -20,28 +20,16 @@
 // steps each takes.
 //
 // quantize_rows: one launch for both TPU phases. A row is split over a
-// thread-block cluster of C blocks (C = 1, 2, 4 or 8; the host plan,
-// kernels/quant.py `_quant_plan`, picks C, the block size and where the
-// slice lives). Each block owns one contiguous slice: block 0 a scalar head
-// up to x's next 16-byte boundary, every block a run of float4 vectors,
-// block C-1 the scalar tail. A block loads its whole slice once, every
-// load issued before the first use, and keeps it on chip: in registers
-// (`kRegisters`, 2, 4 or 8 vectors a thread), else in shared memory
-// (`kShared`); only a slice that fits neither is read twice (`kStream`,
-// its second pass walking backwards, so the most recently read part may
-// still be in L2). The block's |max| (warp shuffles, then one warp over
-// the warps' maxima) is pushed through distributed shared memory into every
-// cluster block, each push followed by an arrival on that block's mbarrier;
-// a block waits for its C arrivals and combines the C maxima. max is
-// order-free, so every block derives the same scale bits; NaN propagates
-// through it, as through torch.amax. Block 0 writes the scale. The codes go
-// out through repro::quant, the rounding contract every int8 writer of the
-// port shares (IEEE division, round half to even, clip), as char4 where q
-// is aligned. The push keeps the one cluster barrier, which guards the
-// mbarriers' set-up, off the critical path: a pull (cluster.sync(), each
-// block reading its peers' maxima, a second barrier before leaving) took
-// 3.55 µs at (1, 17,226) against the push's 2.94 (tools/quant_designs.py;
-// NVIDIA H100 80GB HBM3, 700.00 W).
+// thread-block cluster of C blocks, and the blocks agree on its |max|, as
+// cluster_row.cuh describes (the host plan, kernels/quant.py `_quant_plan`,
+// picks C, the block size and where the slice lives). A block loads its
+// whole slice once, every load issued before the first use, and keeps it on
+// chip: in registers, else in shared memory; only a slice that fits
+// neither is read twice (`kStream`, its second pass walking backwards, so
+// the most recently read part may still be in L2). Block 0 writes the
+// scale. The codes go out through repro::quant, the rounding contract every
+// int8 writer of the port shares (IEEE division, round half to even, clip,
+// NaN to 0), as char4 where q is aligned.
 //
 // dequantize_rows: the (n, d) codes as one flat array, in vectors of 4
 // consecutive codes, one a thread (one char4 load, one float4 store: a
@@ -57,50 +45,18 @@
 // thread (tools/quant_designs.py; NVIDIA H100 80GB HBM3, 700.00 W);
 // sixteen consecutive codes a thread would spread a warp's float4 stores
 // over 2 KB at a 64-byte stride.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "cluster_row.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-// dynamic shared memory a kShared block may take: an SM's 227 KB less the
-// block's static arrays
-constexpr int kSmemBytes = 227 * 1024 - 1024;
-enum OnChip { kRegisters = 0, kShared = 1, kStream = 2 };
-// loads a thread keeps in flight per step of the shared and streaming loops
-constexpr int kUnroll = 4;
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-
-__device__ __forceinline__ float abs_max4(float4 v, float m) {
-  m = nan_max(fabsf(v.x), m);
-  m = nan_max(fabsf(v.y), m);
-  m = nan_max(fabsf(v.z), m);
-  return nan_max(fabsf(v.w), m);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The address of the same shared variable in cluster block `rank`.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float warp_max(float m) {
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(__shfl_xor_sync(0xffffffffu, m, off), m);
-  return m;
-}
+using repro::abs_max4;
+using repro::kMaxThreads;
+using repro::kRegisters;
+using repro::kShared;
+using repro::kSmemBytes;
+using repro::kStream;
+using repro::kUnroll;
+using repro::nan_max;
 
 // The codes of vector i of the row's aligned run, as one char4 where q is
 // 4-byte aligned there (`q4`), else byte by byte.
@@ -129,49 +85,23 @@ __global__ void __launch_bounds__(kMaxThreads)
     quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
                          float* __restrict__ scales, long long d) {
   extern __shared__ float4 slice[];
-  __shared__ float warp_part[kMaxThreads / 32];
-  __shared__ float cluster_part[8];       // the maximum of each cluster block
-  __shared__ alignas(8) unsigned long long parts_in;   // mbarrier: C arrivals
-  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ repro::ClusterMax exchange;
+  repro::cg::cluster_group cluster = repro::cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());  // a power of two
   const int log2c = __ffs(C) - 1;
   const int rank = static_cast<int>(cluster.block_rank());
   const long long row = blockIdx.x >> log2c;
   const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
 
-  // the row's split: scalar head to x's 16-byte boundary, float4 run,
-  // scalar tail; this block's share of the run is [vlo, vhi)
   const float* xr = x + row * d;
   int8_t* qr = q + row * d;
-  const long long h = min(
-      static_cast<long long>(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) &
-                              15) >> 2), d);
-  const long long nv = (d - h) >> 2;
-  const int tail = static_cast<int>((d - h) & 3);
-  const long long vlo = (rank * nv) >> log2c;
-  const long long vhi = ((rank + 1) * nv) >> log2c;
-  const float4* xv = reinterpret_cast<const float4*>(xr + h);
-  int8_t* qv = qr + h;
+  const repro::RowSplit sp(xr, d, rank, log2c, tid);
+  const long long vlo = sp.vlo, vhi = sp.vhi, ej = sp.ej;
+  const float4* xv = reinterpret_cast<const float4*>(xr + sp.h);
+  int8_t* qv = qr + sp.h;
   const bool q4 = (reinterpret_cast<uintptr_t>(qv) & 3) == 0;
-
-  // head elements on threads [0, h) of rank 0, tail on [3, 3 + tail) of
-  // rank C - 1: at most one scalar a thread
-  long long ej = -1;
-  if (rank == 0 && tid < h) ej = tid;
-  if (rank == C - 1 && tid >= 3 && tid < 3 + tail) ej = h + 4 * nv + tid - 3;
   const float e = ej >= 0 ? xr[ej] : 0.f;
-
-  // every block's barrier is set up before a peer arrives on it: the
-  // cluster barrier's wait comes after pass 1, long after all arrived
-  const uint32_t bar = smem_addr(&parts_in);
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(bar), "r"(C) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  exchange.start(C);
 
   // pass 1: load the slice once and take its |max|
   float m = 0.f;
@@ -202,36 +132,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
-  // the block's max; lane k of warp 0 pushes it into block k's
-  // cluster_part[rank] and arrives on block k's barrier, and every block
-  // waits for its C arrivals. A block leaves only after all its peers have
-  // pushed to it, so no push finds its target gone.
-  m = warp_max(nan_max(fabsf(e), m));
-  if (lane == 0) warp_part[warp] = m;
-  __syncthreads();
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-  if (warp == 0) {
-    m = warp_max(lane < ((T + 31) >> 5) ? warp_part[lane] : 0.f);
-    if (lane < C) {
-      asm volatile("st.shared::cluster.f32 [%0], %1;"
-                   :: "r"(peer_addr(smem_addr(&cluster_part[rank]), lane)),
-                      "f"(m) : "memory");
-      asm volatile(
-          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-          :: "r"(peer_addr(bar, lane)) : "memory");
-    }
-  }
-  for (uint32_t done = 0; !done;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;"
-        "\nselp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar) : "memory");
-  }
-  float r = 0.f;
-  for (int k = 0; k < C; ++k) r = nan_max(cluster_part[k], r);
-  // clamp before dividing, as kernels/ref.row_scale does (NaN stays NaN)
-  const float s = (r < 1e-12f ? 1e-12f : r) / 127.f;
+  const float s = repro::row_scale(
+      exchange.combine(nan_max(fabsf(e), m), C, rank));
   if (rank == 0 && tid == 0) scales[row] = s;
 
   // pass 2: the codes, from where pass 1 left the slice
@@ -306,19 +208,9 @@ cudaError_t launch_quant(const float* x, int8_t* q, float* scales, int n,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (set != cudaSuccess) return set;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n) * cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, x, q, scales, d);
+  return repro::launch_cluster(kernel, static_cast<unsigned>(n) * cluster,
+                               cluster, threads, smem, stream, x, q, scales,
+                               d);
 }
 
 template <int W, bool kVecQ, typename I>
@@ -357,16 +249,9 @@ REPRO_EXPORT int quantize_rows(const void* x, void* q, void* scales, int n,
                                int per_thread, int on_chip, void* stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const long long slice = ((d >> 2) + cluster - 1) / cluster;  // vectors
-  const bool ok =
-      (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-      static_cast<long long>(n) * cluster < (1LL << 31) && threads >= 32 &&
-      threads <= kMaxThreads && threads % 32 == 0 &&
-      (on_chip != kRegisters ||
-       ((per_thread == 2 || per_thread == 4 || per_thread == 8) &&
-        slice <= static_cast<long long>(threads) * per_thread)) &&
-      (on_chip != kShared || slice * 16 <= kSmemBytes) &&
-      (on_chip >= kRegisters && on_chip <= kStream);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!repro::row_plan_fits(d, cluster, threads, per_thread, on_chip) ||
+      static_cast<long long>(n) * cluster >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* xf = static_cast<const float*>(x);
   auto* qi = static_cast<int8_t*>(q);
   auto* sf = static_cast<float*>(scales);

@@ -63,10 +63,13 @@ def cache_row_update(u, g, c_row, old_scale, new_scale, inv_n, backend=None):
     return _cu.cache_row_update(u, g, c_row, old_scale, new_scale, inv_n)
 
 
-def row_delta(g, c_row, old_scale, new_scale, backend=None):
-    if _plain(g, backend):
-        return ref.row_delta_ref(g, c_row, old_scale, new_scale)
-    return _rd.row_delta(g, c_row, old_scale, new_scale)
+def row_delta(data, scale, j, g, backend=None):
+    """Swap row ``j`` (a one-element int64 tensor) of the int8 cache
+    ``(data, scale)`` for ``q(g)`` in place -> ``(delta, old)``, both (d,)
+    f32: ``old = dq(row_j)`` before, ``delta = dq(row_j') − old``."""
+    if _plain(data, backend):
+        return ref.set_row_delta_ref(data, scale, j, g)
+    return _rd.row_delta(data, scale, j, g)
 
 
 def commit_batch(G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,

@@ -9,6 +9,9 @@ Semantics (all f32 accumulation):
         u = Σ_i (m_i·s_i / max(Σ_i m_i, 1))·C[i]   (rows in order)
   * row_delta: fused cache-row swap for the incremental running-sum rules
         delta  = dq(q(g)) − dq(c_row),   c_row' = q(g)  (int8)
+    and set_row_delta: the whole swap of row j of an int8 cache in place
+    (gather, new scale, row_delta, scatter), the CUDA row_delta kernel's
+    function.
   * quantize_rows / dequantize_rows: symmetric per-row int8.
   * commit_batch: the whole K-arrival server commit as one affine pass —
         rows' = requantized payloads on valid lanes (old rows bit-exact
@@ -24,7 +27,7 @@ match the JAX package bit for bit):
   * quantize with a true division ``g / scale``, never a multiply by the
     reciprocal;
   * ``torch.round`` rounds half to even, like ``jnp.round`` and ``rintf``;
-  * clip to ±127;
+  * clip to ±127, and a NaN quotient to 0;
   * invalid lanes are zeroed before any product.
 """
 from __future__ import annotations
@@ -40,8 +43,13 @@ def row_scale(g: torch.Tensor) -> torch.Tensor:
 
 
 def _quant(g, scale):
-    """int8 codes of ``g / scale`` (rounded half to even, clipped), in f32."""
-    return torch.clamp(torch.round(g / scale), -INT8_MAX, INT8_MAX)
+    """int8 codes of ``g / scale`` (rounded half to even, clipped), in f32. A
+    NaN quotient (a NaN element or scale, ±inf/inf) gives 0: the code XLA's
+    float→int8 conversion gives the JAX package, and what the CUDA kernels
+    write, whatever a device's own cast makes of a NaN."""
+    q = torch.round(g / scale)
+    return torch.clamp(torch.where(torch.isnan(q), 0.0, q), -INT8_MAX,
+                       INT8_MAX)
 
 
 def cache_row_update_ref(u, g, c_row, old_scale, new_scale, inv_n):
@@ -66,6 +74,25 @@ def row_delta_ref(g, c_row, old_scale, new_scale):
     old = c_row.float() * old_scale
     q = _quant(g, new_scale)
     return q * new_scale - old, q.to(torch.int8)
+
+
+def set_row_delta_ref(data, scale, j, g):
+    """data (n, d) int8, scale (n,) f32, updated in place; j a one-element
+    int64 tensor; g (d,) f32 -> (delta (d,) f32, old (d,) f32).
+
+    Row j becomes q(g) with scale `row_scale(g)`; ``old = dq(row_j)`` before
+    the write and ``delta = dq(row_j') − old``. The int8 branch of
+    `FlatCache.set_row_delta`, as the JAX package computes it."""
+    c_row = data.index_select(0, j)[0]
+    old_scale = scale.index_select(0, j)[0]
+    new_scale = row_scale(g)
+    delta, q = row_delta_ref(g, c_row, old_scale, new_scale)
+    data.index_copy_(0, j, q[None])
+    scale.index_copy_(0, j, new_scale.float().reshape(1))
+    # dequantize the old row directly — reconstructing it as
+    # q·new_scale − delta would cancel catastrophically when the client's
+    # successive gradients differ by orders of magnitude
+    return delta, c_row.float() * old_scale
 
 
 def masked_agg_ref(cache, scales, mask):

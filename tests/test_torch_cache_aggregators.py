@@ -91,6 +91,45 @@ def test_flat_cache_ops_match_jax(dtype):
     assert tc.nbytes() == jc.nbytes()
 
 
+@pytest.mark.parametrize("payload", ["random", "nan", "zero", "tiny"])
+def test_fused_row_swap_plain_matches_jax(payload):
+    """The plain version of the fused int8 row swap (`ops.row_delta`, CPU
+    tensors, the row index a tensor on the cache's device) against JAX's
+    `FlatCache.set_row_delta`: int8 rows and scales exact (a NaN payload
+    gives a NaN scale and codes 0, a zero payload the scale 1e-12/127),
+    delta and old within 1e-6, every other row untouched."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    n, d, j = 5, 70, 3
+    init = (rng.normal(size=(n, d)) * 2).astype(np.float32)
+    tc = tcache.init_flat_cache(n, d, "int8", torch.as_tensor(init))
+    jc = jcache.init_flat_cache(n, d, "int8", jnp.asarray(init))
+    before = tc.data.clone(), tc.scale.clone()
+    g = (rng.normal(size=d) * 3).astype(np.float32)
+    if payload == "nan":
+        g[[0, 41]] = np.nan
+    elif payload == "zero":
+        g[:] = 0.0
+    elif payload == "tiny":
+        g *= np.float32(1e-15)          # max|g| under the 1e-12 clamp
+    idx = tcache.row_index(torch.tensor(j), tc.data.device)
+    delta1, old1 = ops.row_delta(tc.data, tc.scale, idx, torch.as_tensor(g))
+    jc, delta2, old2 = jc.set_row_delta(j, jnp.asarray(g))
+    assert np.array_equal(_np(tc.data), _np(jc.data))
+    np.testing.assert_array_equal(_np(tc.scale), _np(jc.scale))
+    others = torch.arange(n) != j
+    assert torch.equal(tc.data[others], before[0][others])
+    assert torch.equal(tc.scale[others], before[1][others])
+    _close(old1, old2, 1e-6)
+    if payload == "nan":
+        assert np.isnan(_np(tc.scale)[j]) and not _np(tc.data)[j].any()
+        assert np.isnan(_np(delta1)).all() and np.isnan(_np(delta2)).all()
+    else:
+        _close(delta1, delta2, 1e-6)
+    if payload in ("zero", "tiny"):
+        assert _np(tc.scale)[j] == np.float32(1e-12) / np.float32(127.0)
+
+
 @pytest.mark.parametrize("dtype", ["int8", "float32"])
 def test_flat_commit_batch_matches_jax(dtype):
     rng = np.random.default_rng(2)

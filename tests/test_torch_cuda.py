@@ -9,7 +9,10 @@ int8 rows and scales must be bit-identical; f32 outputs agree within 1e-6
 relative to the output's scale (the kernels build with -fmad=false, so the
 remaining differences are the order of the commit kernel's f32 sums;
 masked_agg and dequantize_rows sum and multiply in their plain versions'
-order and must agree bit for bit)."""
+order and must agree bit for bit, as must the fused row swap
+`ops.row_delta`). A row holding a NaN or ±inf gets int8 codes 0, as in the
+JAX package; the tests pin the zeros as well as comparing with the plain
+versions. Run only these with ``-k "masked_agg or row_delta or nan"``."""
 import numpy as np
 import pytest
 
@@ -20,7 +23,9 @@ from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
 from repro_torch.core.scan_staleness import run_staleness_scan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import masked_agg as _ma  # noqa: E402
 from repro_torch.kernels import quant as _q  # noqa: E402
+from repro_torch.kernels import row_delta as _rd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +43,14 @@ def _close(a, b, tol=1e-6):
     assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
 
 
+def _same(a, b):
+    """Bit for bit, a NaN matching a NaN (their payload bits may differ
+    between the kernel and PyTorch's ops)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and
+                torch.equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
 def row_inputs(seed, d, device):
     g = torch.Generator().manual_seed(seed)
     u = torch.randn(d, generator=g)
@@ -48,22 +61,101 @@ def row_inputs(seed, d, device):
     return [t.to(device) for t in (u, x, q[0], s[0], tref.row_scale(x))]
 
 
+def swap_cache(seed, n, d, device):
+    """An int8 cache (data, scale) of n rows."""
+    g = torch.Generator().manual_seed(seed)
+    q, s = tref.quantize_rows_ref(torch.randn(n, d, generator=g) * 3)
+    return q.to(device), s.to(device)
+
+
+def check_swap(data, scale, j, g, plan=None):
+    """The fused row swap on a copy of the cache against its plain version
+    on another: every row and scale, delta and old bit for bit."""
+    d1, s1 = data.clone(), scale.clone()
+    delta1, old1 = (ops.row_delta(d1, s1, j, g) if plan is None else
+                    _rd.row_delta(d1, s1, j, g, plan=plan))
+    delta2, old2 = ops.row_delta(data, scale, j, g, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(d1, data)
+    assert _same(s1, scale)
+    assert _same(delta1, delta2) and _same(old1, old2)
+
+
 @pytest.mark.parametrize("d", [1, 300, 17226, (1 << 24) + 3])
 def test_row_kernels_match_plain(cuda, d):
     u, g, c, o, s = row_inputs(8, d, cuda)
     inv_n = torch.full((), 0.01, device=cuda)
+    data, scale = swap_cache(d, 3, d, cuda)
     before = ops.launch_counts()
-    d1, c1 = ops.row_delta(g, c, o, s)
-    d2, c2 = ops.row_delta(g, c, o, s, backend="torch")
+    check_swap(data, scale, torch.tensor([1], device=cuda), g)
     u1, q1 = ops.cache_row_update(u, g, c, o, s, inv_n)
     u2, q2 = ops.cache_row_update(u, g, c, o, s, inv_n, backend="torch")
     torch.cuda.synchronize()
-    assert torch.equal(c1, c2) and torch.equal(q1, q2)
-    _close(d1, d2)
+    assert torch.equal(q1, q2)
     _close(u1, u2)
     after = ops.launch_counts()
     assert after["row_delta"] == before["row_delta"] + 1
     assert after["cache_row_update"] == before["cache_row_update"] + 1
+
+
+@pytest.mark.parametrize("j", [1, 2])
+@pytest.mark.parametrize("d", [1, 7, 300, 17226, (1 << 24) + 3])
+def test_row_delta_swap_matches_plain(cuda, d, j):
+    """The fused row swap, 50 times over on one row (odd rows of an even d
+    are only 2-byte aligned, even ones 4-byte) with payloads whose scale
+    changes by orders of magnitude from call to call, so that a block that
+    read the new scale as the old one would show in `old`; every fifth
+    payload at a 4-12 byte offset, some holding a NaN or ±inf (codes 0).
+    Rows that fit a cluster's registers also take the cooperative grid
+    (which the plan keeps for longer rows) every other call."""
+    data, scale = swap_cache(d + j, 4, d, cuda)
+    row = torch.tensor([j], device=cuda)
+    gen = torch.Generator().manual_seed(d)
+    grid = (1, 32, 2, "grid")
+    for it in range(50):
+        g = torch.randn(d, generator=gen) * 10.0 ** (it % 7 - 3)
+        special = (float("nan"), float("inf"), -float("inf"))[it % 3]
+        if it % 4 == 3:
+            g[(it * 7919) % d] = special
+        g = g.to(cuda)
+        if it % 5 == 4:
+            g = _offset(g, 1 + it % 3)
+        check_swap(data, scale, row, g, grid if it % 2 and d < 1 << 20
+                   else None)
+        if it % 4 == 3:
+            assert not bool(data[j].any())
+    assert torch.isfinite(scale[torch.arange(4, device=cuda) != j]).all()
+
+
+@pytest.mark.parametrize("kind", ["nan", "+inf", "-inf"])
+def test_quantizing_kernels_code_nan_and_inf_rows_as_0(cuda, kind):
+    """A row that holds a NaN (scale NaN) or ±inf (scale inf) gets int8
+    codes 0 from all four quantizing kernels, as the JAX package gives it,
+    and the same codes as the plain versions."""
+    d = 17226
+    x = quant_rows(3, 3, d, cuda)
+    x[0, [5, d // 2, d - 2]] = {"nan": float("nan"), "+inf": float("inf"),
+                                "-inf": -float("inf")}[kind]
+    q1, s1 = ops.quantize_rows(x)
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    assert torch.equal(q1, q0) and _same(s1, s0)
+    assert not bool(q1[0].any())
+    data, scale = swap_cache(1, 4, d, cuda)
+    check_swap(data, scale, torch.tensor([1], device=cuda), x[0])
+    u, _, c, o, _ = row_inputs(2, d, cuda)
+    s = tref.row_scale(x[0])
+    inv_n = torch.full((), 0.01, device=cuda)
+    _, c1 = ops.cache_row_update(u, x[0], c, o, s, inv_n)
+    _, c2 = ops.cache_row_update(u, x[0], c, o, s, inv_n, backend="torch")
+    assert torch.equal(c1, c2) and not bool(c1.any())
+    kw = commit_inputs(3, 16, d, 3, torch.int8, ("a", "g"), cuda,
+                       valid=torch.ones(16, dtype=torch.bool))
+    kw["G"][0] = x[0]
+    kw["new_s"] = tref.row_scale(kw["G"])
+    r1, _, _ = ops.commit_batch(**kw)
+    r2, _, _ = ops.commit_batch(**kw, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2) and not bool(r1[0].any())
 
 
 def commit_inputs(seed, K, d, R, dtype, lanes, device, valid=None):
@@ -288,9 +380,9 @@ def test_quantize_rows_every_plan(cuda, n, d, cluster):
 @pytest.mark.parametrize("n,d", [(1, 17226), (3, 17227), (100, 17226)])
 def test_quantize_rows_nan_outside_rank_0(cuda, n, d):
     """A NaN that cluster rank 0 does not own still reaches every block's
-    scale: the row's scale is NaN and all its codes take repro::quant's
-    clip of a NaN quotient (fmaxf drops it: -127), on every cluster size;
-    the other rows match the plain version."""
+    scale: the row's scale is NaN and all its codes are 0 (repro::quant
+    codes a NaN quotient 0, as XLA's conversion does), on every cluster
+    size; every row, the NaN rows included, matches the plain version."""
     x = quant_rows(5, n, d, cuda)
     nan_rows = [0, n - 1]
     x[0, d - 1] = float("nan")              # the scalar tail of rank C - 1
@@ -303,9 +395,9 @@ def test_quantize_rows_nan_outside_rank_0(cuda, n, d):
         plan = _q._quant_plan(n, d, sms, cluster)
         q1, s1 = _q.quantize_rows(x, plan=plan)
         assert bool(torch.isnan(s1[nan_rows]).all()), plan
-        assert bool((q1[nan_rows] == -127).all()), plan
-        assert torch.equal(q1[keep], q0[keep]), plan
-        assert torch.equal(s1[keep], s0[keep]), plan
+        assert not bool(q1[nan_rows].any()), plan
+        assert torch.equal(q1, q0), plan
+        assert _same(s1, s0), plan
         x1 = ops.dequantize_rows(q1, s1)
         assert bool(torch.isnan(x1[nan_rows]).all())
         assert torch.equal(x1[keep], torch.mul(q1, s1[:, None])[keep])
@@ -320,11 +412,17 @@ def test_quant_plan_refused_by_the_kernel(cuda):
 
 
 @pytest.mark.parametrize("n,d", [(100, 17226), (7, 1), (3000, 513),
-                                 (100, (1 << 22) + 3)])
+                                 (100, (1 << 22) + 3), (1, 17226),
+                                 (9, 1001)])
 def test_masked_agg_matches_plain(cuda, n, d):
+    """Bit for bit at the main path's shape, a chunked n (3000 rows), one
+    row, rows at every byte phase (odd d) and a large width; with chunks of
+    1 and 7 rows and with the cache at an offset (its first and last
+    16-byte words reach outside it)."""
     g = torch.Generator().manual_seed(n + d)
     q, s = tref.quantize_rows_ref(torch.randn(n, d, generator=g))
     q, s = q.to(cuda), s.to(cuda)
+    before = ops.launch_counts()["masked_agg"]
     for mask in (torch.rand(n, generator=g) < 0.4,
                  torch.ones(n, dtype=torch.bool),
                  torch.zeros(n, dtype=torch.bool)):
@@ -335,16 +433,29 @@ def test_masked_agg_matches_plain(cuda, n, d):
         assert torch.equal(u1, u2)
         if not bool(mask.any()):
             assert not bool(u1.any())
+    assert ops.launch_counts()["masked_agg"] == before + 3
+    if n * d < 1 << 24:
+        blocks = _ma._agg_plan(n, d)[1]
+        for rows in (1, 7, _ma.MAX_ROWS):
+            for off in (0, 3, 10):
+                u3 = _ma.masked_agg(_offset(q, off), s, mask,
+                                    plan=(rows, blocks))
+                torch.cuda.synchronize()
+                assert torch.equal(u3, u2), (rows, off)
 
 
 def test_wrappers_raise_on_operands_the_kernel_does_not_take(cuda):
     u, g, c, o, s = row_inputs(1, 64, cuda)
+    data, scale = swap_cache(1, 4, 64, cuda)
+    j = torch.tensor([1], device=cuda)
     with pytest.raises(TypeError, match="dtype"):
-        ops.row_delta(g.double(), c, o, s)
+        ops.row_delta(data, scale, j, g.double())
     with pytest.raises(ValueError, match="contiguous"):
-        ops.row_delta(torch.randn(128, device=cuda)[::2], c, o, s)
+        ops.row_delta(data, scale, j, torch.randn(128, device=cuda)[::2])
     with pytest.raises(TypeError, match="CUDA tensor"):
-        ops.row_delta(g, c.cpu(), o, s)
+        ops.row_delta(data, scale, j.cpu(), g)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.row_delta(data, scale, j.int(), g)
 
 
 @pytest.mark.parametrize("name,dtype,K,kernel", [

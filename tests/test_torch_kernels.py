@@ -161,6 +161,61 @@ def test_quant_multiply_shortcut_matches_division(seed):
         _same(np.asarray(c), q_div[r].astype(np.int8))
 
 
+# --- NaN and ±inf payloads: the int8 codes and scales of the JAX package ------
+# A row holding a NaN gets a NaN scale, a row holding ±inf an inf scale; in
+# both every code is 0 (XLA converts a NaN quotient to 0, and x/inf is 0).
+# The port's plain versions must give the same codes, and the CUDA kernels
+# follow them (test_torch_cuda.py).
+
+SPECIAL = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}
+QUANTIZERS = ["quantize_rows", "row_delta", "cache_row_update",
+              "commit_batch"]
+
+
+def special_rows(kind, d=40):
+    """(3, d) f32: row 0 holds `kind` at two places, rows 1-2 are finite."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(3, d)) * 3).astype(np.float32)
+    x[0, [1, d - 2]] = SPECIAL[kind]
+    return x
+
+
+@pytest.mark.parametrize("fn", QUANTIZERS)
+@pytest.mark.parametrize("kind", sorted(SPECIAL))
+def test_nan_and_inf_rows_take_jax_codes(kind, fn):
+    x = special_rows(kind)
+    d = x.shape[1]
+    if fn == "quantize_rows":
+        q1, s1 = tref.quantize_rows_ref(_t(x))
+        q2, s2 = jref.quantize_rows_ref(jnp.asarray(x))
+        np.testing.assert_array_equal(s1.numpy(), np.asarray(s2))
+        assert np.isnan(s2[0]) if kind == "nan" else np.isinf(s2[0])
+    elif fn in ("row_delta", "cache_row_update"):
+        c = np.asarray(jref.quantize_rows_ref(jnp.asarray(x[1:2]))[0][0])
+        osc, nsc = np.float32(0.25), np.float32(jref.row_scale(x[0]))
+        if fn == "row_delta":
+            _, q1 = tref.row_delta_ref(_t(x[0]), _t(c), _t(osc), _t(nsc))
+            _, q2 = jref.row_delta_ref(jnp.asarray(x[0]), jnp.asarray(c),
+                                       osc, nsc)
+        else:
+            u = np.ones(d, np.float32)
+            _, q1 = tref.cache_row_update_ref(_t(u), _t(x[0]), _t(c),
+                                              _t(osc), _t(nsc),
+                                              _t(np.float32(0.5)))
+            _, q2 = jref.cache_row_update_ref(
+                jnp.asarray(u), jnp.asarray(x[0]), jnp.asarray(c), osc, nsc,
+                np.float32(0.5))
+        q1, q2 = q1[None], np.asarray(q2)[None]
+    else:
+        kw = commit_inputs(5, 3, d, 1, "int8", (), valid=np.ones(3, bool))
+        kw["G"] = x
+        kw["new_s"] = np.asarray(jref.row_scale(jnp.asarray(x)))
+        q1, _, _ = tref.commit_batch_ref(**_torch_kw(kw))
+        q2, _, _ = jref.commit_batch_ref(**_jax_kw(kw))
+    _same(q1.numpy(), np.asarray(q2))
+    assert not q1.numpy()[0].any()           # every code of the row is 0
+
+
 def commit_inputs(seed, K, d, R, row_dtype, lanes, valid=None, nan=False):
     """Random inputs in the aggregator calling convention: lane weights are
     zero on invalid lanes and `new_s` scales the sanitized payloads, as
@@ -356,13 +411,24 @@ def test_masked_agg_plain_sums_rows_in_order():
 
 # --- dispatch and device policy ---------------------------------------------
 
+def swap_inputs(seed, n, d):
+    """An int8 cache (data, scale), a row index as a one-element int64
+    tensor and a payload, for the fused row swap (`ops.row_delta`)."""
+    rng = np.random.default_rng(seed)
+    q, s = tref.quantize_rows_ref(_t(rng.normal(size=(n, d)).astype(
+        np.float32)))
+    g = _t((rng.normal(size=d) * 5).astype(np.float32))
+    return q, s, torch.tensor([n // 2]), g
+
+
 def test_cpu_tensors_take_the_plain_version():
-    x = row_inputs(5, 64)
-    args = [_t(x[k]) for k in ("g", "crow", "osc", "nsc")]
+    data, scale, j, g = swap_inputs(5, 6, 64)
+    d2, c2 = data.clone(), scale.clone()
     before = ops.launch_counts()
-    d1, c1 = ops.row_delta(*args)
-    d2, c2 = ops.row_delta(*args, backend="torch")
-    assert torch.equal(d1, d2) and torch.equal(c1, c2)
+    delta1, old1 = ops.row_delta(data, scale, j, g)
+    delta2, old2 = ops.row_delta(d2, c2, j, g, backend="torch")
+    assert torch.equal(delta1, delta2) and torch.equal(old1, old2)
+    assert torch.equal(data, d2) and torch.equal(scale, c2)
     assert ops.launch_counts() == before
 
 
@@ -371,7 +437,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tensor raises there instead of running anything."""
     x = row_inputs(6, 64)
     with pytest.raises(TypeError, match="CUDA tensor"):
-        _rd.row_delta(*[_t(x[k]) for k in ("g", "crow", "osc", "nsc")])
+        _rd.row_delta(*swap_inputs(6, 4, 64))
     with pytest.raises(TypeError, match="CUDA tensor"):
         _cu.cache_row_update(*[_t(x[k]) for k in
                                ("u", "g", "crow", "osc", "nsc")],
@@ -523,6 +589,52 @@ def test_quant_plan_cluster_rule():
         "shared"
     with pytest.raises(ValueError, match="does not fit"):
         _q._quant_plan(1, 1 << 20, H100_SMS, cluster=1, on_chip="registers")
+
+
+AGG_SHAPES = [(1, 1), (7, 1), (1, 17226), (100, 17226), (9, 1001),
+              (3000, 513), (100, (1 << 22) + 3), (128, 16), (129, 300)]
+
+
+@pytest.mark.parametrize("n,d", AGG_SHAPES)
+def test_masked_agg_plan_geometry(n, d):
+    """masked_agg's plan: tiles of FEATURES columns, one a block, cover d
+    exactly once; a chunk stages at most MAX_ROWS rows (one weight a
+    thread) and every row is staged by one chunk; a row's tile, at any byte
+    phase of its first 16-byte word, lies inside the FEATURES/16 + 1 words
+    staged for it; the block's shared memory stays under 48 KB."""
+    F = _ma.FEATURES
+    rows, blocks = _ma._agg_plan(n, d)
+    assert F % 32 == 0 and _ma.MAX_ROWS <= F
+    assert (blocks - 1) * F < d <= blocks * F and blocks < 2 ** 31
+    assert 1 <= rows <= min(max(n, 1), _ma.MAX_ROWS)
+    assert sum(min(rows, n - c0) for c0 in range(0, n, rows)) == n
+    words = F // 16 + 1
+    assert all(phase + F <= 16 * words for phase in range(16))
+    assert rows * 16 * words <= 48 * 1024
+
+
+@pytest.mark.parametrize("d", [1, 7, 300, 17226, 131072, 131076,
+                               (1 << 24) + 3])
+def test_row_delta_plan_geometry(d):
+    """The fused row swap launches one cluster on quantize_rows' plan for one
+    row: the main path's width keeps its slices in registers (8 blocks of
+    288 threads, 2 vectors a thread), a row that would take more than 4
+    vectors a thread goes to the cooperative grid, and a cluster's slices
+    tile the row exactly once."""
+    C, T, V, on_chip = _rd._row_plan(d, H100_SMS)
+    assert C in (1, 2, 4, 8) and T % 32 == 0 and T <= _q.MAX_THREADS
+    if d == 17226:
+        assert (C, T, V, on_chip) == (8, 288, 2, "registers")
+    if on_chip == "grid":
+        assert -(-(d // 4) // 8) > 4 * _q.MAX_THREADS   # past 4 a thread
+        return
+    assert on_chip == "registers" and V <= 4
+    assert -(-(d // 4) // C) <= T * V
+    for head in range(4):
+        ranges = sorted(r for block in _q._quant_slices(d, head, C)
+                        for r in block)
+        assert ranges[0][0] == 0 and ranges[-1][1] == d
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
 
 
 @pytest.mark.parametrize("n,d", QUANT_SHAPES)

@@ -2,8 +2,9 @@
 """Time the quantize_rows and dequantize_rows kernels of
 ``src/repro_torch/kernels/csrc/quant.cu`` on one GPU: the shipped kernels
 over their launch plans (cluster size, vectors a thread), and diagnostic
-variants made by text edits of the shipped source, beside an earlier
-tree's kernels.
+variants made by text edits of the shipped sources (quant.cu and the
+cluster exchange it includes, cluster_row.cuh), beside an earlier tree's
+kernels.
 
     python3 tools/quant_designs.py [--parent DIR]
 
@@ -19,7 +20,8 @@ Variants, each built with nvcc into build/quant_designs/:
   grid_stride  dequantize_rows on a grid-stride grid of 8 blocks per SM in
                place of one vector a thread over the whole grid.
 `--parent DIR` builds DIR/src/repro_torch/kernels/csrc/quant.cu as well and
-calls it through that tree's entries (x, q, s, n, d, stream).
+calls it through that tree's entries: with this tree's launch plans where
+it takes them, else as (x, q, s, n, d, stream).
 
 Each line: device ms per call from torch.profiler (chip_smoke.measure),
 each timed kernel run in the order parent, variants, variants reversed,
@@ -39,36 +41,37 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "quant_designs"
 
-PUSH = """    if (lane < C) {
-      asm volatile("st.shared::cluster.f32 [%0], %1;"
-                   :: "r"(peer_addr(smem_addr(&cluster_part[rank]), lane)),
-                      "f"(m) : "memory");
-      asm volatile(
-          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-          :: "r"(peer_addr(bar, lane)) : "memory");
+PUSH = """      if (lane < C) {
+        asm volatile("st.shared::cluster.f32 [%0], %1;"
+                     :: "r"(peer_addr(smem_addr(&part[rank]), lane)),
+                        "f"(m) : "memory");
+        asm volatile(
+            "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+            :: "r"(peer_addr(b, lane)) : "memory");
+      }
     }
-  }
-  for (uint32_t done = 0; !done;) {
-    asm volatile(
-        "{\\n.reg .pred p;\\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;"
-        "\\nselp.u32 %0, 1, 0, p;\\n}"
-        : "=r"(done) : "r"(bar) : "memory");
-  }
-  float r = 0.f;
-  for (int k = 0; k < C; ++k) r = nan_max(cluster_part[k], r);
+    for (uint32_t done = 0; !done;) {
+      asm volatile(
+          "{\\n.reg .pred p;\\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "0;\\nselp.u32 %0, 1, 0, p;\\n}"
+          : "=r"(done) : "r"(b) : "memory");
+    }
+    float r = 0.f;
+    for (int k = 0; k < C; ++k) r = nan_max(part[k], r);
 """
-PULL = """    if (lane == 0) cluster_part[0] = m;
-  }
-  cluster.sync();
-  const float r = warp_max(
-      lane < C ? *cluster.map_shared_rank(&cluster_part[0], lane) : 0.f);
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+PULL = """      if (lane == 0) part[0] = m;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const float r = warp_max(
+        lane < C ? *cluster.map_shared_rank(&part[0], lane) : 0.f);
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
 """
-OWN_MAX = """    if (lane == 0) cluster_part[0] = m;
-  }
-  __syncthreads();
-  const float r = cluster_part[0];
+OWN_MAX = """      if (lane == 0) part[0] = m;
+    }
+    __syncthreads();
+    const float r = part[0];
 """
 QUANT_END = """        if (i < vhi) put_codes(qv, i, a[u], s, q4);
       }
@@ -98,34 +101,38 @@ ALL_VECTORS = "blocks * threads >= (N - head) / width"
 def _edit(src, *pairs):
     for old, new in pairs:
         if src.count(old) != 1:
-            raise SystemExit(f"quant.cu changed: cannot place {old[:40]!r}")
+            raise SystemExit(f"source changed: cannot place {old[:40]!r}")
         src = src.replace(old, new)
     return src
 
 
 def variants():
+    """name -> (quant.cu, cluster_row.cuh) of each variant."""
     src = (CSRC / "quant.cu").read_text()
+    hdr = (CSRC / "cluster_row.cuh").read_text()
     return {
-        "shipped": src,
-        "pull": _edit(src, (PUSH, PULL), (QUANT_END, QUANT_END[:-2] + (
+        "shipped": (src, hdr),
+        "pull": (_edit(src, (QUANT_END, QUANT_END[:-2] + (
             '  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");\n'
-            "}\n"))),
-        "no_exchange": _edit(src, (PUSH, OWN_MAX)),
-        "multiply": _edit(src.replace("repro::quant(", "quant_by_reciprocal("),
-                          ("namespace {\n", RECIPROCAL)),
-        "grid_stride": _edit(src, (ONE_VECTOR, STRIDE),
-                             (DEQUANT_END, DEQUANT_END[:-2] + "  }\n}\n"),
-                             (ALL_VECTORS, "true")),
+            "}\n"))), _edit(hdr, (PUSH, PULL))),
+        "no_exchange": (src, _edit(hdr, (PUSH, OWN_MAX))),
+        "multiply": (_edit(src.replace("repro::quant(", "quant_by_reciprocal("),
+                           ("namespace {\n", RECIPROCAL)), hdr),
+        "grid_stride": (_edit(src, (ONE_VECTOR, STRIDE),
+                              (DEQUANT_END, DEQUANT_END[:-2] + "  }\n}\n"),
+                              (ALL_VECTORS, "true")), hdr),
     }
 
 
 def build_all(parent):
     from repro_torch.kernels import build
-    OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, src in variants().items():
-        (OUT / f"{name}.cu").write_text(src)
-        jobs[name] = OUT / f"{name}.cu"
+    for name, (src, hdr) in variants().items():
+        # the variant's header beside it, found before the shipped one
+        (OUT / name).mkdir(parents=True, exist_ok=True)
+        (OUT / name / "cluster_row.cuh").write_text(hdr)
+        (OUT / name / "quant.cu").write_text(src)
+        jobs[name] = OUT / name / "quant.cu"
     if parent:
         jobs["parent"] = Path(parent) / "src/repro_torch/kernels/csrc/quant.cu"
 
@@ -142,8 +149,12 @@ def build_all(parent):
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(pool.map(compile_one, jobs.items()))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # a parent from before the launch plans took (x, q, s, n, d, stream)
+    old_parent = "parent" in jobs and "int cluster" not in \
+        jobs["parent"].read_text()
     for name, lib in libs.items():
-        if name == "parent":
+        lib.takes_plan = not (name == "parent" and old_parent)
+        if not lib.takes_plan:
             lib.quantize_rows.argtypes = [P, P, P, I, L, P]
             lib.dequantize_rows.argtypes = [P, P, P, I, L, P]
         else:
@@ -195,7 +206,8 @@ def main() -> int:
             plans += [(8, (-(-most // v) + 31) // 32 * 32, v, "registers")
                       for v in (2, 4, 8) if -(-most // v) <= kq.MAX_THREADS]
         rule = kq._quant_plan(n, d, sms)
-        runs = [("parent", None)] if "parent" in libs else []
+        runs = [("parent", rule if libs["parent"].takes_plan else None)] \
+            if "parent" in libs else []
         runs += [("shipped", p) for p in dict.fromkeys(plans)]
         runs += [(v, rule) for v in ("pull", "no_exchange", "multiply")]
         for name, plan in runs + runs[::-1]:
@@ -224,7 +236,8 @@ def main() -> int:
         head, width, vec_q, threads, blocks = kq._dequant_plan(
             n, d, q.data_ptr(), x.data_ptr())
         strided = min(blocks, 8 * sms)
-        runs = [("parent", None)] if "parent" in libs else []
+        runs = [("parent", blocks if libs["parent"].takes_plan else None)] \
+            if "parent" in libs else []
         runs += [("shipped", blocks), ("grid_stride", strided)]
         for name, grid in runs + runs[::-1]:
             lib = libs[name]
