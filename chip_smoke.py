@@ -16,7 +16,10 @@ result line):
      every row and scale, delta and old bit-identical, the other rows
      untouched, a payload holding a NaN, +inf or -inf coded 0, timed beside
      the device time and device launches of the whole
-     FlatCache.set_row_delta call; cache_row_update at the same widths;
+     FlatCache.set_row_delta call; the whole int8 ACE step
+     cache_row_update (new scale, row swap and u' in one launch) the same
+     way for f32 and bf16 states, u' bit-identical and the input u
+     untouched, timed beside the whole ACEIncremental.step call;
      commit_batch (K = 16, R = 1, 2, 3) with int8 and with f32 cache rows,
      NaN-poisoned invalid lanes and an all-invalid batch, also at d = 128,
      d = 130 and K = 17, each timing row beside the device time of the
@@ -43,7 +46,8 @@ result line):
      versions on the card and must end within 1e-4 of the kernels' runs;
      each incremental rule's final model is set beside its direct
      reference's (int8 and f32, K = 1, same seed); one traced run each of
-     int8 ACE at K = 16 and int8 ACED, ACED-direct and ACE-direct at K = 1
+     int8 ACE at K = 16 and int8 ACE, ACED, ACED-direct and ACE-direct at
+     K = 1
      gives the device's busy time, idle share and device kernels per tick
      and its largest kernels;
   5. one JSON line of per-kernel numbers, then the result line.
@@ -87,7 +91,7 @@ KERNELS = {
 ALSO_REPLACES = {"quantize_rows": "src/repro/kernels/quant.py:62"}
 # the CUDA function each kernel's launches carry in a profiler trace
 KERNEL_SYMBOLS = {"row_delta": "row_delta",
-                  "cache_row_update": "cache_update_kernel",
+                  "cache_row_update": "cache_update",
                   "commit_batch": "commit_batch_kernel",
                   "masked_agg": "masked_agg_kernel",
                   "quantize_rows": "quantize_rows_kernel",
@@ -151,15 +155,6 @@ def measure(torch, fn, iters, kernel_name=None):
 
 # --- phase 3: kernels against their plain versions -----------------------------
 
-def row_inputs(torch, d, dev, seed):
-    from repro_torch.kernels import ref
-    g = torch.Generator(device=dev).manual_seed(seed)
-    u = torch.randn(d, generator=g, device=dev)
-    x = torch.randn(d, generator=g, device=dev) * 5
-    q, s = ref.quantize_rows_ref(torch.randn(1, d, generator=g, device=dev))
-    return u, x, q[0], s[0], ref.row_scale(x)
-
-
 def commit_inputs(torch, K, d, R, lanes, dev, seed, valid=None,
                   rows="int8"):
     """The aggregators' calling convention: lane weights zero on invalid
@@ -190,26 +185,6 @@ def _err(torch, a, b):
     """(max abs error, max abs error relative to the reference's scale)."""
     err = float((a.double() - b.double()).abs().max())
     return err, err / max(1.0, float(b.double().abs().max()))
-
-
-def compare_rows(torch, ops, d, dev, card):
-    """cache_row_update against its plain version at d. Returns (max abs f32
-    error, timing row)."""
-    u, g, c, o, s = row_inputs(torch, d, dev, seed=d % 1000)
-    inv_n = torch.full((), 0.01, device=dev)
-    call = lambda backend=None: ops.cache_row_update(
-        u, g, c, o, s, inv_n, backend=backend)
-    f1, q1 = call()
-    f2, q2 = call("torch")
-    torch.cuda.synchronize()
-    tag = f"cache_row_update d={d}"
-    check(torch.equal(q1, q2), f"{tag}: int8 row differs from plain")
-    err, rel = _err(torch, f1, f2)
-    check(rel <= F32_TOL, f"{tag}: f32 error {err} > tolerance")
-    print(f"kernel {tag}: int8 identical, max_abs_err {err:.3e} "
-          f"(tolerance {F32_TOL:g} of the output's scale) [{card}]")
-    return err, _timing_row(torch, tag, call, "cache_update_kernel", 14 * d,
-                            9 * d, 200 if d < 1e6 else 20, card)
 
 
 def _same(torch, a, b):
@@ -278,6 +253,79 @@ def compare_swap(torch, ops, d, dev, card):
             torch, lambda: cache.set_row_delta(row, x, backend=backend),
             iters if backend is None else max(5, iters // 10))
         print(f"kernel {tag}: whole FlatCache.set_row_delta call"
+              f"{' (plain versions)' if backend else ''} {_fmt(call_ms)} ms "
+              f"device, {per_call:g} device launches per call [{card}]")
+    return err, timing
+
+
+def compare_ace(torch, ops, d, dev, card):
+    """The whole int8 ACE step (ops.cache_row_update) against its plain
+    version at d, on row 2 of a 4-row cache (4-byte aligned at an even d),
+    for an f32 and a bf16 state: every row and scale and u' bit for bit, u'
+    in the state's dtype, the other rows and the input u untouched;
+    payloads holding a NaN, +inf or -inf must code the row 0. Timed (f32
+    state) as the kernel and as the whole ACEIncremental.step call, kernel
+    against plain versions (device time and device launches per call).
+    Returns (max abs error of u', timing row)."""
+    from repro_torch.core.aggregators import ACEIncremental, Arrival
+    from repro_torch.core.cache import FlatCache
+    from repro_torch.kernels import ref
+    n, j, inv_n = 4, 2, 1.0 / 4
+    g = torch.Generator(device=dev).manual_seed(d % 1000 + 1)
+    data, scale = ref.quantize_rows_ref(
+        torch.randn(n, d, generator=g, device=dev) * 3)
+    row = torch.tensor([j], device=dev)
+    others = torch.arange(n, device=dev) != j
+    x = torch.randn(d, generator=g, device=dev) * 5
+    u32 = torch.randn(d, generator=g, device=dev)
+    tag = f"cache_row_update d={d}"
+    err = 0.0
+    for u in (u32, u32.to(torch.bfloat16)):
+        u_in = u.clone()
+        for label, val in (("random", None), ("NaN", float("nan")),
+                           ("+inf", float("inf")), ("-inf", -float("inf"))):
+            p = x.clone()
+            if val is not None:
+                p[d // 3] = val
+            d1, s1, d2, s2 = data.clone(), scale.clone(), data.clone(), \
+                scale.clone()
+            u1 = ops.cache_row_update(d1, s1, row, p, u, inv_n)
+            u2 = ops.cache_row_update(d2, s2, row, p, u, inv_n,
+                                      backend="torch")
+            torch.cuda.synchronize()
+            at = f"{tag} {u.dtype} state {label}"
+            check(torch.equal(d1, d2), f"{at}: int8 rows differ")
+            check(torch.equal(d1[others], data[others]) and
+                  torch.equal(s1[others], scale[others]),
+                  f"{at}: another row changed")
+            check(_same(torch, s1, s2), f"{at}: scales differ")
+            check(u1.dtype == u.dtype and _same(torch, u1.float(),
+                                                u2.float()),
+                  f"{at}: u' differs from plain")
+            check(torch.equal(u, u_in), f"{at}: the input u was written")
+            if val is not None:
+                check(not bool(d1[j].any()), f"{at}: codes not 0")
+            else:
+                err = max(err, _err(torch, u1.float(), u2.float())[0])
+    print(f"kernel {tag}: int8 rows, scales and u' bit-identical for f32 and "
+          f"bf16 states, other rows and the input u untouched, "
+          f"NaN/+inf/-inf rows coded 0, max_abs_err {err:.3e} [{card}]")
+    iters = 200 if d < 1e6 else 20
+    call = lambda backend=None: ops.cache_row_update(
+        data, scale, row, x, u32, inv_n, backend=backend)
+    # per feature: g, u and the old code read, the new code and u' written;
+    # the index, the old scale and the new scale. "cache_update" names both
+    # of its kernels: the cluster's and the grid's
+    timing = _timing_row(torch, tag, call, "cache_update", 14 * d + 16,
+                         10 * d, iters, card)
+    state = {"cache": FlatCache(data, scale), "u": u32}
+    arr = Arrival(row, x, 1, 0)
+    for backend in (None, "torch"):
+        agg = ACEIncremental(cache_dtype="int8", backend=backend)
+        call_ms, _, per_call = measure(
+            torch, lambda: agg.step(state, arr),
+            iters if backend is None else max(5, iters // 10))
+        print(f"kernel {tag}: whole ACEIncremental.step call"
               f"{' (plain versions)' if backend else ''} {_fmt(call_ms)} ms "
               f"device, {per_call:g} device launches per call [{card}]")
     return err, timing
@@ -620,9 +668,9 @@ def main() -> int:
                                                         dev, card)
     errs["row_delta"] = max(errs["row_delta"],
                             compare_swap(torch, ops, D_LARGE, dev, card)[0])
-    errs["cache_row_update"], rows["cache_row_update"] = compare_rows(
+    errs["cache_row_update"], rows["cache_row_update"] = compare_ace(
         torch, ops, D_SLICE, dev, card)
-    errs["cache_row_update"] = max(errs["cache_row_update"], compare_rows(
+    errs["cache_row_update"] = max(errs["cache_row_update"], compare_ace(
         torch, ops, D_LARGE, dev, card)[0])
     # both row types of the main path: the int8 cache and the f32 cache
     errs["commit_batch"] = 0.0
@@ -730,8 +778,8 @@ def main() -> int:
     # untraced run's wall clock (the trace itself slows the host)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for rule, dtype, K in (("ace", "int8", K_SLICE), ("aced", "int8", 1),
-                           ("aced_direct", "int8", 1),
+    for rule, dtype, K in (("ace", "int8", K_SLICE), ("ace", "int8", 1),
+                           ("aced", "int8", 1), ("aced_direct", "int8", 1),
                            ("ace_direct", "int8", 1)):
         T, E = _depth(rule, K)
         with torch.profiler.profile(activities=acts) as prof:

@@ -62,7 +62,6 @@ from repro_torch.core.cache import (DTYPES, cache_mean, cache_n, cache_row,
                                     cache_sum, flat_commit_batch,
                                     init_flat_cache, row_index)
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -112,6 +111,18 @@ def _where_sub(a, x, gate):
 def _astate(vec, dtype: str):
     """A running vector cast to the rule's state dtype."""
     return vec.to(DTYPES[dtype])
+
+
+_TRUES = {}
+
+
+def _true(device) -> torch.Tensor:
+    """A 0-d True on `device`, made once: an ``emit`` the engine only reads
+    (``emit & ...`` makes a new tensor), so a tick launches no fill for it."""
+    t = _TRUES.get(device)
+    if t is None:
+        t = _TRUES[device] = torch.ones((), dtype=torch.bool, device=device)
+    return t
 
 
 def _zeros_vec(d: int, dtype: str, device):
@@ -433,8 +444,9 @@ class ACEIncremental(Aggregator):
 
     Exact under an int8 cache: the subtracted value is the dequantized row
     that was previously added, so ``u == mean_i dq(C_i)`` is invariant. The
-    K = 1 int8 step goes through the fused `cache_row_update` kernel; the
-    K-arrival step through the fused commit kernel."""
+    K = 1 int8 step is one `cache_row_update` launch (the new scale, the
+    row swap and u'); the K-arrival step goes through the fused commit
+    kernel."""
     cache_dtype: str = "float32"
     state_dtype: str = "float32"
     fused_commit: Optional[bool] = None
@@ -453,20 +465,13 @@ class ACEIncremental(Aggregator):
         cache, u = state["cache"], state["u"]
         dev = cache.data.device
         j = row_index(arr.client, dev)
-        true = torch.ones((), dtype=torch.bool, device=dev)
+        true = _true(dev)
         if cache.quantized:
-            c_row = cache.data.index_select(0, j)[0]
-            old_scale = cache.scale.index_select(0, j)[0]
-            new_scale = kernel_ref.row_scale(arr.payload)
-            inv_n = torch.full((), 1.0 / cache.n, dtype=torch.float32,
-                               device=dev)
-            # the kernel adds in f32; the sum is stored in the state dtype
-            u_new, q_row = kernel_ops.cache_row_update(
-                u.float(), arr.payload, c_row, old_scale, new_scale, inv_n,
-                backend=self.backend)
-            u = u_new.to(u.dtype)
-            cache.data.index_copy_(0, j, q_row[None])
-            cache.scale.index_copy_(0, j, new_scale.reshape(1))
+            # one launch: the new scale, the row swap in place and a fresh
+            # u' (added in f32, stored in the state dtype); u is not written
+            u = kernel_ops.cache_row_update(cache.data, cache.scale, j,
+                                            arr.payload, u, 1.0 / cache.n,
+                                            backend=self.backend)
             return {"cache": cache, "u": u}, u, true, 1.0
         n = cache_n(cache)
         old = cache_row(cache, j)

@@ -1,6 +1,7 @@
 // One f32 row spread over a thread-block cluster, and the row's |max| agreed
-// by the cluster's blocks: the pieces that quantize_rows (quant.cu) and the
-// fused int8 cache-row swap (row_delta.cu) share.
+// by the cluster's blocks: the pieces that quantize_rows (quant.cu), the
+// fused int8 cache-row swap (row_delta.cu) and the whole int8 ACE step
+// (cache_update.cu) share.
 //
 // A row is split over a cluster of C blocks (C = 1, 2, 4 or 8; the host plan,
 // kernels/quant.py `_quant_plan`, picks C, the block size and where a block
@@ -147,6 +148,15 @@ struct ClusterMax {
     return r;
   }
 };
+
+// Vector i (4 codes) of an int8 row run at cv: one char4 load where `c4`
+// (cv is 4-byte aligned), else four byte loads.
+__device__ __forceinline__ char4 load_codes(const int8_t* cv, long long i,
+                                            bool c4) {
+  if (c4) return reinterpret_cast<const char4*>(cv)[i];
+  const int8_t* p = cv + 4 * i;
+  return make_char4(p[0], p[1], p[2], p[3]);
+}
 
 // s = max(r, 1e-12) / 127 by IEEE division, clamped before dividing as
 // kernels/ref.row_scale does (a NaN r stays NaN).

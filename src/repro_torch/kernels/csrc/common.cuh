@@ -10,8 +10,6 @@
 
 namespace repro {
 
-constexpr int kThreads = 256;
-
 // q(g) = clip(rint(g / scale), -127, 127): IEEE division (no fast math) and
 // round-half-to-even, like jnp.round / torch.round. Kept in f32. A NaN
 // quotient (a NaN element or scale, or ±inf/inf in a row whose scale is
@@ -38,10 +36,6 @@ __device__ __forceinline__ bool quant_fast(float g, float inv, float& q) {
   q = fminf(fmaxf(n, -127.f), 127.f);
   // |q0 − n| is exact below 129; 0.5 − |q0 − n| is the distance to a tie
   return fabsf(q0) >= 129.f || fabsf(q0 - n) < 0.5f - 1e-4f;
-}
-
-inline unsigned blocks_for(long long d) {
-  return static_cast<unsigned>((d + kThreads - 1) / kThreads);
 }
 
 }  // namespace repro

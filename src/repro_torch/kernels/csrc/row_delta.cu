@@ -47,6 +47,7 @@ namespace {
 
 using repro::kMaxThreads;
 using repro::kUnroll;
+using repro::load_codes;
 enum Place { kCluster = 0, kGrid = 1 };
 
 // one element: returns its code; old = c·so, dl = q·s − old
@@ -56,13 +57,6 @@ __device__ __forceinline__ float swap_one(float x, int8_t c, float s,
   o = static_cast<float>(c) * so;
   dl = q * s - o;
   return q;
-}
-
-__device__ __forceinline__ char4 load_codes(const int8_t* cv, long long i,
-                                            bool c4) {
-  if (c4) return reinterpret_cast<const char4*>(cv)[i];
-  const int8_t* p = cv + 4 * i;
-  return make_char4(p[0], p[1], p[2], p[3]);
 }
 
 // vector i of the row's aligned run: its four elements swapped

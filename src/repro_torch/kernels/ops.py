@@ -56,11 +56,14 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-def cache_row_update(u, g, c_row, old_scale, new_scale, inv_n, backend=None):
-    if _plain(u, backend):
-        return ref.cache_row_update_ref(u, g, c_row, old_scale, new_scale,
-                                        inv_n)
-    return _cu.cache_row_update(u, g, c_row, old_scale, new_scale, inv_n)
+def cache_row_update(data, scale, j, g, u, inv_n, backend=None):
+    """The int8 ACE step on row ``j`` (a one-element int64 tensor) of the
+    int8 cache ``(data, scale)``: the row becomes ``q(g)`` in place and
+    ``u' = u + (dq(row_j') − dq(row_j))·inv_n`` comes back in u's dtype
+    (f32 or bf16); u itself is not written."""
+    if _plain(data, backend):
+        return ref.set_row_ace_ref(data, scale, j, g, u, inv_n)
+    return _cu.cache_row_update(data, scale, j, g, u, inv_n)
 
 
 def row_delta(data, scale, j, g, backend=None):

@@ -5,6 +5,9 @@ Semantics (all f32 accumulation):
   * cache_row_update: fused ACE incremental rule on one cache row
         u' = u + (q(g)·new_scale − c_row·old_scale)·inv_n
         c_row' = q(g)  (int8)
+    and set_row_ace: the whole int8 ACE K = 1 step on row j of an int8
+    cache (gather, new scale, cache_row_update, scatter), the CUDA
+    cache_row_update kernel's function.
   * masked_agg: ACED bounded-delay aggregation over the whole cache
         u = Σ_i (m_i·s_i / max(Σ_i m_i, 1))·C[i]   (rows in order)
   * row_delta: fused cache-row swap for the incremental running-sum rules
@@ -63,6 +66,27 @@ def cache_row_update_ref(u, g, c_row, old_scale, new_scale, inv_n):
     q = _quant(g, new_scale)
     u_new = u + (q * new_scale - old) * inv_n
     return u_new, q.to(torch.int8)
+
+
+def set_row_ace_ref(data, scale, j, g, u, inv_n):
+    """data (n, d) int8, scale (n,) f32, updated in place; j a one-element
+    int64 tensor; g (d,) f32; u (d,) f32 or bf16, not written; inv_n a
+    Python float -> u' (d,) in u's dtype.
+
+    Row j becomes q(g) with scale `row_scale(g)`, and
+    ``u' = u + (q(g)·s' − c·s)·inv_n`` in f32 (u read as f32, the sum
+    rounded to u's dtype once): the int8 branch of `ACEIncremental.step`,
+    as the JAX package computes it (which leaves a bf16 state's sum in
+    f32)."""
+    c_row = data.index_select(0, j)[0]
+    old_scale = scale.index_select(0, j)[0]
+    new_scale = row_scale(g)
+    inv = torch.full((), inv_n, dtype=torch.float32, device=u.device)
+    u_new, q = cache_row_update_ref(u.float(), g, c_row, old_scale,
+                                    new_scale, inv)
+    data.index_copy_(0, j, q[None])
+    scale.index_copy_(0, j, new_scale.reshape(1))
+    return u_new.to(u.dtype)
 
 
 def row_delta_ref(g, c_row, old_scale, new_scale):

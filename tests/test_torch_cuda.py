@@ -10,9 +10,11 @@ relative to the output's scale (the kernels build with -fmad=false, so the
 remaining differences are the order of the commit kernel's f32 sums;
 masked_agg and dequantize_rows sum and multiply in their plain versions'
 order and must agree bit for bit, as must the fused row swap
-`ops.row_delta`). A row holding a NaN or ±inf gets int8 codes 0, as in the
-JAX package; the tests pin the zeros as well as comparing with the plain
-versions. Run only these with ``-k "masked_agg or row_delta or nan"``."""
+`ops.row_delta` and the whole int8 ACE step `ops.cache_row_update`). A row
+holding a NaN or ±inf gets int8 codes 0, as in the JAX package; the tests
+pin the zeros as well as comparing with the plain versions. Run only these
+with ``-k "masked_agg or row_delta or nan"``, the ACE step's with
+``-k "ace or row_kernels"``."""
 import numpy as np
 import pytest
 
@@ -23,6 +25,7 @@ from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
 from repro_torch.core.scan_staleness import run_staleness_scan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import cache_update as _cu  # noqa: E402
 from repro_torch.kernels import masked_agg as _ma  # noqa: E402
 from repro_torch.kernels import quant as _q  # noqa: E402
 from repro_torch.kernels import row_delta as _rd  # noqa: E402
@@ -81,21 +84,126 @@ def check_swap(data, scale, j, g, plan=None):
     assert _same(delta1, delta2) and _same(old1, old2)
 
 
+def check_ace(data, scale, j, g, u, inv_n=0.01, plan=None):
+    """The whole int8 ACE step on a copy of the cache against its plain
+    version on another: every row and scale and u' bit for bit, u' in u's
+    dtype, the input u untouched. Returns u'."""
+    d1, s1, u_in = data.clone(), scale.clone(), u.clone()
+    u1 = (ops.cache_row_update(d1, s1, j, g, u, inv_n) if plan is None else
+          _cu.cache_row_update(d1, s1, j, g, u, inv_n, plan=plan))
+    u2 = ops.cache_row_update(data, scale, j, g, u, inv_n, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(d1, data)
+    assert _same(s1, scale)
+    assert u1.dtype == u.dtype and _same(u1.float(), u2.float())
+    assert _same(u.float(), u_in.float())
+    return u1
+
+
 @pytest.mark.parametrize("d", [1, 300, 17226, (1 << 24) + 3])
 def test_row_kernels_match_plain(cuda, d):
-    u, g, c, o, s = row_inputs(8, d, cuda)
-    inv_n = torch.full((), 0.01, device=cuda)
+    """The row swap and the whole int8 ACE step (f32 and bf16 states)
+    against their plain versions, one launch each."""
+    _, g, *_ = row_inputs(8, d, cuda)
     data, scale = swap_cache(d, 3, d, cuda)
+    gen = torch.Generator().manual_seed(d)
     before = ops.launch_counts()
     check_swap(data, scale, torch.tensor([1], device=cuda), g)
-    u1, q1 = ops.cache_row_update(u, g, c, o, s, inv_n)
-    u2, q2 = ops.cache_row_update(u, g, c, o, s, inv_n, backend="torch")
-    torch.cuda.synchronize()
-    assert torch.equal(q1, q2)
-    _close(u1, u2)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.randn(d, generator=gen).to(cuda, dtype)
+        check_ace(data, scale, torch.tensor([2], device=cuda), g, u)
     after = ops.launch_counts()
     assert after["row_delta"] == before["row_delta"] + 1
-    assert after["cache_row_update"] == before["cache_row_update"] + 1
+    assert after["cache_row_update"] == before["cache_row_update"] + 2
+
+
+def ace_plans(d, sms):
+    """Every launch plan the whole ACE step takes at width d: each cluster
+    size whose slices fit its registers at `MAX_PER_THREAD` vectors a
+    thread, and the cooperative grid."""
+    plans = []
+    for cluster in (1, 2, 4, 8):
+        plan = _q._quant_plan(1, d, sms, cluster)
+        if plan[3] == "registers" and plan[2] <= _cu.MAX_PER_THREAD:
+            plans.append(plan)
+    return plans + [(1, 32, 2, "grid")]
+
+
+@pytest.mark.parametrize("state", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("j", [1, 2])
+@pytest.mark.parametrize("d", [1, 7, 300, 17226, (1 << 24) + 3])
+def test_whole_ace_step_matches_plain(cuda, d, j, state):
+    """The whole int8 ACE step 50 times over on one row (odd rows of an even
+    d are only 2-byte aligned, even ones 4-byte), u' carried into the next
+    call, with payloads whose scale changes by orders of magnitude from call
+    to call, so that a block that read the new scale as the old one would
+    show in u'. Every fifth payload and every third u lie 4-12 bytes into
+    their allocation; every fourth payload holds a NaN or ±inf (codes 0;
+    u' is NaN there and in the next call, whose old scale is NaN or inf:
+    u restarts from a finite vector). The calls go round every cluster size
+    that fits and the cooperative grid, forced through plan=; each call is
+    one launch."""
+    data, scale = swap_cache(d + j, 4, d, cuda)
+    row = torch.tensor([j], device=cuda)
+    gen = torch.Generator().manual_seed(d + j)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = ace_plans(d, sms) if d < 1 << 20 else [None]
+    u = torch.randn(d, generator=gen).to(cuda, state)
+    for it in range(50):
+        g = torch.randn(d, generator=gen) * 10.0 ** (it % 7 - 3)
+        special = (float("nan"), float("inf"), -float("inf"))[it % 3]
+        if it % 4 == 3:
+            g[(it * 7919) % d] = special
+        g = g.to(cuda)
+        if it % 5 == 4:
+            g = _offset(g, 1 + it % 3)
+        if it % 3 == 2:
+            u = _offset(u, 1 + it % 3)
+        before = ops.launch_counts()["cache_row_update"]
+        u = check_ace(data, scale, row, g, u, 1.0 / 4,
+                      plans[it % len(plans)])
+        assert ops.launch_counts()["cache_row_update"] == before + 1
+        if it % 4 == 3:
+            assert not bool(data[j].any())
+        if not bool(torch.isfinite(u).all()):
+            u = torch.randn(d, generator=gen).to(cuda, state)
+    assert torch.isfinite(scale[torch.arange(4, device=cuda) != j]).all()
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [17226, (1 << 24) + 3])
+def test_ace_int8_step_is_one_launch(cuda, d, state_dtype):
+    """With an int8 cache, one `ACEIncremental.step` at K = 1 puts exactly
+    one kernel on the card, the whole-step `cache_row_update` (a cluster's
+    or the grid's): over n steps the wrapper counts n launches and the
+    trace holds no other device work and no more than n such kernels (the
+    profiler there sometimes drops events; an empty trace is taken
+    again)."""
+    agg = tagg.ACEIncremental(cache_dtype="int8", state_dtype=state_dtype)
+    gen = torch.Generator().manual_seed(5)
+    state = agg.init_state(6, d, (torch.randn(6, d, generator=gen) * 2)
+                           .to(cuda))
+    client = torch.tensor([3], device=cuda)
+    payload = torch.randn(d, generator=gen).to(cuda)
+    arr = tagg.Arrival(client, payload, 1, 0)
+    state, *_ = agg.step(state, arr)            # build and load first
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = 20
+    for _ in range(3):
+        before = ops.launch_counts()["cache_row_update"]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                state, *_ = agg.step(state, arr)
+            torch.cuda.synchronize()
+        assert ops.launch_counts()["cache_row_update"] == before + n
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    assert 0 < len(on_card) <= n, on_card
+    assert all("cache_update" in name for name in on_card), on_card
 
 
 @pytest.mark.parametrize("j", [1, 2])
@@ -142,12 +250,11 @@ def test_quantizing_kernels_code_nan_and_inf_rows_as_0(cuda, kind):
     assert not bool(q1[0].any())
     data, scale = swap_cache(1, 4, d, cuda)
     check_swap(data, scale, torch.tensor([1], device=cuda), x[0])
-    u, _, c, o, _ = row_inputs(2, d, cuda)
-    s = tref.row_scale(x[0])
-    inv_n = torch.full((), 0.01, device=cuda)
-    _, c1 = ops.cache_row_update(u, x[0], c, o, s, inv_n)
-    _, c2 = ops.cache_row_update(u, x[0], c, o, s, inv_n, backend="torch")
-    assert torch.equal(c1, c2) and not bool(c1.any())
+    for dtype in (torch.float32, torch.bfloat16):
+        data, scale = swap_cache(2, 4, d, cuda)
+        u = row_inputs(2, d, cuda)[0].to(dtype)
+        check_ace(data, scale, torch.tensor([2], device=cuda), x[0], u)
+        assert not bool(data[2].any())
     kw = commit_inputs(3, 16, d, 3, torch.int8, ("a", "g"), cuda,
                        valid=torch.ones(16, dtype=torch.bool))
     kw["G"][0] = x[0]
@@ -485,6 +592,8 @@ def test_engine_runs_through_the_kernels(cuda, name, dtype, K, kernel):
     ops.reset_launch_counts()
     r_kernel = run(None)
     assert ops.launch_counts()[kernel] > 0
+    if kernel == "cache_row_update":            # the whole step: one a tick
+        assert ops.launch_counts()[kernel] == len(r_kernel.emit)
     ops.reset_launch_counts()
     r_plain = run("torch")
     assert sum(ops.launch_counts().values()) == 0

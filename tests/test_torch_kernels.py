@@ -4,6 +4,8 @@ Pallas kernel in interpret mode, on the same numpy inputs. int8 rows must be
 bit-identical; f32 outputs agree within 1e-6 (relative to the output's
 scale: the only differences are the order of f32 sums). The CUDA kernels
 against their plain versions on the card are in test_torch_cuda.py."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import aggregators as jagg  # noqa: E402
+from repro.core import cache as jcache  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.cache_update import cache_row_update as pallas_cru  # noqa: E402
@@ -114,6 +118,74 @@ def test_row_delta_plain_matches_jax(d, blk):
     _close(d1.numpy(), d3)
 
 
+# --- the whole int8 ACE step (`ops.cache_row_update`) ------------------------
+
+ACE_ROWS = [0, 4, 2, 0, 4, 1]       # j = 0 and j = n − 1 of 5 rows, twice
+BF16_ULP = 2.0 ** -8                # bfloat16's spacing relative to |x|
+
+
+def ace_cache(seed, n, d, state):
+    """An int8 cache of n rows, a state u of `state`'s dtype and the
+    arrivals' payloads (their scales 1e-2 to 10), as numpy."""
+    rng = np.random.default_rng(seed)
+    q, s = jref.quantize_rows_ref(jnp.asarray(
+        (rng.normal(size=(n, d)) * 2).astype(np.float32)))
+    u = rng.normal(size=d).astype(np.float32)
+    g = [(rng.normal(size=d) * 10.0 ** (a % 4 - 2)).astype(np.float32)
+         for a in range(len(ACE_ROWS))]
+    return np.array(q), np.array(s), u, g
+
+
+@pytest.mark.parametrize("route", ["xla", "interpret"])
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 7, 300, 1030])
+def test_whole_ace_step_plain_matches_jax(d, state, route, monkeypatch):
+    """The plain whole call (`ops.cache_row_update` on CPU tensors,
+    `ref.set_row_ace_ref`) against JAX's `ACEIncremental.step` on a flat
+    int8 cache, six arrivals in a row on rows 0, n − 1 and between, with
+    the step's `cache_row_update` taken through the JAX package's XLA
+    oracle or run as the Pallas kernel in the interpreter. Rows and scales
+    bit for bit on both routes. u (JAX's f32 u cast back to the state
+    dtype, as `test_state_dtype_repair` does): bit for bit on the oracle
+    route; on the interpreter route XLA fuses the kernel body and rounds
+    the f32 sums otherwise in the last bit, so f32 within 1e-6 relative and
+    bf16 within one bf16 ulp. u' is a fresh tensor; the input u and every
+    other row are left as they were."""
+    monkeypatch.setattr(jops, "cache_row_update", functools.partial(
+        jops.cache_row_update, backend=route))
+    n = 5
+    q, s, u0, gs = ace_cache(d + 17, n, d, state)
+    jdt, tdt = (jnp.float32, torch.float32) if state == "float32" else (
+        jnp.bfloat16, torch.bfloat16)
+    agg = jagg.ACEIncremental(cache_dtype="int8", state_dtype=state)
+    jst = {"cache": jcache.FlatCache(jnp.asarray(q), jnp.asarray(s)),
+           "u": jnp.asarray(u0).astype(jdt)}
+    data, scale = torch.as_tensor(q.copy()), torch.as_tensor(s.copy())
+    u = torch.as_tensor(u0).to(tdt)
+    for a, (j, g) in enumerate(zip(ACE_ROWS, gs)):
+        rows0, scale0, u_in, u_prev = data.clone(), scale.clone(), \
+            u.clone(), u
+        u = ops.cache_row_update(data, scale, torch.tensor([j]),
+                                 torch.as_tensor(g), u, 1.0 / n)
+        jst, ju, _, _ = agg.step(jst, jagg.Arrival(j, jnp.asarray(g), a, 0))
+        jst = {**jst, "u": ju.astype(jdt)}
+        assert torch.equal(u_prev, u_in) and u.dtype == tdt
+        assert u.data_ptr() != u_prev.data_ptr()
+        others = torch.arange(n) != j
+        assert torch.equal(data[others], rows0[others])
+        assert torch.equal(scale[others], scale0[others])
+        _same(data.numpy(), np.asarray(jst["cache"].data))
+        _same(scale.numpy(), np.asarray(jst["cache"].scale))
+        a32 = u.float().numpy()
+        b32 = np.asarray(jst["u"].astype(jnp.float32))
+        if route == "xla":
+            _same(a32, b32)
+        elif state == "float32":
+            _close(a32, b32)
+        else:
+            assert np.all(np.abs(a32 - b32) <= BF16_ULP * np.abs(b32))
+
+
 def _quant_multiply(g, s):
     """numpy float32 copy of `quant_fast` in kernels/csrc/common.cuh, the
     CUDA kernels' int8 rounding by one multiply: (codes, decided). Where
@@ -169,7 +241,7 @@ def test_quant_multiply_shortcut_matches_division(seed):
 
 SPECIAL = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}
 QUANTIZERS = ["quantize_rows", "row_delta", "cache_row_update",
-              "commit_batch"]
+              "commit_batch", "set_row_ace"]
 
 
 def special_rows(kind, d=40):
@@ -206,6 +278,20 @@ def test_nan_and_inf_rows_take_jax_codes(kind, fn):
                 jnp.asarray(u), jnp.asarray(x[0]), jnp.asarray(c), osc, nsc,
                 np.float32(0.5))
         q1, q2 = q1[None], np.asarray(q2)[None]
+    elif fn == "set_row_ace":
+        # the whole ACE step on row 0 of a 3-row cache, against JAX's step
+        q, s = jref.quantize_rows_ref(jnp.asarray(x[[1, 2, 1]]))
+        data, scale = torch.as_tensor(np.array(q)), torch.as_tensor(
+            np.array(s))
+        u = np.ones(d, np.float32)
+        ops.cache_row_update(data, scale, torch.tensor([0]), _t(x[0]),
+                             _t(u), 1.0 / 3)
+        jst, _, _, _ = jagg.ACEIncremental(cache_dtype="int8").step(
+            {"cache": jcache.FlatCache(q, s), "u": jnp.asarray(u)},
+            jagg.Arrival(0, jnp.asarray(x[0]), 0, 0))
+        np.testing.assert_array_equal(scale.numpy(),
+                                      np.asarray(jst["cache"].scale))
+        q1, q2 = data, np.asarray(jst["cache"].data)
     else:
         kw = commit_inputs(5, 3, d, 1, "int8", (), valid=np.ones(3, bool))
         kw["G"] = x
@@ -439,9 +525,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(TypeError, match="CUDA tensor"):
         _rd.row_delta(*swap_inputs(6, 4, 64))
     with pytest.raises(TypeError, match="CUDA tensor"):
-        _cu.cache_row_update(*[_t(x[k]) for k in
-                               ("u", "g", "crow", "osc", "nsc")],
-                             _t(np.float32(0.5)))
+        _cu.cache_row_update(*swap_inputs(6, 4, 64), _t(x["u"]), 0.5)
     kw = _torch_kw(commit_inputs(3, 2, 32, 1, "int8", ()))
     with pytest.raises(TypeError, match="CUDA tensor"):
         _cb.commit_batch(**kw)
@@ -629,6 +713,29 @@ def test_row_delta_plan_geometry(d):
         assert -(-(d // 4) // 8) > 4 * _q.MAX_THREADS   # past 4 a thread
         return
     assert on_chip == "registers" and V <= 4
+    assert -(-(d // 4) // C) <= T * V
+    for head in range(4):
+        ranges = sorted(r for block in _q._quant_slices(d, head, C)
+                        for r in block)
+        assert ranges[0][0] == 0 and ranges[-1][1] == d
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("d", [1, 7, 300, 17226, 65536, 65540, 131072,
+                               (1 << 24) + 3])
+def test_ace_plan_geometry(d):
+    """The whole ACE step launches one cluster on quantize_rows' plan for one
+    row while that keeps 2 vectors a thread (the main path's width: 8
+    blocks of 288 threads), else the cooperative grid; a cluster's slices
+    fit its threads at 2 vectors and tile the row exactly once."""
+    C, T, V, on_chip = _cu._ace_plan(d, H100_SMS)
+    if d == 17226:
+        assert (C, T, V, on_chip) == (8, 288, 2, "registers")
+    if on_chip == "grid":
+        assert -(-(d // 4) // 8) > 2 * _q.MAX_THREADS   # past 2 a thread
+        return
+    assert on_chip == "registers" and V == _cu.MAX_PER_THREAD == 2
+    assert C in (1, 2, 4, 8) and T % 32 == 0 and T <= _q.MAX_THREADS
     assert -(-(d // 4) // C) <= T * V
     for head in range(4):
         ranges = sorted(r for block in _q._quant_slices(d, head, C)

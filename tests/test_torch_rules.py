@@ -232,6 +232,43 @@ def test_state_dtype_repair(name, K):
         _close(tu[te], ju[je], 2.0 ** -7)
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_ace_int8_step_keeps_its_input_state(state_dtype):
+    """The int8 ACE step at K = 1 (one `ops.cache_row_update` call, the
+    plain whole call on the CPU) against the JAX rule on the rules' stream:
+    the cache and u bit for bit after every arrival (JAX's f32 u cast back
+    to the state dtype). Each step returns a fresh u and leaves its input
+    u as it was (the engine keeps the old state for a frozen tick), and its
+    ``emit`` is one kept True, the same tensor every tick."""
+    cfg = _config("ace", "int8", 1, state_dtype)
+    t_agg, j_agg = tagg.make_aggregator(cfg), jagg.make_aggregator(cfg)
+    ts, clients, payloads, staleness, _, init = _stream(7, 1)
+    t_state = t_agg.init_state(N, D, torch.as_tensor(init), device="cpu")
+    j_state = j_agg.init_state(N, D, jnp.asarray(init))
+    j_dtype = j_state["u"].dtype
+    # one start for both (the two means of the cache differ in the last bit)
+    t_state["u"] = torch.as_tensor(np.array(_np(j_state["u"]))).to(
+        t_state["u"].dtype)
+    emits = set()
+    for e in range(T):
+        u_in = t_state["u"]
+        u_copy = u_in.clone()
+        t_state, tu, emit, _ = t_agg.step(t_state, tagg.Arrival(
+            int(clients[e, 0]), torch.as_tensor(payloads[e, 0]), int(ts[e]),
+            int(staleness[e, 0])))
+        j_state, _, _, _ = j_agg.step(j_state, jagg.Arrival(
+            int(clients[e, 0]), jnp.asarray(payloads[e, 0]), int(ts[e]),
+            int(staleness[e, 0])))
+        j_state = {**j_state, "u": j_state["u"].astype(j_dtype)}
+        assert torch.equal(u_in, u_copy) and tu is t_state["u"]
+        assert tu.data_ptr() != u_in.data_ptr()
+        assert bool(emit) and emit.dtype == torch.bool
+        emits.add(id(emit))
+        _same_cache(t_state["cache"], j_state["cache"])
+        assert np.array_equal(_np(tu), _np(j_state["u"]))
+    assert len(emits) == 1
+
+
 @pytest.mark.parametrize("name", ["ace", "aced", "ca2fl"])
 def test_bf16_state_keeps_step_batch_off_the_fused_commit(name, monkeypatch):
     """A non-f32 state takes the op chain at K > 1, like the JAX rules;

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time `masked_agg` (``csrc/masked_agg.cu``) and the fused int8 row swap
-(``csrc/row_delta.cu``, `FlatCache.set_row_delta`) on one GPU, beside an
-earlier tree's.
+"""Time `masked_agg` (``csrc/masked_agg.cu``), the fused int8 row swap
+(``csrc/row_delta.cu``, `FlatCache.set_row_delta`) and the whole int8 ACE
+step (``csrc/cache_update.cu``, `ACEIncremental.step`) on one GPU, beside
+an earlier tree's.
 
-    python3 tools/agg_swap_designs.py [--parent DIR]
+    python3 tools/agg_swap_designs.py [--parent DIR] [--rows-only]
 
 masked_agg at (100, 17,226) and (100, 2^22 + 3), each timed kernel run in
 the order parent, variants, variants reversed, parent:
@@ -20,11 +21,15 @@ the order parent, variants, variants reversed, parent:
 Then, in this tree and in DIR (each in its own process, parent, this,
 this, parent): the whole int8 `FlatCache.set_row_delta` call at d = 17,226
 and 2^24 + 3 (device time and device kernels per call, from torch.profiler;
-at 17,226 also the row swap forced onto the cooperative grid) and one
-traced 300-tick int8 ACED K = 1 run of the engine on the vision
-task (device kernels and device time per tick, wall clock, idle share).
-Each line: device ms per call (chip_smoke.measure) and whether the output
-is bit-identical to the plain version.
+at 17,226 also the row swap forced onto the cooperative grid), the whole
+int8 `ACEIncremental.step` call at K = 1 at the same widths for f32 and
+bf16 states (at 17,226 also its kernel on each cluster size and on the
+grid, in a tree whose kernel takes a plan), and one traced 300-tick int8
+K = 1 run each of ACED and ACE on the vision task (device kernels and
+device time per tick, wall clock, idle share, arrivals/s). Each line:
+device ms per call (chip_smoke.measure) and, for masked_agg, whether the
+output is bit-identical to the plain version. `--rows-only` skips
+masked_agg.
 """
 from __future__ import annotations
 
@@ -211,9 +216,75 @@ def kernels(parent):
         del q, out
 
 
+def _tick(cs, torch, task, rule, dev, label, tag):
+    """One traced 300-tick int8 K = 1 run of `rule` (after a warm run and an
+    untraced one for the wall clock): device kernels and device time per
+    tick, idle share."""
+    T, E = cs._depth(rule, 1)
+    cs.run_engine(task, rule, "int8", 1, T, E, dev)          # warm
+    _, wall = cs.run_engine(task, rule, "int8", 1, T, E, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cs.run_engine(task, rule, "int8", 1, T, E, dev)
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / E
+    per = sum(e.count for e in evs) / E
+    tick = 1e3 * wall / E
+    print(f"{label}: engine {rule} int8 K=1: {per:.1f} device kernels per "
+          f"tick, device busy {busy:.4f} ms of {tick:.4f} ms wall, idle "
+          f"share {1 - busy / tick:.3f}, {E / wall:.1f} arrivals/s [{tag}]",
+          flush=True)
+
+
+def _ace_step(cs, torch, dev, label, tag):
+    """The whole int8 ACEIncremental.step call at K = 1 (f32 and bf16
+    states), device time and device kernels per call; in a tree whose
+    cache_row_update takes a plan, also the kernel on every cluster size
+    that fits and on the cooperative grid at d = 17,226."""
+    import inspect
+
+    from repro_torch.core.aggregators import ACEIncremental, Arrival
+    from repro_torch.core.cache import FlatCache
+    from repro_torch.kernels import cache_update as cu
+    from repro_torch.kernels import quant, ref
+    for d in (17226, (1 << 24) + 3):
+        g = torch.Generator(device=dev).manual_seed(d % 1000 + 1)
+        data, scale = ref.quantize_rows_ref(
+            torch.randn(4, d, generator=g, device=dev) * 3)
+        row = torch.tensor([2], device=dev)
+        x = torch.randn(d, generator=g, device=dev) * 5
+        u = torch.randn(d, generator=g, device=dev)
+        iters = 200 if d < 1e6 else 20
+        for state in (torch.float32, torch.bfloat16):
+            st = {"cache": FlatCache(data, scale), "u": u.to(state)}
+            agg = ACEIncremental(cache_dtype="int8")
+            arr = Arrival(row, x, 1, 0)
+            ms, _, per = cs.measure(torch, lambda: agg.step(st, arr), iters,
+                                    None)
+            print(f"{label}: ACEIncremental.step int8 d={d} "
+                  f"{str(state)[6:]} state: {cs._fmt(ms)} ms device, "
+                  f"{per:g} device kernels per call [{tag}]", flush=True)
+        if d < 1e6 and "plan" in inspect.signature(
+                cu.cache_row_update).parameters:
+            sms = quant._sm_count(dev)
+            plans = [quant._quant_plan(1, d, sms, c) for c in (1, 2, 4, 8)]
+            plans = [p for p in plans if p[3] == "registers"
+                     and p[2] <= cu.MAX_PER_THREAD]
+            for plan in plans + [(1, 32, 2, "grid")]:
+                ms, _, _ = cs.measure(torch, lambda: cu.cache_row_update(
+                    data, scale, row, x, u, 0.01, plan=plan), iters,
+                    "cache_update")
+                print(f"{label}: cache_row_update d={d} plan {plan}: "
+                      f"{cs._fmt(ms)} ms device [{tag}]", flush=True)
+        del data, scale, x, u
+
+
 def swap_and_tick(tree):
-    """In `tree`'s package: the whole int8 set_row_delta call and one traced
-    ACED int8 K = 1 engine run."""
+    """In `tree`'s package: the whole int8 set_row_delta call, the whole
+    int8 ACE step and one traced int8 K = 1 engine run each of ACED and
+    ACE."""
     import torch
 
     import chip_smoke as cs
@@ -221,7 +292,7 @@ def swap_and_tick(tree):
     from repro_torch.core.cache import FlatCache
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import row_delta as rd
-    build.build(["row_delta", "quant"])
+    build.build(["row_delta", "quant", "cache_update"])
     dev = torch.device("cuda")
     label, tag = Path(tree).resolve().name, card()
     for d in (17226, (1 << 24) + 3):
@@ -244,27 +315,17 @@ def swap_and_tick(tree):
             print(f"{label}: row swap d={d} on the cooperative grid: "
                   f"{cs._fmt(ms)} ms device [{tag}]", flush=True)
         del data, scale, x, cache
+    _ace_step(cs, torch, dev, label, tag)
     task = make_vision_task(device=dev)
-    T, E = cs._depth("aced", 1)
-    cs.run_engine(task, "aced", "int8", 1, T, E, dev)          # warm
-    _, wall = cs.run_engine(task, "aced", "int8", 1, T, E, dev)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        cs.run_engine(task, "aced", "int8", 1, T, E, dev)
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3 / E
-    per = sum(e.count for e in evs) / E
-    tick = 1e3 * wall / E
-    print(f"{label}: engine aced int8 K=1: {per:.1f} device kernels per "
-          f"tick, device busy {busy:.4f} ms of {tick:.4f} ms wall, idle "
-          f"share {1 - busy / tick:.3f} [{tag}]", flush=True)
+    for rule in ("aced", "ace"):
+        _tick(cs, torch, task, rule, dev, label, tag)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree to time beside")
+    ap.add_argument("--rows-only", action="store_true",
+                    help="skip masked_agg; only the row calls and the ticks")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tree:                       # one tree's calls, in its process
@@ -276,7 +337,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("agg_swap_designs: no CUDA device", file=sys.stderr)
         return 2
-    kernels(args.parent)
+    if not args.rows_only:
+        kernels(args.parent)
     trees = [ROOT, ROOT]
     if args.parent:
         trees = [args.parent] + trees + [args.parent]
