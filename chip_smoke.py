@@ -34,22 +34,29 @@ result line):
      beside its bound and its plain version, and dequantize_rows beside
      `torch.mul(q, s[:, None])`, the one PyTorch call that computes it (no
      single call computes the other five: their library_ms is null);
-  4. the main path: `run_staleness_scan` on the vision task at full width
-     (n = 100 clients, d = 17,226), with the launch counts zeroed just
-     before each run and read just after — ACE, ACED and CA²FL with an
-     int8 cache at K = 1 and K = 16 and an f32 cache at K = 1 and 16; ASGD,
-     delay-adaptive ASGD and FedBuff (buffer 10) at K = 1 and K = 16; the
-     direct ACE, ACED and CA²FL rules with int8 and f32 caches at K = 1.
-     Each rule's kernels must have been launched, the final model finite
-     and its test accuracy above 0.5 (chance is 0.1); the int8 K = 16 ACE
-     run and the int8 direct ACED run are repeated through the plain
-     versions on the card and must end within 1e-4 of the kernels' runs;
-     each incremental rule's final model is set beside its direct
-     reference's (int8 and f32, K = 1, same seed); one traced run each of
-     int8 ACE at K = 16 and int8 ACE, ACED, ACED-direct and ACE-direct at
-     K = 1
-     gives the device's busy time, idle share and device kernels per tick
-     and its largest kernels;
+  4. the main path: the engine's runner (`make_staleness_runner`, what
+     `run_staleness_scan` runs) on the vision task at full width (n = 100
+     clients, d = 17,226), the tick captured as one CUDA graph and replayed
+     once per tick, with the launch counts zeroed just before each run and
+     read just after (replayed launches included) — ACE, ACED and CA²FL
+     with an int8 cache at K = 1 and K = 16 and an f32 cache at K = 1 and
+     16; ASGD, delay-adaptive ASGD and FedBuff (buffer 10) at K = 1 and
+     K = 16; the direct ACE, ACED and CA²FL rules with int8 and f32 caches
+     at K = 1. Each rule's kernels must have been launched, the final model
+     finite and its test accuracy above 0.5 (chance is 0.1), and each run
+     is repeated with the eager tick (graph=False): model, cache rows and
+     scales, every state tensor and every per-event output bit-identical.
+     The int8 K = 16 ACE run and the int8 direct ACED run are repeated
+     eagerly through the plain versions on the card and must end within
+     1e-4 of the kernels' runs; each incremental rule's final model is set
+     beside its direct reference's (int8 and f32, K = 1, same seed). int8
+     ACE at K = 16 and int8 ACE, ACED, ACED-direct and ACE-direct at K = 1
+     are timed untraced eager, graph, graph, eager (wall ms per tick and
+     arrivals/s), and one traced graph run each gives the device's busy
+     time, idle share, device kernels per tick, its largest kernels and
+     the port's kernels seen in the replays, each seen as many times as
+     its launch counter counted in that run (the captured tick's counts ×
+     replays, plus the init's eager launches);
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -538,6 +545,9 @@ def _fmt(x):
 # --- phase 4: the main path -----------------------------------------------------
 
 BUFFERED = ("ca2fl", "ca2fl_direct", "fedbuff")    # buffer 10
+# the configurations timed eager against graph and traced
+TRACED = (("ace", "int8", K_SLICE), ("ace", "int8", 1), ("aced", "int8", 1),
+          ("aced_direct", "int8", 1), ("ace_direct", "int8", 1))
 CACHE_INIT = ("ace", "aced", "ace_direct", "aced_direct")
 
 
@@ -607,20 +617,57 @@ def make_rule(rule, dtype, K, backend=None):
     return CA2FLDirect(buffer_size=10, cache_dtype=dtype, backend=backend)
 
 
-def run_engine(task, rule, dtype, K, T, E, dev, backend=None, seed=0):
-    import numpy as np
-    import torch
-    from repro_torch.core import run_staleness_scan
-    lr = 0.2 * float(np.sqrt(task.n_clients / T))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_staleness_scan(
+def engine_runner(task, rule, dtype, K, T, dev, backend=None, graph=None):
+    """`make_staleness_runner` for one configuration of the main path:
+    the tick captured as a CUDA graph (graph=None on the card), or eager
+    (graph=False)."""
+    from repro_torch.core import make_staleness_runner
+    return make_staleness_runner(
         grad_fn=task.grad_fn, params0=task.params0,
         aggregator=make_rule(rule, dtype, K, backend),
-        n_clients=task.n_clients, server_lr=lr, T=T, beta=5.0, k_batch=K,
-        n_events=E, seed=seed, device=dev)
-    wall = time.perf_counter() - t0
-    return res, wall
+        n_clients=task.n_clients, T=T, beta=5.0, k_batch=K, device=dev,
+        graph=graph)
+
+
+def engine_streams(task, K, E, dev, seed=0):
+    """The run's random streams, drawn on the card from `seed` as
+    `run_staleness_scan` draws them."""
+    from repro_torch.core.scan_staleness import (build_payload_noise,
+                                                 build_staleness_randomness)
+    return (build_staleness_randomness(seed, E, task.n_clients, 5.0,
+                                       k_batch=K, device=dev),
+            build_payload_noise(task.grad_fn, seed, E, task.n_clients, K,
+                                device=dev))
+
+
+def engine_lr(task, T):
+    import numpy as np
+    return 0.2 * float(np.sqrt(task.n_clients / T))
+
+
+def run_engine(torch, runner, streams, lr):
+    """One runner call, host clock around it to a device sync ->
+    ((w, state, outs, extras), seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner(*streams, lr)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_run(torch, a, b):
+    """Model, every cache's int8 rows (or f32 rows) and scales, every other
+    state tensor and every per-event output, bit for bit."""
+    from repro_torch.core import FlatCache
+    (w1, s1, o1, _), (w2, s2, o2, _) = a, b
+    same = torch.equal(w1, w2) and s1.keys() == s2.keys()
+    for k in s1 if same else ():
+        if isinstance(s1[k], FlatCache):
+            same = same and torch.equal(s1[k].data, s2[k].data) and \
+                torch.equal(s1[k].scale, s2[k].scale)
+        else:
+            same = same and torch.equal(s1[k], s2[k])
+    return bool(same and all(torch.equal(o1[k], o2[k]) for k in o1))
 
 
 def main() -> int:
@@ -728,88 +775,125 @@ def main() -> int:
     print(f"engine: vision task, n={task.n_clients} clients, d={d}, "
           f"batch 50 [{card}]")
     totals = dict.fromkeys(KERNELS, 0)
-    results, walls = {}, {}
+    results, kept = {}, {}
     for rule, dtype, K, T, E, kernels in engine_runs():
+        label = f"{rule} {dtype or 'no-cache'} K={K}"
+        streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+        runner = engine_runner(task, rule, dtype, K, T, dev)
         ops.reset_launch_counts()
-        res, wall = run_engine(task, rule, dtype, K, T, E, dev)
+        out, wall = run_engine(torch, runner, streams, lr)
         counts = ops.launch_counts()
         for k, v in counts.items():
             totals[k] += v
-        label = f"{rule} {dtype or 'no-cache'} K={K}"
+        check(runner.captures == 1, f"{label}: {runner.captures} captures")
         for kernel in kernels:
             check(counts[kernel] > 0, f"{label}: {kernel} was not launched")
-        check(bool(torch.isfinite(torch.as_tensor(res.w)).all()),
-              f"{label}: non-finite model")
-        acc = task.eval_fn(unravel(torch.as_tensor(res.w, device=dev),
-                                   task.params0))["accuracy"]
+        w = out[0]
+        check(bool(torch.isfinite(w).all()), f"{label}: non-finite model")
+        acc = task.eval_fn(unravel(w, task.params0))["accuracy"]
         check(acc > 0.5, f"{label}: accuracy {acc}, not well above chance "
               "(0.1)")
-        print(f"engine {label}: T={T}, {E} ticks, "
-              f"{len(res.ts)} updates, accuracy {acc:.4f}, {wall:.2f} s, "
-              f"{E / wall:.1f} ticks/s, {E * K / wall:.1f} arrivals/s, "
+        eager = engine_runner(task, rule, dtype, K, T, dev, graph=False)
+        ref, wall_e = run_engine(torch, eager, streams, lr)
+        check(same_run(torch, out, ref), f"{label}: the graph run differs "
+              "from the eager run")
+        updates = int(out[2]["emit"].sum())
+        print(f"engine {label}: T={T}, {E} ticks, {updates} updates, "
+              f"accuracy {acc:.4f}; graph run {wall:.2f} s with its capture "
+              f"({E * K / wall:.1f} arrivals/s), eager run {wall_e:.2f} s "
+              f"({E * K / wall_e:.1f} arrivals/s); graph and eager model, "
+              f"cache rows and scales and outputs bit-identical: True; "
               f"launches {counts} [{card}]")
-        results[rule, dtype, K], walls[rule, dtype, K] = res, wall
+        results[rule, dtype, K] = w.cpu().numpy()
+        if (rule, dtype, K) in TRACED:
+            kept[rule, dtype, K] = (runner, eager, streams, lr, E)
     for rule, dtype, K in (("ace", "int8", K_SLICE),
                            ("aced_direct", "int8", 1)):
         T, E = _depth(rule, K)
+        plain = engine_runner(task, rule, dtype, K, T, dev, backend="torch",
+                              graph=False)
         ops.reset_launch_counts()
-        res, wall = run_engine(task, rule, dtype, K, T, E, dev,
-                               backend="torch")
+        out, wall = run_engine(torch, plain, engine_streams(task, K, E, dev),
+                               engine_lr(task, T))
         check(sum(ops.launch_counts().values()) == 0,
               "backend='torch' launched a kernel")
-        ref_w = results[rule, dtype, K].w
-        dev_w = float(abs(res.w - ref_w).max() / max(1e-12, abs(ref_w).max()))
+        res_w, ref_w = out[0].cpu().numpy(), results[rule, dtype, K]
+        dev_w = float(abs(res_w - ref_w).max() / max(1e-12, abs(ref_w).max()))
         check(dev_w <= 1e-4, f"{rule} {dtype} K={K}: plain run deviates "
               f"{dev_w}")
-        print(f"engine {rule} {dtype} K={K} plain versions: {wall:.2f} s, "
-              f"{E * K / wall:.1f} arrivals/s, final w within {dev_w:.3e} "
-              f"(relative) of the kernels' run, bit-identical: "
-              f"{bool((res.w == ref_w).all())} [{card}]")
+        print(f"engine {rule} {dtype} K={K} plain versions (eager): "
+              f"{wall:.2f} s, {E * K / wall:.1f} arrivals/s, final w within "
+              f"{dev_w:.3e} (relative) of the kernels' run, bit-identical: "
+              f"{bool((res_w == ref_w).all())} [{card}]")
     for inc in ("ace", "aced", "ca2fl"):
         for dtype in ("int8", "float32"):
-            a = results[inc, dtype, 1].w
-            b = results[inc + "_direct", dtype, 1].w
+            a = results[inc, dtype, 1]
+            b = results[inc + "_direct", dtype, 1]
             print(f"engine {inc} vs {inc}_direct, {dtype} K=1, seed 0: final "
                   f"w max |diff| {float(abs(a - b).max()):.3e}, relative "
                   f"{float(abs(a - b).max() / max(1e-12, abs(b).max())):.3e} "
                   f"[{card}]")
 
-    # where a tick's time goes: device time of one traced run against the
-    # untraced run's wall clock (the trace itself slows the host)
+    # eager against graph in turns (eager, graph, graph, eager), untraced;
+    # the graphs were captured above, so a graph call here is its replays
+    # plus the streams' copies and the init
+    graph_ms = {}
+    for key, (runner, eager, streams, lr, E) in kept.items():
+        rule, dtype, K = key
+        walls = []
+        for r in (eager, runner, runner, eager):
+            walls.append(run_engine(torch, r, streams, lr)[1])
+        ms = [1e3 * x / E for x in walls]
+        graph_ms[key] = (ms[1] + ms[2]) / 2
+        print(f"engine A/B {rule} {dtype} K={K}: wall ms per tick eager "
+              f"{ms[0]:.4f}, graph {ms[1]:.4f}, graph {ms[2]:.4f}, eager "
+              f"{ms[3]:.4f}; arrivals/s "
+              f"{', '.join(f'{E * K / x:.1f}' for x in walls)} [{card}]")
+
+    # where a tick's time goes: device time of one traced graph run against
+    # the untraced graph runs' wall clock (the trace itself slows the host)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for rule, dtype, K in (("ace", "int8", K_SLICE), ("ace", "int8", 1),
-                           ("aced", "int8", 1), ("aced_direct", "int8", 1),
-                           ("ace_direct", "int8", 1)):
-        T, E = _depth(rule, K)
+    for key, (runner, _, streams, lr, E) in kept.items():
+        rule, dtype, K = key
+        ops.reset_launch_counts()
         with torch.profiler.profile(activities=acts) as prof:
-            run_engine(task, rule, dtype, K, T, E, dev)
+            run_engine(torch, runner, streams, lr)
+        counts = ops.launch_counts()
         # aggregated once: key_averages() over a whole run takes seconds
         device_events = [e for e in prof.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total
                       for e in device_events) / 1e3 / E
         per_tick = sum(e.count for e in device_events) / E
-        tick_ms = 1e3 * walls[rule, dtype, K] / E
-        print(f"engine {rule} {dtype} K={K}: device busy {busy_ms:.4f} ms "
-              f"per tick of {tick_ms:.4f} ms wall, idle share "
-              f"{1 - busy_ms / tick_ms:.3f}, {per_tick:.1f} device kernels "
-              f"per tick [{card}]")
+        tick_ms = graph_ms[key]
+        print(f"engine {rule} {dtype} K={K} graph: device busy "
+              f"{busy_ms:.4f} ms per tick of {tick_ms:.4f} ms wall, idle "
+              f"share {1 - busy_ms / tick_ms:.3f}, {per_tick:.1f} device "
+              f"kernels per tick [{card}]")
         top = sorted(device_events,
                      key=lambda e: -e.self_device_time_total)[:6]
         for e in top:
             print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
                   f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
+        # the counters' replayed launches (the captured tick's counts ×
+        # replays) against the kernels the profiler saw in this run
         ours = []
         for name, symbol in KERNEL_SYMBOLS.items():
             evs = [e for e in device_events
                    if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
+            seen = sum(e.count for e in evs)
+            check(seen == counts[name], f"{rule} {dtype} K={K}: the profiler "
+                  f"saw {seen} {name} launches, the counter says "
+                  f"{counts[name]}")
             if evs:
                 ms = sum(e.self_device_time_total for e in evs) / 1e3 / E
-                per = sum(e.count for e in evs) / E
-                ours.append(f"{name} {ms:.4f} ms/tick ({per:.1f} "
-                            "launches/tick)")
-        print(f"  the port's kernels: {'; '.join(ours) or 'none'}")
+                ours.append(f"{name} {ms:.4f} ms/tick ({seen / E:.1f} "
+                            f"launches/tick, {seen} in the run)")
+        print(f"  the port's kernels seen in the replays: "
+              f"{'; '.join(ours) or 'none'}; each kernel's launches in the "
+              f"trace equal its counter's: True")
+    del kept
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

@@ -1,7 +1,9 @@
-"""The port's flat AFL server: the sampled-staleness engine, the nine rules
-of the zoo (ASGD, delay-adaptive ASGD, FedBuff, CA²FL, ACE, ACED and the
-direct CA²FL/ACE/ACED references) over the flat gradient cache, and the
-vision task — the counterpart of `repro.core`'s entry points."""
+"""The port's flat AFL server: the sampled-staleness engine (one run, the
+runner whose tick the card replays as a CUDA graph, and the chunked
+runner), the nine rules of the zoo (ASGD, delay-adaptive ASGD, FedBuff,
+CA²FL, ACE, ACED and the direct CA²FL/ACE/ACED references) over the flat
+gradient cache, and the vision task — the counterpart of `repro.core`'s
+entry points."""
 from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
                                           ACEDirect, ACEIncremental,
                                           CA2FLDirect, DelayAdaptiveASGD,
@@ -9,9 +11,14 @@ from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
                                           make_aggregator)
 from repro_torch.core.cache import FlatCache
 from repro_torch.core.fl_tasks import make_vision_task
-from repro_torch.core.scan_staleness import run_staleness_scan
+from repro_torch.core.scan_staleness import (ChunkedStalenessRunner,
+                                             make_chunked_staleness_runner,
+                                             make_staleness_runner,
+                                             run_staleness_scan)
 
 __all__ = ["ACED", "ACEDDirect", "ACEDirect", "ACEIncremental", "ALGORITHMS",
-           "CA2FL", "CA2FLDirect", "DelayAdaptiveASGD", "FedBuff",
-           "FlatCache", "VanillaASGD", "make_aggregator", "make_vision_task",
+           "CA2FL", "CA2FLDirect", "ChunkedStalenessRunner",
+           "DelayAdaptiveASGD", "FedBuff", "FlatCache", "VanillaASGD",
+           "make_aggregator", "make_chunked_staleness_runner",
+           "make_staleness_runner", "make_vision_task",
            "run_staleness_scan"]

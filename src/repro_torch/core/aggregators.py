@@ -113,16 +113,24 @@ def _astate(vec, dtype: str):
     return vec.to(DTYPES[dtype])
 
 
-_TRUES = {}
+_CONSTANTS = {}
+
+
+def _constant(key, device, make) -> torch.Tensor:
+    """A constant tensor of the rules, made by `make()` once per `key` and
+    device and only ever read: a tick launches no fill for it, and a
+    captured tick copies no host value into it."""
+    t = _CONSTANTS.get((key, device))
+    if t is None:
+        t = _CONSTANTS[key, device] = make()
+    return t
 
 
 def _true(device) -> torch.Tensor:
-    """A 0-d True on `device`, made once: an ``emit`` the engine only reads
-    (``emit & ...`` makes a new tensor), so a tick launches no fill for it."""
-    t = _TRUES.get(device)
-    if t is None:
-        t = _TRUES[device] = torch.ones((), dtype=torch.bool, device=device)
-    return t
+    """A 0-d True on `device` (an ``emit`` the engine only reads: ``emit &
+    ...`` makes a new tensor)."""
+    return _constant("true", device, lambda: torch.ones(
+        (), dtype=torch.bool, device=device))
 
 
 def _zeros_vec(d: int, dtype: str, device):
@@ -490,9 +498,9 @@ class ACEIncremental(Aggregator):
         n = cache_n(cache)
         emit = batch.valid.any()
         if _fused_flat_commit(self.fused_commit, (state["u"],)):
-            coef = torch.zeros((1, 5), dtype=torch.float32, device=dev)
-            coef[0, 0] = 1.0
-            coef[0, 1] = 1.0 / n
+            coef = _constant(("ace_coef", n), dev, lambda: torch.tensor(
+                [[1.0, 1.0 / n, 0.0, 0.0, 0.0]], dtype=torch.float32,
+                device=dev))
             cache, _, u = flat_commit_batch(
                 cache, js, batch.payloads, batch.valid, state["u"][None],
                 coef, coef[0], backend=self.backend)

@@ -163,6 +163,10 @@ class FlatCache:
                 + self.scale.numel() * self.scale.element_size())
 
 
+# a carry holding a cache round-trips through torch.save / torch.load
+torch.serialization.add_safe_globals([FlatCache])
+
+
 def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
                     device=None, backend=None) -> FlatCache:
     """An (n, d) cache of `dtype`, zero or seeded with `init_rows` (on their

@@ -1,12 +1,13 @@
 """Pieces of `repro.core.scan_engine` the staleness engine shares: the
-trajectory record (`ScanResult`, `_to_result`), the event budget
-(`default_n_events`, for every rule of the zoo) and the client payload
-chain (`_payload_chain`). The event engine itself (`run_scan`, `sweep`) and
-the eval/fault fields of the record are not ported yet (ROADMAP A6, A8)."""
+trajectory record (`ScanResult`, `_to_result`, with the eval cadence's
+``evals``/``eval_ts``), the event budget (`default_n_events`, for every
+rule of the zoo) and the client payload chain (`_payload_chain`). The event
+engine itself (`run_scan`, `sweep`) and the record's fault counters are not
+ported yet (ROADMAP A6, A8)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -24,6 +25,13 @@ class ScanResult:
     total_comms: int
     emit: np.ndarray           # (n_events,) raw emission mask
     ws: Optional[np.ndarray] = None   # (n_events, d) model after each event
+    #: the host `eval_fn`'s result at each eval mark the run reached, and
+    #: those marks (server iterations)
+    evals: List[Dict] = dataclasses.field(default_factory=list)
+    eval_ts: List[int] = dataclasses.field(default_factory=list)
+
+    def final_eval(self) -> Dict:
+        return self.evals[-1] if self.evals else {}
 
 
 def _payload_chain(grad_fn: Callable, local_steps: int, local_lr: float):
@@ -61,7 +69,8 @@ def default_n_events(aggregator: Aggregator, T: int,
     return base
 
 
-def _to_result(w, outs, T: int, n_init_comms: int) -> ScanResult:
+def _to_result(w, outs, T: int, n_init_comms: int, evals=None,
+               eval_ts=None) -> ScanResult:
     """Host-side record of a run from its per-event outputs (numpy)."""
     emit = np.asarray(outs["emit"])
     ts = np.asarray(outs["t"])
@@ -80,4 +89,6 @@ def _to_result(w, outs, T: int, n_init_comms: int) -> ScanResult:
         ts=ts[emit], losses=np.asarray(outs["loss"])[emit],
         update_norms=np.asarray(outs["unorm"])[emit],
         w=np.asarray(w), total_comms=n_init_comms + processed, emit=emit,
-        ws=np.asarray(outs["w"]) if "w" in outs else None)
+        ws=np.asarray(outs["w"]) if "w" in outs else None,
+        evals=list(evals) if evals else [],
+        eval_ts=list(eval_ts) if eval_ts else [])

@@ -10,11 +10,22 @@ compute the client payload(s), run the aggregator's `step` /
 window the protocol freezes: the tick holds model and aggregator state and
 fast-forwards t to the earliest rejoin.
 
-The JAX package scans this on the device; here it is a Python loop over
-ticks whose body only enqueues work on the device: ``t``, the update count,
-``emit`` and the freeze/thaw stay tensors, and nothing is read on the host
-until the run ends. The cache is updated in place; a frozen tick restores
-the rows it wrote.
+Execution. As in the JAX package, the engine is an init and a tick
+(`_staleness_program`). ``init(lr) -> carry`` builds the protocol state: a
+dict of tensors with the JAX carry's keys (``w``, ``state``, ``t``,
+``n_upd``, ``ring``, ``cursor``, and ``snaps``/``hits`` with eval marks)
+plus ``e``, the position in the pre-drawn streams, which takes the place of
+JAX's PRNG key. ``tick`` advances the carry by one tick: it reads the
+streams at ``e`` on the device and writes every new value back into the
+carry's own tensors (the cache rows in place, the rest by copy). A tick
+never reads the host and always touches the same addresses, so on the card
+`make_staleness_runner` captures one tick as a CUDA graph and replays it
+once per event, the counterpart of JAX's one compiled `lax.scan`; on the
+CPU, or with ``graph=False``, the same tick runs eagerly.
+`make_chunked_staleness_runner` runs it over event slices from a carry that
+round-trips through `torch.save`. The eval cadence (`eval_marks_for`,
+`snapshot_update`) snapshots the model at each mark the run reaches, and
+`run_staleness_scan` evaluates the snapshots on the host after the run.
 
 Randomness. Everything the protocol draws is independent of model values,
 so it is made up front: the per-tick gumbel rows, the per-lane ``tau_raw``
@@ -25,18 +36,18 @@ them from a `torch.Generator` seeded with ``seed``
 own (the tests replay the JAX package's streams through ``randomness=`` and
 ``payload_noise=``). `jax.random` is never reproduced.
 
-Not ported yet: eval marks, fault schedules and guards, resync, checkify,
-the tree layout, seeds/grids and the chunked runner.
+Not ported yet: fault schedules and guards, resync, checkify, the tree
+layout, seeds/grids and the sharded runner.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.convert import ravel
+from repro_torch.convert import ravel, unravel
 from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
                                           wants_cache_init)
 from repro_torch.core.cache import FlatCache
@@ -44,6 +55,7 @@ from repro_torch.core.scan_engine import (ScanResult, _payload_chain,
                                           _to_result, default_n_events)
 from repro_torch.core.staleness_sim import (NEVER, default_tau_max,
                                             staleness_client_probs)
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -61,10 +73,12 @@ class StalenessRandomness:
     def n_events(self) -> int:
         return self.tau_raw.shape[0]
 
-    def to(self, device) -> "StalenessRandomness":
-        return StalenessRandomness(
-            *(torch.as_tensor(x).to(device) for x in
-              (self.gumbels, self.tau_raw, self.leave_at, self.rejoin_at)))
+    def slice(self, start: int, stop: int) -> "StalenessRandomness":
+        """Events ``start..stop-1`` of the stream (the windows whole): the
+        slice a chunk of `make_chunked_staleness_runner` consumes."""
+        return StalenessRandomness(self.gumbels[start:stop],
+                                   self.tau_raw[start:stop], self.leave_at,
+                                   self.rejoin_at)
 
 
 @dataclasses.dataclass
@@ -73,10 +87,6 @@ class PayloadNoise:
     client for the init batch and one per (tick, lane)."""
     init: torch.Tensor       # (n, local_steps, *noise_shape)
     ticks: torch.Tensor      # (n_events, k_batch, local_steps, *noise_shape)
-
-    def to(self, device) -> "PayloadNoise":
-        return PayloadNoise(torch.as_tensor(self.init).to(device),
-                            torch.as_tensor(self.ticks).to(device))
 
 
 def build_staleness_randomness(seed: int, n_events: int, n_clients: int,
@@ -179,35 +189,85 @@ def _select_state(proc, new, old, saved, idx):
     return out
 
 
-def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
-                       n_clients: int, server_lr, T: int, beta: float = 5.0,
-                       tau_max: Optional[int] = None, speed_skew: float = 0.0,
-                       dropout_frac: float = 0.0,
-                       dropout_at: Optional[int] = None,
-                       rejoin_at: Optional[int] = None, windows=None,
-                       n_events: Optional[int] = None, local_steps: int = 1,
-                       local_lr: float = 0.05, init_cache_grads: bool = True,
-                       seed: int = 0, record_w: bool = False,
-                       k_batch: int = 1, device=None,
-                       randomness: Optional[StalenessRandomness] = None,
-                       payload_noise: Optional[PayloadNoise] = None
-                       ) -> ScanResult:
-    """One run of the sampled-staleness protocol on the flat cache.
+# ---------------------------------------------------------------------------
+# In-scan eval cadence: snapshot buffer written on mark crossings.
+# ---------------------------------------------------------------------------
 
-    `grad_fn(w (B, d), clients (B,), noise (B, ...)) -> (loss (B,),
-    grads (B, d))` computes B client gradients at B models; it also offers
-    ``sample_noise(lead_shape, generator, device)`` for the noise it
-    consumes (see `repro_torch.core.fl_tasks.ClientGrad`). `params0` is the
-    initial model, a flat tensor or a parameter structure raveled in the
-    JAX package's order (`repro_torch.convert.ravel`). `server_lr` is a
-    float or a callable of the 0-d int32 iteration tensor.
+def eval_marks_for(T: int,
+                   eval_every: Optional[int]) -> Optional[Tuple[int, ...]]:
+    """The server iterations the host simulator evaluates at
+    (``t % eval_every == 0 or t == T``), as a sorted tuple."""
+    if not eval_every:
+        return None
+    return tuple(sorted(set(range(eval_every, T + 1, eval_every)) | {T}))
 
-    The run is on the GPU unless ``device="cpu"``; with no GPU and no CPU
-    request it raises. ``randomness`` / ``payload_noise`` replace the
-    streams drawn from `seed` (the event count is then theirs).
-    ``k_batch > 1`` consumes K arrivals per tick through `step_batch` (the
-    direct rules have none and raise `NotImplementedError`, as in the JAX
-    package)."""
+
+def snapshot_update(snaps, hits, marks, t_new, emit, w):
+    """Write `w` into the snapshot row whose mark equals `t_new`, gated on
+    `emit` (t lands on a mark only through an emitted update; a freeze's
+    fast-forward jump skips its marks, as the host's modulo cadence does).
+    Returns the new ``(snaps, hits)``."""
+    hit = emit & (marks == t_new)                        # (n_marks,) bool
+    return torch.where(hit[:, None], w[None], snaps), hits | hit
+
+
+def _apply_evals(snaps, hits, marks, eval_fn, unravel_fn):
+    """Run the host `eval_fn` over the marks the run reached, on the
+    parameters `unravel_fn` makes of each snapshot row."""
+    evals, eval_ts = [], []
+    reached = hits.cpu().numpy()
+    for i, m in enumerate(marks):
+        if reached[i]:
+            evals.append(eval_fn(unravel_fn(snaps[i])))
+            eval_ts.append(int(m))
+    return evals, eval_ts
+
+
+# ---------------------------------------------------------------------------
+# The program: an init and a tick over a carry of tensors.
+# ---------------------------------------------------------------------------
+
+#: the per-event outputs a tick writes at row ``e``
+_OUT_DTYPES = {"loss": torch.float32, "emit": torch.bool, "t": torch.int32,
+               "unorm": torch.float32, "alive": torch.bool}
+
+
+@dataclasses.dataclass
+class _Program:
+    """One configuration of the engine (see `_staleness_program`)."""
+    init: Callable            # (lr, init_noise) -> carry
+    tick: Callable            # (carry, xs, outs) -> None, all in place
+    marks: Optional[Tuple[int, ...]]
+    tau_max: int
+    k_batch: int
+    local_steps: int
+    d: int
+    record_w: bool
+    device: torch.device
+
+
+def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
+                       n_clients: int, T: int, beta: float,
+                       server_lr: Optional[Callable] = None,
+                       tau_max: Optional[int] = None,
+                       speed_skew: float = 0.0,
+                       eval_marks: Optional[Tuple[int, ...]] = None,
+                       local_steps: int = 1, local_lr: float = 0.05,
+                       init_cache_grads: bool = True, record_w: bool = False,
+                       k_batch: int = 1, device=None) -> _Program:
+    """The engine as the JAX package's `_staleness_program` builds it.
+
+    ``init(lr, init_noise=None) -> carry``: the init batch (one payload per
+    client at w⁰ from the noise rows `init_noise`, for the cache-init
+    rules), u⁰ applied with `lr`, the ring holding w⁰ (and w¹), ``e = 0``.
+
+    ``tick(carry, xs, outs)``: one tick, in place. ``xs`` holds the
+    pre-drawn streams (``gumbels (E, n)``, ``tau_raw (E,)`` or ``(E, K)``,
+    ``noise (E, K, local_steps, ...)``), the windows ``leave_at`` /
+    ``rejoin_at (n,)`` and the 0-d f32 ``lr``; the tick reads row
+    ``carry["e"]`` of each stream and writes row ``e`` of ``outs``. No host
+    value enters it, so it can be captured. `server_lr` is None (the tick
+    takes ``xs["lr"]``) or a callable of the 0-d int32 iteration tensor."""
     device = resolve_device(device)
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,98 +279,90 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     if K > 1 and mc is not None and mc < K:
         raise ValueError(f"{type(agg).__name__}(max_cohort={mc}) cannot own "
                          f"k_batch={K} cohorts")
-    if randomness is not None:
-        n_events = randomness.n_events
-    elif n_events is None:
-        slack = n if (rejoin_at is not None or windows is not None) else 0
-        n_events = default_n_events(agg, T, init_cache_grads) + slack
-    E = n_events
-    if randomness is None:
-        randomness = build_staleness_randomness(
-            seed, E, n, beta, dropout_frac, speed_skew, dropout_at=dropout_at,
-            rejoin_at=rejoin_at, windows=windows, k_batch=K, device=device)
-    if payload_noise is None:
-        payload_noise = build_payload_noise(grad_fn, seed, E, n, K,
-                                            local_steps, device)
-    rand, noise = randomness.to(device), payload_noise.to(device)
-    if rand.tau_raw.shape != ((E,) if K == 1 else (E, K)):
-        raise ValueError(f"tau_raw of shape {tuple(rand.tau_raw.shape)} for "
-                         f"k_batch={K}")
-    if tuple(noise.ticks.shape[:3]) != (E, K, local_steps):
-        raise ValueError(f"payload noise ticks of shape "
-                         f"{tuple(noise.ticks.shape)} for {E} events, "
-                         f"k_batch={K}, local_steps={local_steps}")
-
+    if server_lr is not None and not callable(server_lr):
+        raise TypeError("pass a constant lr at call time; server_lr is for "
+                        "iteration schedules (callables) only")
+    lr_of_t = ((lambda t, lr: server_lr(t)) if server_lr is not None
+               else (lambda t, lr: lr))
     tau_max = tau_max if tau_max is not None else default_tau_max(beta)
     S = tau_max + 1
     wants_init = init_cache_grads and wants_cache_init(agg)
     log_probs = torch.as_tensor(np.log(staleness_client_probs(n, speed_skew)),
                                 dtype=torch.float32).to(device)
-    lr = torch.full((), 0.0 if callable(server_lr) else float(server_lr),
-                    dtype=torch.float32, device=device)
-    lr_of_t = server_lr if callable(server_lr) else (lambda t: lr)
     payload_fn = _payload_chain(grad_fn, local_steps, local_lr)
     w0 = ravel(params0).to(device=device, dtype=torch.float32)
     d = w0.numel()
+    marks = (torch.tensor(eval_marks, dtype=torch.int32, device=device)
+             if eval_marks is not None else None)
 
     def i32(x):
         return torch.full((), x, dtype=torch.int32, device=device)
 
-    # init batch: one payload per client at w0 (paper Alg. 1 line 1), and
-    # u⁰ applied before the loop (lines 4-5)
-    w = w0
-    if wants_init:
-        clients = torch.arange(n, device=device)
-        init_rows, _ = payload_fn(w0[None].repeat(n, 1), clients, noise.init)
-        state = agg.init_state(n, d, init_rows, device)
-        w = w0 - lr_of_t(i32(0)) * init_rows.mean(0)
-        t0 = 1
-    else:
-        state = agg.init_state(n, d, None, device)
-        t0 = 0
-    ring = torch.zeros((S, d), dtype=torch.float32, device=device)
-    ring[0] = w0
-    cursor = i32(0)
-    if wants_init:                   # history = [w⁰, w¹] after the init update
-        ring, cursor = ring_append(ring, cursor, w,
-                                   torch.ones((), dtype=torch.bool,
-                                              device=device))
-    t, n_upd = i32(t0), i32(t0)
-    cache_keys = [k for k, v in state.items() if isinstance(v, FlatCache)]
+    def init(lr, init_noise=None):
+        lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
+        if wants_init:
+            if init_noise is None:
+                raise ValueError(
+                    f"{type(agg).__name__} seeds its cache with one payload "
+                    "per client: pass the init batch's noise "
+                    "(PayloadNoise.init)")
+            # one payload per client at w0 (paper Alg. 1 line 1), and u⁰
+            # applied before the loop (lines 4-5)
+            init_rows, _ = payload_fn(
+                w0[None].repeat(n, 1), torch.arange(n, device=device),
+                torch.as_tensor(init_noise).to(device))
+            state = agg.init_state(n, d, init_rows, device)
+            w, t0 = w0 - lr_of_t(i32(0), lr) * init_rows.mean(0), 1
+        else:
+            state = agg.init_state(n, d, None, device)
+            w, t0 = w0.clone(), 0
+        ring = torch.zeros((S, d), dtype=torch.float32, device=device)
+        ring[0] = w0
+        cursor = i32(0)
+        if wants_init:               # history = [w⁰, w¹] after the init update
+            ring, cursor = ring_append(ring, cursor, w,
+                                       torch.ones((), dtype=torch.bool,
+                                                  device=device))
+        carry = {"w": w, "state": state, "t": i32(t0),
+                 # emitted-update count: len(history) − 1 of the host deque;
+                 # it falls behind t after a freeze's fast-forward jump
+                 "n_upd": i32(t0), "ring": ring, "cursor": cursor,
+                 "e": torch.zeros((), dtype=torch.int64, device=device)}
+        if marks is not None:
+            carry["snaps"] = torch.zeros((marks.shape[0], d), device=device)
+            carry["hits"] = torch.zeros((marks.shape[0],), dtype=torch.bool,
+                                        device=device)
+        return carry
 
-    outs = {"loss": torch.zeros((E,), device=device),
-            "emit": torch.zeros((E,), dtype=torch.bool, device=device),
-            "t": torch.zeros((E,), dtype=torch.int32, device=device),
-            "unorm": torch.zeros((E,), device=device),
-            "alive": torch.zeros((E,), dtype=torch.bool, device=device)}
-    if record_w:
-        outs["w"] = torch.zeros((E, d), device=device)
-
-    for e in range(E):
+    def tick(carry, xs, outs):
+        e = carry["e"].reshape(1)
+        t, n_upd, state = carry["t"], carry["n_upd"], carry["state"]
         # availability: windows folded into the sampling logits; with every
         # client inside its window the tick freezes and t jumps to the thaw
-        gone = (rand.leave_at <= t) & (t < rand.rejoin_at)
+        gone = (xs["leave_at"] <= t) & (t < xs["rejoin_at"])
         logits = torch.where(gone, -torch.inf, log_probs)
         any_alive = (~gone).any()
         thaw_t = torch.clamp(
-            torch.where(gone, rand.rejoin_at, NEVER).amin(), max=T)
-        score = logits + rand.gumbels[e]
+            torch.where(gone, xs["rejoin_at"], NEVER).amin(), max=T)
+        score = logits + xs["gumbels"].index_select(0, e)[0]
         if K == 1:
             js = torch.argmax(score).reshape(1)
         else:
             # Gumbel top-k: the tick's K distinct clients in sampling order
             js = torch.topk(score, K).indices
-        tau_req = torch.floor(rand.tau_raw[e]).int().reshape(-1)
-        taus = torch.minimum(tau_req, torch.clamp(n_upd, max=tau_max))
-        w_stale = ring_read(ring, cursor, taus)
-        payloads, losses = payload_fn(w_stale, js, noise.ticks[e])
+        tau_req = torch.floor(xs["tau_raw"].index_select(0, e)).int()
+        taus = torch.minimum(tau_req.reshape(-1),
+                             torch.clamp(n_upd, max=tau_max))
+        w_stale = ring_read(carry["ring"], carry["cursor"], taus)
+        payloads, losses = payload_fn(w_stale, js,
+                                      xs["noise"].index_select(0, e)[0])
         if K == 1:
             # a frozen K = 1 tick still writes its row in place: keep the
             # old one to restore (at K > 1 an all-invalid batch writes every
             # row back bit-exactly, so nothing needs saving)
-            saved = {k: (state[k].data.index_select(0, js),
-                         state[k].scale.index_select(0, js))
-                     for k in cache_keys}
+            saved = {k: (v.data.index_select(0, js),
+                         v.scale.index_select(0, js))
+                     for k, v in state.items() if isinstance(v, FlatCache)}
             proc = any_alive
             new_state, u, emit, lr_scale = agg.step(
                 state, Arrival(js, payloads[0], t, taus[0]))
@@ -325,19 +377,372 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                     / torch.clamp(valid.sum(), min=1))
         emit = emit & (t < T) & proc
         # frozen ticks perform no aggregator transition
-        state = _select_state(proc, new_state, state, saved, js)
-        eta = lr_of_t(t) * lr_scale
-        w = torch.where(emit, w - eta * u, w)
-        ring, cursor = ring_append(ring, cursor, w, emit)
-        outs["loss"][e] = loss
-        outs["emit"][e] = emit
-        outs["t"][e] = t
-        outs["unorm"][e] = torch.linalg.vector_norm(u)
-        outs["alive"][e] = any_alive
+        new_state = _select_state(proc, new_state, state, saved, js)
+        eta = lr_of_t(t, xs["lr"]) * lr_scale
+        w = torch.where(emit, carry["w"] - eta * u, carry["w"])
+        _, cursor = ring_append(carry["ring"], carry["cursor"], w, emit)
+        new = {"w": w, "n_upd": n_upd + emit.int(), "cursor": cursor,
+               "t": torch.where(any_alive, t + emit.int(), thaw_t)}
+        if marks is not None:
+            new["snaps"], new["hits"] = snapshot_update(
+                carry["snaps"], carry["hits"], marks, new["t"], emit, w)
+        row = {"loss": loss, "emit": emit, "t": t,
+               "unorm": torch.linalg.vector_norm(u), "alive": any_alive}
         if record_w:
-            outs["w"][e] = w
-        n_upd = n_upd + emit.int()
-        t = torch.where(any_alive, t + emit.int(), thaw_t)
+            row["w"] = w
+        for k, v in row.items():
+            outs[k].index_copy_(0, e, v.to(outs[k].dtype).reshape(
+                (1,) + outs[k].shape[1:]))
+        # the new carry goes into the carry's own tensors (every value above
+        # is a fresh tensor; the caches were written in place)
+        for k, v in new.items():
+            carry[k].copy_(v)
+        for k, v in new_state.items():
+            if isinstance(v, FlatCache):
+                # a rule writes its cache in place and hands back the same
+                # object; a fresh one would be lost to the next tick
+                if v is not state[k]:
+                    raise RuntimeError(f"{type(agg).__name__}.step returned "
+                                       f"a new cache for {k!r}")
+            else:
+                state[k].copy_(v)
+        carry["e"].add_(1)
 
+    return _Program(init, tick, eval_marks, tau_max, K, local_steps, d,
+                    record_w, device)
+
+
+# ---------------------------------------------------------------------------
+# Running the tick: eagerly, or captured once as a CUDA graph and replayed.
+# ---------------------------------------------------------------------------
+
+def _tree_clone(x):
+    """A copy of a carry (or of a part of one) sharing no storage with it."""
+    if isinstance(x, dict):
+        return {k: _tree_clone(v) for k, v in x.items()}
+    if isinstance(x, FlatCache):
+        return FlatCache(x.data.clone(), x.scale.clone())
+    return x.clone()
+
+
+def _tree_copy_(dst, src):
+    """Copy carry `src` into carry `dst`, tensor by tensor."""
+    if isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"a carry with keys {sorted(src)} for a runner "
+                             f"whose carry has {sorted(dst)}")
+        for k in dst:
+            _tree_copy_(dst[k], src[k])
+    elif isinstance(dst, FlatCache):
+        dst.data.copy_(src.data)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
+def _use_graph(graph: Optional[bool], device: torch.device) -> bool:
+    """None: capture on a CUDA device, run eagerly on the CPU."""
+    if graph is None:
+        return device.type == "cuda"
+    if graph and device.type != "cuda":
+        raise ValueError("graph=True captures a CUDA graph: it needs a CUDA "
+                         f"device, not {device}")
+    return bool(graph)
+
+
+class _Ticks:
+    """A program's tick over static buffers for up to `capacity` events:
+    the streams (`feed`), the carry (`load`) and the per-event outputs.
+    `run` steps the carry eagerly or, with `use_graph`, by replays of one
+    tick captured the first time it runs; a capture that fails raises."""
+
+    def __init__(self, prog: _Program, capacity: int, graph: bool):
+        self.prog, self.capacity = prog, int(capacity)
+        self.use_graph = graph
+        dev = prog.device
+        self.outs = {k: torch.zeros((self.capacity,), dtype=dt, device=dev)
+                     for k, dt in _OUT_DTYPES.items()}
+        if prog.record_w:
+            self.outs["w"] = torch.zeros((self.capacity, prog.d),
+                                         device=dev)
+        self.xs: Optional[Dict[str, torch.Tensor]] = None
+        self.carry = None
+        self.captures = 0
+        self._graph = None
+        self._per_tick: Dict[str, int] = {}   # kernel launches of one tick
+
+    def feed(self, rand: StalenessRandomness, noise_ticks, lr) -> int:
+        """Copy an event slice's streams, its windows and `lr` into the
+        static buffers -> the slice's event count."""
+        L, K, steps = rand.n_events, self.prog.k_batch, self.prog.local_steps
+        if L > self.capacity:
+            raise ValueError(f"a slice of {L} events for a runner built for "
+                             f"{self.capacity}")
+        if tuple(rand.tau_raw.shape) != ((L,) if K == 1 else (L, K)):
+            raise ValueError(f"tau_raw of shape {tuple(rand.tau_raw.shape)} "
+                             f"for k_batch={K}")
+        if tuple(noise_ticks.shape[:3]) != (L, K, steps):
+            raise ValueError(f"payload noise ticks of shape "
+                             f"{tuple(noise_ticks.shape)} for {L} events, "
+                             f"k_batch={K}, local_steps={steps}")
+        streams = {"gumbels": rand.gumbels, "tau_raw": rand.tau_raw,
+                   "noise": noise_ticks}
+        if self.xs is None:
+            dev = self.prog.device
+            self.xs = {k: torch.zeros((self.capacity,) + tuple(v.shape[1:]),
+                                      dtype=v.dtype, device=dev)
+                       for k, v in streams.items()}
+            self.xs.update(
+                leave_at=torch.zeros(rand.leave_at.shape, dtype=torch.int32,
+                                     device=dev),
+                rejoin_at=torch.zeros(rand.rejoin_at.shape,
+                                      dtype=torch.int32, device=dev),
+                lr=torch.zeros((), dtype=torch.float32, device=dev))
+        for k, v in streams.items():
+            if tuple(v.shape[1:]) != tuple(self.xs[k].shape[1:]):
+                raise ValueError(f"{k} rows of shape {tuple(v.shape[1:])} "
+                                 "for a runner fed "
+                                 f"{tuple(self.xs[k].shape[1:])}")
+            self.xs[k][:L].copy_(v)
+        self.xs["leave_at"].copy_(rand.leave_at)
+        self.xs["rejoin_at"].copy_(rand.rejoin_at)
+        self.xs["lr"].copy_(torch.as_tensor(lr, dtype=torch.float32))
+        return L
+
+    def load(self, carry) -> None:
+        """Copy `carry` into the carry the tick steps (the first one is
+        cloned, so the tick's carry shares storage with nothing)."""
+        if self.carry is None:
+            self.carry = _tree_clone(carry)
+        else:
+            _tree_copy_(self.carry, carry)
+
+    def run(self, n: int) -> None:
+        """`n` ticks of the loaded carry over the fed streams."""
+        if not self.use_graph:
+            for _ in range(n):
+                self.prog.tick(self.carry, self.xs, self.outs)
+            return
+        if self._graph is None:
+            self._capture()
+        for _ in range(n):
+            self._graph.replay()
+        kernel_ops.add_launch_counts(self._per_tick, n)
+
+    def _capture(self) -> None:
+        dev = self.prog.device
+        start = _tree_clone(self.carry)
+        # one tick on a side stream first, as PyTorch asks of a capture that
+        # takes autograd: it also builds and loads the kernel libraries,
+        # cuBLAS's workspace and the rules' constants
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.prog.tick(self.carry, self.xs, self.outs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # that tick ran: back to the carry it started from
+        _tree_copy_(self.carry, start)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel_ops.launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                self.prog.tick(self.carry, self.xs, self.outs)
+        finally:
+            # the wrappers counted launches the capture only recorded
+            after = kernel_ops.launch_counts()
+            per_tick = {k: after[k] - before[k] for k in after}
+            kernel_ops.add_launch_counts(per_tick, -1)
+        self._graph, self._per_tick = graph, per_tick
+        self.captures += 1
+
+
+class _Runner:
+    """``runner(randomness, payload_noise, lr) -> (w, state, outs,
+    extras)``; see `make_staleness_runner`."""
+
+    def __init__(self, prog: _Program, graph: bool):
+        self.prog, self.use_graph = prog, graph
+        # the buffers (and the graph) of the event count last run; another
+        # count rebuilds them and captures anew
+        self._ticks: Optional[_Ticks] = None
+        self._retired = 0
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this runner has captured."""
+        return self._retired + (self._ticks.captures if self._ticks else 0)
+
+    def __call__(self, randomness: StalenessRandomness,
+                 payload_noise: PayloadNoise, lr=0.0):
+        E = randomness.n_events
+        ticks = self._ticks
+        if ticks is None or ticks.capacity != E:
+            self._retired = self.captures
+            ticks = self._ticks = _Ticks(self.prog, E, self.use_graph)
+        ticks.feed(randomness, payload_noise.ticks, lr)
+        ticks.load(self.prog.init(ticks.xs["lr"], payload_noise.init))
+        ticks.run(E)
+        carry, extras = ticks.carry, {}
+        if self.prog.marks is not None:
+            extras = {"snaps": carry["snaps"].clone(),
+                      "hits": carry["hits"].clone()}
+        return (carry["w"].clone(), _tree_clone(carry["state"]),
+                {k: v.clone() for k, v in ticks.outs.items()}, extras)
+
+
+def make_staleness_runner(*, grad_fn: Callable, params0,
+                          aggregator: Aggregator, n_clients: int, T: int,
+                          beta: float, server_lr: Optional[Callable] = None,
+                          tau_max: Optional[int] = None,
+                          speed_skew: float = 0.0,
+                          eval_marks: Optional[Tuple[int, ...]] = None,
+                          local_steps: int = 1, local_lr: float = 0.05,
+                          init_cache_grads: bool = True,
+                          record_w: bool = False, k_batch: int = 1,
+                          device=None, graph: Optional[bool] = None):
+    """Build the runner
+    ``run(randomness, payload_noise, lr) -> (w, state, outs, extras)``
+    once: the counterpart of the JAX package's jitted runner (flat layout).
+
+    `lr` is the constant server lr, a number or a 0-d tensor copied into
+    the runner's own buffer, so one capture serves every lr (as JAX's traced
+    lr does); a callable `server_lr` bakes an iteration schedule in and the
+    runtime `lr` is ignored. The event count is ``randomness.n_events``;
+    ``payload_noise`` holds the init batch's noise and one row per (tick,
+    lane). ``outs`` holds the per-event ``loss``, ``emit``, ``t``,
+    ``unorm``, ``alive`` (and ``w`` with `record_w`); with `eval_marks`,
+    ``extras`` holds ``snaps (n_marks, d)`` and ``hits (n_marks,)``. All
+    results stay on the device.
+
+    On a CUDA device the runner copies the streams into static buffers,
+    runs one warm-up tick on a side stream, resets the carry, captures one
+    tick as a CUDA graph and replays it once per event, the host doing
+    nothing else in between (a call with another event count captures
+    anew). ``graph=None`` captures on CUDA and runs the same tick eagerly
+    on the CPU; ``graph=False`` runs it eagerly on the card too;
+    ``graph=True`` on the CPU raises. A capture that fails raises: there is
+    no eager fallback. The kernels' launch counters
+    (`kernels.ops.launch_counts`) count the replayed launches and the
+    warm-up tick's, not the capture's."""
+    prog = _staleness_program(
+        grad_fn=grad_fn, params0=params0, aggregator=aggregator,
+        n_clients=n_clients, T=T, beta=beta, server_lr=server_lr,
+        tau_max=tau_max, speed_skew=speed_skew, eval_marks=eval_marks,
+        local_steps=local_steps, local_lr=local_lr,
+        init_cache_grads=init_cache_grads, record_w=record_w,
+        k_batch=k_batch, device=device)
+    return _Runner(prog, _use_graph(graph, prog.device))
+
+
+@dataclasses.dataclass
+class ChunkedStalenessRunner:
+    """Chunked execution of the engine: ``init(lr, init_noise) -> carry``,
+    then ``chunk(carry, randomness_slice, noise_slice, lr) -> (carry,
+    outs)`` over consecutive event slices (`StalenessRandomness.slice`,
+    ``PayloadNoise.ticks[a:b]``), bit-identical to one run over the whole
+    stream. The carry is a plain dict of tensors (and the caches) holding
+    the full protocol state, ``e`` the events consumed so far; it
+    round-trips through `torch.save` / `torch.load`, so a run resumes from
+    a checkpoint exactly. ``marks`` are the baked eval marks (None without
+    a cadence); with marks the carry holds ``snaps``/``hits``."""
+    init: Callable
+    chunk: Callable
+    marks: Optional[Tuple[int, ...]]
+    tau_max: int
+    #: arrivals per tick; the slices carry the matching tau_raw lane axis
+    k_batch: int = 1
+
+
+def make_chunked_staleness_runner(*, capacity: int,
+                                  graph: Optional[bool] = None,
+                                  **kwargs) -> ChunkedStalenessRunner:
+    """`make_staleness_runner`'s program (same keyword arguments) as an
+    init and a chunk over slices of at most `capacity` events; a longer
+    slice raises. ``chunk`` copies the carry into the tick's static
+    buffers, replays the captured tick once per event of the slice (or
+    runs it eagerly, as `graph` says) and returns a copy of the carry."""
+    prog = _staleness_program(**kwargs)
+    ticks = _Ticks(prog, capacity, _use_graph(graph, prog.device))
+
+    def chunk(carry, randomness: StalenessRandomness, noise_ticks, lr=0.0):
+        L = ticks.feed(randomness, noise_ticks, lr)
+        ticks.load(carry)
+        ticks.carry["e"].zero_()          # the slice is read from its row 0
+        ticks.run(L)
+        out = _tree_clone(ticks.carry)
+        out["e"] = carry["e"].to(out["e"].device) + L
+        return out, {k: v[:L].clone() for k, v in ticks.outs.items()}
+
+    return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
+                                  prog.k_batch)
+
+
+def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
+                       n_clients: int, server_lr, T: int, beta: float = 5.0,
+                       tau_max: Optional[int] = None, speed_skew: float = 0.0,
+                       dropout_frac: float = 0.0,
+                       dropout_at: Optional[int] = None,
+                       rejoin_at: Optional[int] = None, windows=None,
+                       eval_fn: Optional[Callable] = None,
+                       eval_every: Optional[int] = None,
+                       n_events: Optional[int] = None, local_steps: int = 1,
+                       local_lr: float = 0.05, init_cache_grads: bool = True,
+                       seed: int = 0, record_w: bool = False,
+                       k_batch: int = 1, device=None,
+                       randomness: Optional[StalenessRandomness] = None,
+                       payload_noise: Optional[PayloadNoise] = None
+                       ) -> ScanResult:
+    """One run of the sampled-staleness protocol on the flat cache, through
+    `make_staleness_runner` (a captured CUDA graph on the card).
+
+    `grad_fn(w (B, d), clients (B,), noise (B, ...)) -> (loss (B,),
+    grads (B, d))` computes B client gradients at B models; it also offers
+    ``sample_noise(lead_shape, generator, device)`` for the noise it
+    consumes (see `repro_torch.core.fl_tasks.ClientGrad`). `params0` is the
+    initial model, a flat tensor or a parameter structure raveled in the
+    JAX package's order (`repro_torch.convert.ravel`). `server_lr` is a
+    float or a callable of the 0-d int32 iteration tensor. With `eval_fn`
+    (parameters -> metrics), the model is snapshotted at the marks
+    ``eval_marks_for(T, eval_every or T)`` and `eval_fn` runs on the host
+    after the run on those the run reached (`ScanResult.evals`/`eval_ts`).
+
+    The run is on the GPU unless ``device="cpu"``; with no GPU and no CPU
+    request it raises. ``randomness`` / ``payload_noise`` replace the
+    streams drawn from `seed` (the event count is then theirs).
+    ``k_batch > 1`` consumes K arrivals per tick through `step_batch` (the
+    direct rules have none and raise `NotImplementedError`, as in the JAX
+    package)."""
+    device = resolve_device(device)
+    n, K, agg = n_clients, int(k_batch), aggregator
+    marks = (eval_marks_for(T, eval_every or T) if eval_fn is not None
+             else None)
+    runner = make_staleness_runner(
+        grad_fn=grad_fn, params0=params0, aggregator=agg, n_clients=n, T=T,
+        beta=beta, server_lr=server_lr if callable(server_lr) else None,
+        tau_max=tau_max, speed_skew=speed_skew, eval_marks=marks,
+        local_steps=local_steps, local_lr=local_lr,
+        init_cache_grads=init_cache_grads, record_w=record_w, k_batch=K,
+        device=device)
+    if randomness is not None:
+        n_events = randomness.n_events
+    elif n_events is None:
+        slack = n if (rejoin_at is not None or windows is not None) else 0
+        n_events = default_n_events(agg, T, init_cache_grads) + slack
+    if randomness is None:
+        randomness = build_staleness_randomness(
+            seed, n_events, n, beta, dropout_frac, speed_skew,
+            dropout_at=dropout_at, rejoin_at=rejoin_at, windows=windows,
+            k_batch=K, device=device)
+    if payload_noise is None:
+        payload_noise = build_payload_noise(grad_fn, seed, n_events, n, K,
+                                            local_steps, device)
+    w, _, outs, extras = runner(randomness, payload_noise,
+                                0.0 if callable(server_lr) else server_lr)
+    evals, eval_ts = [], []
+    if marks is not None:
+        evals, eval_ts = _apply_evals(extras["snaps"], extras["hits"], marks,
+                                      eval_fn, lambda f: unravel(f, params0))
     host = {k: v.cpu().numpy() for k, v in outs.items()}
-    return _to_result(w.cpu().numpy(), host, T, n if wants_init else 0)
+    wants_init = init_cache_grads and wants_cache_init(agg)
+    return _to_result(w.cpu().numpy(), host, T, n if wants_init else 0,
+                      evals=evals, eval_ts=eval_ts)

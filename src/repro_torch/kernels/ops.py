@@ -12,7 +12,10 @@ fused commit kernel and the op chain, both on the tensors' device.
 Every TPU kernel of the JAX package has its kernel here: `commit_batch`,
 `row_delta`, `cache_row_update`, `masked_agg`, `quantize_rows` and
 `dequantize_rows`. Each counts its launches; `launch_counts` reads them and
-`reset_launch_counts` zeroes them.
+`reset_launch_counts` zeroes them. A replayed CUDA graph launches kernels
+that no wrapper sees: the engine that replays one adds the counts its
+capture recorded with `add_launch_counts`, so the counters count the
+launches that ran.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ from repro_torch.kernels import row_delta as _rd
 from repro_torch.kernels.backend import fused_commit_enabled
 
 __all__ = [
-    "cache_row_update", "commit_batch", "dequantize_rows",
-    "fused_commit_enabled", "launch_counts", "masked_agg", "quantize_rows",
-    "reset_launch_counts", "row_delta",
+    "add_launch_counts", "cache_row_update", "commit_batch",
+    "dequantize_rows", "fused_commit_enabled", "launch_counts", "masked_agg",
+    "quantize_rows", "reset_launch_counts", "row_delta",
 ]
 
 # kernel name -> (module, name of its launch counter)
@@ -54,6 +57,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _KERNELS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times × counts[name]`` to each named kernel's counter (a
+    negative `times` takes back what a graph capture counted but did not
+    launch)."""
+    for name, k in counts.items():
+        mod, attr = _KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + k * times)
 
 
 def cache_row_update(data, scale, j, g, u, inv_n, backend=None):

@@ -14,7 +14,8 @@ order and must agree bit for bit, as must the fused row swap
 holding a NaN or ±inf gets int8 codes 0, as in the JAX package; the tests
 pin the zeros as well as comparing with the plain versions. Run only these
 with ``-k "masked_agg or row_delta or nan"``, the ACE step's with
-``-k "ace or row_kernels"``."""
+``-k "ace or row_kernels"``, the graph runner's (the tick captured as a
+CUDA graph, bit-identical to the eager tick) with ``-k graph``."""
 import numpy as np
 import pytest
 
@@ -23,7 +24,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.convert import unravel  # noqa: E402
 from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
-from repro_torch.core.scan_staleness import run_staleness_scan  # noqa: E402
+from repro_torch.core.cache import FlatCache  # noqa: E402
+from repro_torch.core.fl_tasks import ClientGrad  # noqa: E402
+from repro_torch.core.scan_staleness import (  # noqa: E402
+    build_payload_noise, build_staleness_randomness,
+    make_chunked_staleness_runner, make_staleness_runner, run_staleness_scan)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import cache_update as _cu  # noqa: E402
 from repro_torch.kernels import masked_agg as _ma  # noqa: E402
@@ -592,8 +597,10 @@ def test_engine_runs_through_the_kernels(cuda, name, dtype, K, kernel):
     ops.reset_launch_counts()
     r_kernel = run(None)
     assert ops.launch_counts()[kernel] > 0
-    if kernel == "cache_row_update":            # the whole step: one a tick
-        assert ops.launch_counts()[kernel] == len(r_kernel.emit)
+    if kernel == "cache_row_update":
+        # the whole step: one a replayed tick, and one in the tick that
+        # warms the graph up before its capture
+        assert ops.launch_counts()[kernel] == len(r_kernel.emit) + 1
     ops.reset_launch_counts()
     r_plain = run("torch")
     assert sum(ops.launch_counts().values()) == 0
@@ -642,3 +649,176 @@ def test_zoo_engine_runs_through_the_kernels(cuda, name, dtype, kernels):
     assert sum(ops.launch_counts().values()) == 0
     assert np.isfinite(r_kernel.w).all()
     assert np.array_equal(r_kernel.w, r_plain.w)
+
+
+# --- the graph runner: the tick captured as one CUDA graph -----------------
+
+GRAPH_RULES = ([(r, dt, K) for r in ("ace", "aced", "ca2fl")
+                for dt in ("int8", "float32") for K in (1, 16)]
+               + [(r, None, K) for r in ("asgd", "delay_asgd", "fedbuff")
+                  for K in (1, 16)]
+               + [(r, dt, 1) for r in ("ace_direct", "aced_direct",
+                                       "ca2fl_direct")
+                  for dt in ("int8", "float32")])
+
+
+def _rule(name, dtype, K):
+    return {"ace": lambda: tagg.ACEIncremental(cache_dtype=dtype),
+            "aced": lambda: tagg.ACED(tau_algo=4, cache_dtype=dtype,
+                                      max_cohort=K),
+            "ca2fl": lambda: tagg.CA2FL(buffer_size=3, cache_dtype=dtype),
+            "asgd": tagg.VanillaASGD,
+            "delay_asgd": lambda: tagg.DelayAdaptiveASGD(tau_c=2.0),
+            "fedbuff": lambda: tagg.FedBuff(buffer_size=3),
+            "ace_direct": lambda: tagg.ACEDirect(cache_dtype=dtype),
+            "aced_direct": lambda: tagg.ACEDDirect(tau_algo=4,
+                                                   cache_dtype=dtype),
+            "ca2fl_direct": lambda: tagg.CA2FLDirect(buffer_size=3,
+                                                     cache_dtype=dtype),
+            }[name]()
+
+
+def _streams(grad_fn, n, K, E, device, seed=3, windows=None):
+    rand = build_staleness_randomness(seed, E, n, 2.0, k_batch=K,
+                                      windows=windows, device=device)
+    return rand, build_payload_noise(grad_fn, seed, E, n, K, device=device)
+
+
+def _same_result(a, b):
+    """Two runner results bit for bit: model, every state tensor (cache
+    rows and scales included) and every per-event output."""
+    (w1, s1, o1, _), (w2, s2, o2, _) = a, b
+    assert torch.equal(w1, w2)
+    assert s1.keys() == s2.keys()
+    for k in s1:
+        if isinstance(s1[k], FlatCache):
+            assert torch.equal(s1[k].data, s2[k].data)
+            assert torch.equal(s1[k].scale, s2[k].scale)
+        else:
+            assert torch.equal(s1[k], s2[k])
+    assert o1.keys() == o2.keys()
+    assert all(torch.equal(o1[k], o2[k]) for k in o1)
+
+
+@pytest.mark.parametrize("name,dtype,K", GRAPH_RULES)
+def test_graph_run_matches_eager(cuda, name, dtype, K):
+    """Every rule of the zoo, int8 and f32 caches, K = 1 and 16: the tick
+    replayed from one captured CUDA graph ends bit for bit where the eager
+    tick ends (model, cache rows and scales, running sums, every per-event
+    output), and a replayed call's launch counts are the eager call's."""
+    n = 20
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, K, 30, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=20,
+              beta=2.0, k_batch=K, device=cuda)
+    graph = make_staleness_runner(aggregator=_rule(name, dtype, K),
+                                  graph=True, **kw)
+    eager = make_staleness_runner(aggregator=_rule(name, dtype, K),
+                                  graph=False, **kw)
+    first = graph(rand, noise, 0.2)
+    ops.reset_launch_counts()
+    replayed = graph(rand, noise, 0.2)
+    replay_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    ref = eager(rand, noise, 0.2)
+    assert ops.launch_counts() == replay_counts
+    assert graph.captures == 1
+    _same_result(first, ref)
+    _same_result(replayed, ref)
+    assert torch.isfinite(ref[0]).all()
+
+
+def _quadratic(n, d, device, seed=0):
+    """g = w − C[client] + 0.3·ξ, ξ ~ N(0, I) from the payload noise."""
+    gen = torch.Generator().manual_seed(seed)
+    C = (torch.randn(n, d, generator=gen) * 3).to(device)
+
+    def grad(w, clients, noise):
+        return (torch.zeros(w.shape[0], device=w.device),
+                w - C[clients] + 0.3 * noise)
+    return ClientGrad(grad, (d,), "normal")
+
+
+@pytest.mark.parametrize("name,d", [("ace", 70_000), ("aced", 140_000)])
+def test_graph_run_at_the_grid_widths(cuda, name, d):
+    """Rows past the cluster kernels' reach take the cooperative grid
+    (int8 ACE past 65,536 features, the row swap past 131,072): the
+    captured grid launches replay bit for bit like the eager ones."""
+    n, K = 6, 1
+    grad = _quadratic(n, d, cuda)
+    rand, noise = _streams(grad, n, K, 24, cuda)
+    kw = dict(grad_fn=grad, params0=torch.ones(d, device=cuda),
+              n_clients=n, T=20, beta=2.0, device=cuda)
+    results = [make_staleness_runner(aggregator=_rule(name, "int8", K),
+                                     graph=g, **kw)(rand, noise, 0.1)
+               for g in (True, False)]
+    _same_result(*results)
+
+
+@pytest.mark.parametrize("name,dtype,K", [("ace", "int8", 1),
+                                          ("aced", "int8", 16),
+                                          ("ca2fl", "float32", 1)])
+def test_chunked_graph_run_matches_one_graph_run(cuda, name, dtype, K):
+    """Three chunks of a captured tick (one slice split inside the
+    availability window's freeze) end bit for bit where one graph run
+    ends."""
+    n, E = 20, 40
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    windows = (np.full(n, 8, np.int32), np.full(n, 12, np.int32))
+    rand, noise = _streams(task.grad_fn, n, K, E, cuda, windows=windows)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=30,
+              beta=2.0, k_batch=K, device=cuda)
+    whole = make_staleness_runner(aggregator=_rule(name, dtype, K), **kw)(
+        rand, noise, 0.2)
+    chunked = make_chunked_staleness_runner(
+        aggregator=_rule(name, dtype, K), capacity=16, **kw)
+    carry, outs = chunked.init(0.2, noise.init), []
+    for a, b in ((0, 9), (9, 25), (25, E)):
+        carry, o = chunked.chunk(carry, rand.slice(a, b), noise.ticks[a:b],
+                                 0.2)
+        outs.append(o)
+    assert int(carry["e"]) == E
+    _same_result(whole, (carry["w"], carry["state"],
+                         {k: torch.cat([o[k] for o in outs]) for k in
+                          outs[0]}, None))
+
+
+def test_graph_second_lr_replays_without_a_new_capture(cuda):
+    """The lr is the runner's own buffer: a second lr replays the same
+    graph (no capture) and ends where a fresh runner with that lr ends."""
+    n = 20
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, 1, 30, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=20,
+              beta=2.0, device=cuda)
+
+    def runner():
+        return make_staleness_runner(
+            aggregator=tagg.ACEIncremental(cache_dtype="int8"), **kw)
+    r = runner()
+    a = r(rand, noise, 0.2)
+    b = r(rand, noise, torch.tensor(0.05, device=cuda))
+    assert r.captures == 1
+    _same_result(a, runner()(rand, noise, 0.2))
+    _same_result(b, runner()(rand, noise, 0.05))
+    assert not torch.equal(a[0], b[0])
+
+
+def test_graph_capture_of_a_host_reading_server_lr_raises(cuda):
+    """A server_lr that reads the host cannot be captured: the runner
+    raises and does not fall back to the eager tick."""
+    n = 8
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, 1, 10, cuda)
+    runner = make_staleness_runner(
+        grad_fn=task.grad_fn, params0=task.params0,
+        aggregator=tagg.ACEIncremental(cache_dtype="int8"), n_clients=n,
+        T=8, beta=2.0, server_lr=lambda t: 0.1 / (1 + t.item()),
+        device=cuda)
+    with pytest.raises(RuntimeError):
+        runner(rand, noise)
+    assert runner.captures == 0

@@ -26,10 +26,11 @@ int8 `ACEIncremental.step` call at K = 1 at the same widths for f32 and
 bf16 states (at 17,226 also its kernel on each cluster size and on the
 grid, in a tree whose kernel takes a plan), and one traced 300-tick int8
 K = 1 run each of ACED and ACE on the vision task (device kernels and
-device time per tick, wall clock, idle share, arrivals/s). Each line:
-device ms per call (chip_smoke.measure) and, for masked_agg, whether the
-output is bit-identical to the plain version. `--rows-only` skips
-masked_agg.
+device time per tick, wall clock, idle share, arrivals/s), in a tree with
+the engine's runner once with the tick captured as a CUDA graph and once
+eagerly. Each line: device ms per call (chip_smoke.measure) and, for
+masked_agg, whether the output is bit-identical to the plain version.
+`--rows-only` skips masked_agg.
 """
 from __future__ import annotations
 
@@ -217,25 +218,44 @@ def kernels(parent):
 
 
 def _tick(cs, torch, task, rule, dev, label, tag):
-    """One traced 300-tick int8 K = 1 run of `rule` (after a warm run and an
-    untraced one for the wall clock): device kernels and device time per
-    tick, idle share."""
+    """One traced 300-tick int8 K = 1 run of `rule` (after a warm run, which
+    also captures the graph, and an untraced one for the wall clock) for
+    each way the tree runs the engine: its runner with the tick captured as
+    a CUDA graph and eagerly, or, in a tree from before the runner, its
+    `run_staleness_scan` loop. Device kernels and device time per tick,
+    idle share, arrivals/s."""
+    import repro_torch.core as core
     T, E = cs._depth(rule, 1)
-    cs.run_engine(task, rule, "int8", 1, T, E, dev)          # warm
-    _, wall = cs.run_engine(task, rule, "int8", 1, T, E, dev)
+    streams, lr = cs.engine_streams(task, 1, E, dev), cs.engine_lr(task, T)
+    if hasattr(core, "make_staleness_runner"):
+        modes = {"graph": cs.engine_runner(task, rule, "int8", 1, T, dev),
+                 "eager": cs.engine_runner(task, rule, "int8", 1, T, dev,
+                                           graph=False)}
+    else:
+        def loop(randomness, payload_noise, lr):
+            return core.run_staleness_scan(
+                grad_fn=task.grad_fn, params0=task.params0,
+                aggregator=cs.make_rule(rule, "int8", 1),
+                n_clients=task.n_clients, server_lr=lr, T=T, beta=5.0,
+                device=dev, randomness=randomness,
+                payload_noise=payload_noise)
+        modes = {"loop": loop}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        cs.run_engine(task, rule, "int8", 1, T, E, dev)
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3 / E
-    per = sum(e.count for e in evs) / E
-    tick = 1e3 * wall / E
-    print(f"{label}: engine {rule} int8 K=1: {per:.1f} device kernels per "
-          f"tick, device busy {busy:.4f} ms of {tick:.4f} ms wall, idle "
-          f"share {1 - busy / tick:.3f}, {E / wall:.1f} arrivals/s [{tag}]",
-          flush=True)
+    for mode, runner in modes.items():
+        cs.run_engine(torch, runner, streams, lr)          # warm
+        _, wall = cs.run_engine(torch, runner, streams, lr)
+        with torch.profiler.profile(activities=acts) as prof:
+            cs.run_engine(torch, runner, streams, lr)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in evs) / 1e3 / E
+        per = sum(e.count for e in evs) / E
+        tick = 1e3 * wall / E
+        print(f"{label}: engine {rule} int8 K=1 {mode}: {per:.1f} device "
+              f"kernels per tick, device busy {busy:.4f} ms of {tick:.4f} "
+              f"ms wall, idle share {1 - busy / tick:.3f}, "
+              f"{E / wall:.1f} arrivals/s [{tag}]", flush=True)
 
 
 def _ace_step(cs, torch, dev, label, tag):
