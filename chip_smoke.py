@@ -57,6 +57,23 @@ result line):
      the port's kernels seen in the replays, each seen as many times as
      its launch counter counted in that run (the captured tick's counts ×
      replays, plus the init's eager launches);
+  4b. faults, guards, resync and sweeps on the same task and width, the
+     launch counts zeroed before each run and added to the totals after:
+     six faulted configurations (rates of 0.05 for NaN, exploding,
+     Byzantine and over-stale clients, the clip at the median payload norm
+     at w0) — ACE, ACED and CA²FL int8 K = 1, ACE int8 K = 16, ACED f32
+     K = 16, ACED-direct int8 — each graph run bit-identical to its eager
+     run (the guard counters and flags included), every guard fired, the
+     model finite and accuracy above 0.5; guards on a clean schedule with
+     the clip off (ACE int8 K = 1 and 16) bit-identical to phase 4's
+     guards-off runs; faulted ACED and CA²FL int8 K = 1 with resync every
+     10th update, graph = eager, the final running sums within 1e-4
+     (relative) of a fresh resync; a 3 × 2 lr × seed grid of int8 ACE
+     K = 1 on one capture, every cell bit-identical to its
+     run_staleness_scan, timed against those six runs (six captures) in
+     turns; a faulted seed sweep of int8 ACED K = 1 (counts per seed);
+     then guards off against on (ACE and ACED int8 K = 1, ACE int8 K = 16)
+     and resync against none (ACED int8 K = 1) in turns, each traced;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -617,16 +634,17 @@ def make_rule(rule, dtype, K, backend=None):
     return CA2FLDirect(buffer_size=10, cache_dtype=dtype, backend=backend)
 
 
-def engine_runner(task, rule, dtype, K, T, dev, backend=None, graph=None):
+def engine_runner(task, rule, dtype, K, T, dev, backend=None, graph=None,
+                  **statics):
     """`make_staleness_runner` for one configuration of the main path:
     the tick captured as a CUDA graph (graph=None on the card), or eager
-    (graph=False)."""
+    (graph=False); `statics` are its guards and resync cadence."""
     from repro_torch.core import make_staleness_runner
     return make_staleness_runner(
         grad_fn=task.grad_fn, params0=task.params0,
         aggregator=make_rule(rule, dtype, K, backend),
         n_clients=task.n_clients, T=T, beta=5.0, k_batch=K, device=dev,
-        graph=graph)
+        graph=graph, **statics)
 
 
 def engine_streams(task, K, E, dev, seed=0):
@@ -645,21 +663,23 @@ def engine_lr(task, T):
     return 0.2 * float(np.sqrt(task.n_clients / T))
 
 
-def run_engine(torch, runner, streams, lr):
-    """One runner call, host clock around it to a device sync ->
+def run_engine(torch, runner, streams, lr, *guard):
+    """One runner call (`guard`: the fault schedule and clip_norm of a
+    guarded runner), host clock around it to a device sync ->
     ((w, state, outs, extras), seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = runner(*streams, lr)
+    out = runner(*streams, lr, *guard)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
 def same_run(torch, a, b):
     """Model, every cache's int8 rows (or f32 rows) and scales, every other
-    state tensor and every per-event output, bit for bit."""
+    state tensor, every per-event output (a quarantined event's update
+    norm is NaN in both) and the guard counters, bit for bit."""
     from repro_torch.core import FlatCache
-    (w1, s1, o1, _), (w2, s2, o2, _) = a, b
+    (w1, s1, o1, x1), (w2, s2, o2, x2) = a, b
     same = torch.equal(w1, w2) and s1.keys() == s2.keys()
     for k in s1 if same else ():
         if isinstance(s1[k], FlatCache):
@@ -667,7 +687,294 @@ def same_run(torch, a, b):
                 torch.equal(s1[k].scale, s2[k].scale)
         else:
             same = same and torch.equal(s1[k], s2[k])
-    return bool(same and all(torch.equal(o1[k], o2[k]) for k in o1))
+    same = same and o1.keys() == o2.keys() and all(
+        _same(torch, o1[k].float(), o2[k].float()) for k in o1)
+    g1, g2 = x1.get("guards", {}), x2.get("guards", {})
+    return bool(same and g1.keys() == g2.keys() and all(
+        torch.equal(g1[k], g2[k]) for k in g1))
+
+
+def trace_engine(torch, ops, label, runner, args, E, tick_ms, card):
+    """One traced graph run of `runner(*args)`: device busy ms and device
+    kernels a tick, the idle share against the untraced wall clock
+    `tick_ms`, the six largest kernels, and each port kernel's launches in
+    the trace checked against its counter (the captured tick's counts ×
+    replays). Returns (device busy ms a tick, device kernels a tick)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ops.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        runner(*args)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # aggregated once: key_averages() over a whole run takes seconds
+    device_events = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3 / E
+    per_tick = sum(e.count for e in device_events) / E
+    print(f"engine {label}: device busy {busy_ms:.4f} ms per tick of "
+          f"{tick_ms:.4f} ms wall, idle share {1 - busy_ms / tick_ms:.3f}, "
+          f"{per_tick:.1f} device kernels per tick [{card}]")
+    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
+              f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
+    ours = []
+    for name, symbol in KERNEL_SYMBOLS.items():
+        evs = [e for e in device_events
+               if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
+        seen = sum(e.count for e in evs)
+        check(seen == counts[name], f"{label}: the profiler saw {seen} "
+              f"{name} launches, the counter says {counts[name]}")
+        if evs:
+            ms = sum(e.self_device_time_total for e in evs) / 1e3 / E
+            ours.append(f"{name} {ms:.4f} ms/tick ({seen / E:.1f} "
+                        f"launches/tick, {seen} in the run)")
+    print(f"  the port's kernels seen in the replays: "
+          f"{'; '.join(ours) or 'none'}; each kernel's launches in the "
+          f"trace equal its counter's: True")
+    return busy_ms, per_tick
+
+
+# --- phase 4b: faults, guards, resync and sweeps ----------------------------
+
+FAULT_RATES = dict(nan_rate=0.05, explode_rate=0.05, byzantine_rate=0.05,
+                   overstale_rate=0.05)
+FAULTED = (("ace", "int8", 1), ("aced", "int8", 1), ("ca2fl", "int8", 1),
+           ("ace", "int8", K_SLICE), ("aced", "float32", K_SLICE),
+           ("aced_direct", "int8", 1))
+# guards on with a clean schedule against phase 4's guards-off run
+CLEAN_GUARDED = (("ace", "int8", 1), ("ace", "int8", K_SLICE))
+# guards off against on, timed in turns and traced
+GUARD_TIMED = (("ace", "int8", 1), ("aced", "int8", 1), ("ace", "int8", K_SLICE))
+RESYNC, RESYNC_EVERY = (("aced", "int8", 1), ("ca2fl", "int8", 1)), 10
+
+
+def counted(ops, totals, fn):
+    """`fn()` with the launch counts set to 0 just before it and added to
+    the run's totals just after -> (its result, its counts)."""
+    ops.reset_launch_counts()
+    out = fn()
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    return out, counts
+
+
+def clip_norm_of(torch, task, dev):
+    """The clip threshold of the faulted runs: the median norm of the n
+    clients' payloads at w⁰ on seed 0's init noise, so that the clip takes
+    some clean events as well as every exploded one."""
+    from repro_torch.convert import ravel
+    n = task.n_clients
+    w0 = ravel(task.params0).to(dev)
+    noise = engine_streams(task, 1, 1, dev)[1].init
+    _, g = task.grad_fn(w0[None].repeat(n, 1), torch.arange(n, device=dev),
+                        noise[:, 0])
+    return float(torch.linalg.vector_norm(g, dim=1).median())
+
+
+def guarded_run(torch, ops, task, dev, card, totals, rule, dtype, K, clip,
+                faults=True, **statics):
+    """A guarded run of one configuration through the graph runner and
+    again eagerly, on seed 0's streams (and its fault schedule, or an
+    all-clean one with the clip off): bit for bit, one capture, the rule's
+    kernels launched, a finite model. -> (runner, call args, run, accuracy,
+    launch counts)."""
+    from repro_torch.convert import unravel
+    from repro_torch.core import build_fault_schedule, no_faults
+    T, E = _depth(rule, K)
+    streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+    guard = ((build_fault_schedule(0, E, k_batch=K, device=dev,
+                                   **FAULT_RATES), clip) if faults
+             else (no_faults(E, K, device=dev), 0.0))
+    label = f"{rule} {dtype} K={K}"
+    runner = engine_runner(task, rule, dtype, K, T, dev, guards=True,
+                           **statics)
+    (out, wall), counts = counted(ops, totals, lambda: run_engine(
+        torch, runner, streams, lr, *guard))
+    check(runner.captures == 1, f"{label}: {runner.captures} captures")
+    kernels = {(r, dt, k): ks for r, dt, k, _, _, ks in engine_runs()}
+    for kernel in kernels[rule, dtype, K]:
+        check(counts[kernel] > 0, f"{label}: {kernel} was not launched")
+    eager = engine_runner(task, rule, dtype, K, T, dev, graph=False,
+                          guards=True, **statics)
+    ref, wall_e = run_engine(torch, eager, streams, lr, *guard)
+    check(same_run(torch, out, ref), f"{label} guarded: the graph run "
+          "differs from the eager run")
+    w = out[0]
+    check(bool(torch.isfinite(w).all()), f"{label}: non-finite model")
+    acc = task.eval_fn(unravel(w, task.params0))["accuracy"]
+    return runner, (*streams, lr, *guard), out, acc, counts, wall, wall_e
+
+
+def guard_phase(torch, ops, task, dev, card, totals, clean):
+    """Faulted runs, guards on a clean schedule, resync, the lr × seed grid
+    and a faulted seed sweep on the main path, then guards off against on
+    and resync against none, timed in turns and traced."""
+    import numpy as np
+    from repro_torch.core import (build_fault_schedule, run_staleness_grid,
+                                  run_staleness_scan, run_staleness_seeds)
+    from repro_torch.core.staleness_sim import default_tau_max
+    clip = clip_norm_of(torch, task, dev)
+    print(f"engine guards: fault rates {FAULT_RATES}, clip_norm {clip:.6g} "
+          f"(the median payload norm at w0), seed 0's schedule, full width "
+          f"[{card}]")
+    on = {}
+    for rule, dtype, K in FAULTED:
+        runner, args, out, acc, counts, wall, wall_e = guarded_run(
+            torch, ops, task, dev, card, totals, rule, dtype, K, clip)
+        label = f"{rule} {dtype} K={K}"
+        guards = {k: int(v) for k, v in out[3]["guards"].items()}
+        flags = {k: int(out[2][k].sum()) for k in guards}
+        check(guards == flags, f"{label}: counters {guards} are not the "
+              f"flags' sums {flags}")
+        check(all(v > 0 for v in guards.values()),
+              f"{label}: a guard never fired: {guards}")
+        check(acc > 0.5, f"{label} faulted: accuracy {acc}")
+        print(f"engine faulted {label}: {int(out[2]['emit'].sum())} "
+              f"updates in {len(out[2]['emit'])} ticks, guard counters "
+              f"{guards} (graph = eager, and the "
+              f"flags' sums), accuracy {acc:.4f}; graph run {wall:.2f} s "
+              f"with its capture, eager run {wall_e:.2f} s; graph and eager "
+              f"bit-identical: True; launches {counts} [{card}]")
+        on[rule, dtype, K] = (runner, args, out)
+
+    for rule, dtype, K in CLEAN_GUARDED:
+        T, E = _depth(rule, K)
+        tau = engine_streams(task, K, E, dev)[0].tau_raw
+        natural = int((tau.floor() > default_tau_max(5.0)).sum())
+        check(natural == 0, f"{rule} {dtype} K={K}: seed 0 holds {natural} "
+              "naturally over-stale requests, which the guards reject")
+        _, _, out, _, _, _, _ = guarded_run(
+            torch, ops, task, dev, card, totals, rule, dtype, K, clip,
+            faults=False)
+        off = clean[rule, dtype, K]
+        w, state, outs, _ = out
+        check(same_run(torch, off, (w, state, {k: outs[k] for k in off[2]},
+                                    {})),
+              f"{rule} {dtype} K={K}: guards on a clean schedule differ "
+              "from guards off")
+        print(f"engine {rule} {dtype} K={K} guards on, clean schedule, "
+              f"clip off: bit-identical to the guards-off run: True, "
+              f"counters {({k: int(v) for k, v in out[3]['guards'].items()})}"
+              f" [{card}]")
+
+    synced_runs = {}
+    for rule, dtype, K in RESYNC:
+        runner, args, out, acc, counts, wall, _ = guarded_run(
+            torch, ops, task, dev, card, totals, rule, dtype, K, clip,
+            resync_every=RESYNC_EVERY)
+        state = out[1]
+        healed = make_rule(rule, dtype, K).resync(state)
+        devs = {}
+        for k, v in healed.items():
+            if v is state[k]:
+                continue
+            ref = v.double()
+            devs[k] = float((state[k].double() - ref).abs().max()
+                            / max(1e-12, float(ref.abs().max())))
+            check(devs[k] <= 1e-4, f"{rule} {dtype} K={K} resync: {k} "
+                  f"{devs[k]} (relative) from a fresh resync")
+        print(f"engine resync {rule} {dtype} K={K} every {RESYNC_EVERY}: "
+              f"faulted, graph = eager bit for bit, final running sums "
+              f"against a fresh resync (relative) {devs}, accuracy "
+              f"{acc:.4f}; launches {counts} [{card}]")
+        synced_runs[rule, dtype, K] = (runner, args)
+
+    # the lr × seed grid on one capture against six single runs (six
+    # captures), in turns: singles, grid, grid, singles
+    rule, dtype, K = "ace", "int8", 1
+    T, E = _depth(rule, K)
+    lr0 = engine_lr(task, T)
+    lrs, seeds = (0.5 * lr0, lr0, 2 * lr0), (0, 1)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0,
+              n_clients=task.n_clients, T=T, beta=5.0, device=dev)
+    runner = engine_runner(task, rule, dtype, K, T, dev)
+
+    def grid():
+        return run_staleness_grid(aggregator=make_rule(rule, dtype, K),
+                                  lrs=lrs, seeds=seeds, runner=runner, **kw)
+
+    def singles():
+        return [[run_staleness_scan(aggregator=make_rule(rule, dtype, K),
+                                    server_lr=lr, seed=s, **kw)
+                 for s in seeds] for lr in lrs]
+    walls, out = [], {}
+    for name, fn in (("singles", singles), ("grid", grid), ("grid", grid),
+                     ("singles", singles)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name], _ = counted(ops, totals, fn)
+        walls.append(time.perf_counter() - t0)
+    check(runner.captures == 1, f"grid: {runner.captures} captures")
+    for i in range(len(lrs)):
+        for j in range(len(seeds)):
+            a, b = out["grid"][i][j], out["singles"][i][j]
+            check(np.array_equal(a.w, b.w) and np.array_equal(a.emit, b.emit)
+                  and np.array_equal(a.losses, b.losses)
+                  and np.array_equal(a.update_norms, b.update_norms),
+                  f"grid cell (lr {lrs[i]}, seed {seeds[j]}) differs from "
+                  "its single run")
+    cells = len(lrs) * len(seeds)
+    print(f"engine grid {rule} {dtype} K={K}: {len(lrs)} lrs x "
+          f"{len(seeds)} seeds, {E} ticks a cell, one capture "
+          f"(runner.captures == 1 after two grids), every cell bit-identical "
+          f"to its run_staleness_scan; wall s singles (6 captures) "
+          f"{walls[0]:.3f}, grid {walls[1]:.3f}, grid {walls[2]:.3f}, "
+          f"singles {walls[3]:.3f}; cells/s "
+          f"{', '.join(f'{cells / x:.2f}' for x in walls)}; arrivals/s "
+          f"{', '.join(f'{cells * E * K / x:.1f}' for x in walls)} [{card}]")
+
+    rule, dtype, K = "aced", "int8", 1
+    sweep, counts = counted(ops, totals, lambda: run_staleness_seeds(
+        aggregator=make_rule(rule, dtype, K), server_lr=engine_lr(task, 300),
+        seeds=(0, 1), n_events=360, fault_rates=FAULT_RATES,
+        clip_norm=clip, **kw))
+    for s, r in zip((0, 1), sweep):
+        check(np.isfinite(r.w).all() and r.faults["quarantined"] > 0,
+              f"faulted seed sweep, seed {s}: {r.faults}")
+        print(f"engine seeds {rule} {dtype} K={K}, seed {s}: "
+              f"{len(r.ts)} updates in 360 ticks, guard counters "
+              f"{r.faults}, scheduled "
+              f"{build_fault_schedule(s, 360, device=dev, **FAULT_RATES).counts()}"
+              f" [{card}]")
+    print(f"engine seeds: launches {counts} [{card}]")
+
+    # guards off against on (faulted), and resync against none, in turns
+    # (off, on, on, off); the graphs are captured before the turns
+    pairs = []
+    for key in GUARD_TIMED:
+        rule, dtype, K = key
+        T, E = _depth(rule, K)
+        streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+        off = engine_runner(task, rule, dtype, K, T, dev)
+        run_engine(torch, off, streams, lr)
+        runner, args, _ = on[key]
+        pairs.append((f"{rule} {dtype} K={K} guards", E, K,
+                      ("off", off, (*streams, lr)), ("on", runner, args)))
+    key = ("aced", "int8", 1)
+    runner, args, _ = on[key]
+    pairs.append((f"aced int8 K=1 resync (guards on, faulted)",
+                  _depth("aced", 1)[1], 1, ("none", runner, args),
+                  (f"every {RESYNC_EVERY}", *synced_runs[key])))
+    for label, E, K, (n1, r1, a1), (n2, r2, a2) in pairs:
+        walls = []
+        for r, a in ((r1, a1), (r2, a2), (r2, a2), (r1, a1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r(*a)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ms = [1e3 * x / E for x in walls]
+        print(f"engine A/B {label}: wall ms per tick {n1} {ms[0]:.4f}, {n2} "
+              f"{ms[1]:.4f}, {n2} {ms[2]:.4f}, {n1} {ms[3]:.4f}; arrivals/s "
+              f"{', '.join(f'{E * K / x:.1f}' for x in walls)} [{card}]")
+        for name, r, a, tick_ms in ((n1, r1, a1, (ms[0] + ms[3]) / 2),
+                                    (n2, r2, a2, (ms[1] + ms[2]) / 2)):
+            trace_engine(torch, ops, f"{label} {name} graph", r, a, E,
+                         tick_ms, card)
 
 
 def main() -> int:
@@ -775,7 +1082,7 @@ def main() -> int:
     print(f"engine: vision task, n={task.n_clients} clients, d={d}, "
           f"batch 50 [{card}]")
     totals = dict.fromkeys(KERNELS, 0)
-    results, kept = {}, {}
+    results, kept, clean = {}, {}, {}
     for rule, dtype, K, T, E, kernels in engine_runs():
         label = f"{rule} {dtype or 'no-cache'} K={K}"
         streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
@@ -805,6 +1112,8 @@ def main() -> int:
               f"cache rows and scales and outputs bit-identical: True; "
               f"launches {counts} [{card}]")
         results[rule, dtype, K] = w.cpu().numpy()
+        if (rule, dtype, K) in CLEAN_GUARDED:
+            clean[rule, dtype, K] = out
         if (rule, dtype, K) in TRACED:
             kept[rule, dtype, K] = (runner, eager, streams, lr, E)
     for rule, dtype, K in (("ace", "int8", K_SLICE),
@@ -852,48 +1161,15 @@ def main() -> int:
 
     # where a tick's time goes: device time of one traced graph run against
     # the untraced graph runs' wall clock (the trace itself slows the host)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for key, (runner, _, streams, lr, E) in kept.items():
         rule, dtype, K = key
-        ops.reset_launch_counts()
-        with torch.profiler.profile(activities=acts) as prof:
-            run_engine(torch, runner, streams, lr)
-        counts = ops.launch_counts()
-        # aggregated once: key_averages() over a whole run takes seconds
-        device_events = [e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total
-                      for e in device_events) / 1e3 / E
-        per_tick = sum(e.count for e in device_events) / E
-        tick_ms = graph_ms[key]
-        print(f"engine {rule} {dtype} K={K} graph: device busy "
-              f"{busy_ms:.4f} ms per tick of {tick_ms:.4f} ms wall, idle "
-              f"share {1 - busy_ms / tick_ms:.3f}, {per_tick:.1f} device "
-              f"kernels per tick [{card}]")
-        top = sorted(device_events,
-                     key=lambda e: -e.self_device_time_total)[:6]
-        for e in top:
-            print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
-                  f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
-        # the counters' replayed launches (the captured tick's counts ×
-        # replays) against the kernels the profiler saw in this run
-        ours = []
-        for name, symbol in KERNEL_SYMBOLS.items():
-            evs = [e for e in device_events
-                   if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
-            seen = sum(e.count for e in evs)
-            check(seen == counts[name], f"{rule} {dtype} K={K}: the profiler "
-                  f"saw {seen} {name} launches, the counter says "
-                  f"{counts[name]}")
-            if evs:
-                ms = sum(e.self_device_time_total for e in evs) / 1e3 / E
-                ours.append(f"{name} {ms:.4f} ms/tick ({seen / E:.1f} "
-                            f"launches/tick, {seen} in the run)")
-        print(f"  the port's kernels seen in the replays: "
-              f"{'; '.join(ours) or 'none'}; each kernel's launches in the "
-              f"trace equal its counter's: True")
+        trace_engine(torch, ops, f"{rule} {dtype} K={K} graph", runner,
+                     (*streams, lr), E, graph_ms[key], card)
     del kept
+
+    # 4b. faults, the guard pipeline, resync and sweeps on the main path
+    print(f"phase 4b starts at {time.perf_counter() - start:.1f} s")
+    guard_phase(torch, ops, task, dev, card, totals, clean)
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

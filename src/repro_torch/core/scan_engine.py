@@ -1,9 +1,9 @@
 """Pieces of `repro.core.scan_engine` the staleness engine shares: the
 trajectory record (`ScanResult`, `_to_result`, with the eval cadence's
-``evals``/``eval_ts``), the event budget (`default_n_events`, for every
+``evals``/``eval_ts`` and the guard pipeline's ``faults`` counters), the
+event budget (`default_n_events`, for every
 rule of the zoo) and the client payload chain (`_payload_chain`). The event
-engine itself (`run_scan`, `sweep`) and the record's fault counters are not
-ported yet (ROADMAP A6, A8)."""
+engine itself (`run_scan`, `sweep`) is not ported yet (ROADMAP A8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +29,9 @@ class ScanResult:
     #: those marks (server iterations)
     evals: List[Dict] = dataclasses.field(default_factory=list)
     eval_ts: List[int] = dataclasses.field(default_factory=list)
+    #: the guard pipeline's counters (quarantined/clipped/rejected) when
+    #: the run had guards on, else empty
+    faults: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def final_eval(self) -> Dict:
         return self.evals[-1] if self.evals else {}
@@ -85,10 +88,12 @@ def _to_result(w, outs, T: int, n_init_comms: int, evals=None,
                 f"scan event budget exhausted at t={final_t} < T={T} with "
                 f"clients still available ({emit.size} events); pass a "
                 f"larger n_events")
+    faults = {k: int(np.asarray(outs[k]).sum())
+              for k in ("quarantined", "clipped", "rejected") if k in outs}
     return ScanResult(
         ts=ts[emit], losses=np.asarray(outs["loss"])[emit],
         update_norms=np.asarray(outs["unorm"])[emit],
         w=np.asarray(w), total_comms=n_init_comms + processed, emit=emit,
         ws=np.asarray(outs["w"]) if "w" in outs else None,
         evals=list(evals) if evals else [],
-        eval_ts=list(eval_ts) if eval_ts else [])
+        eval_ts=list(eval_ts) if eval_ts else [], faults=faults)

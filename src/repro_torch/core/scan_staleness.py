@@ -29,20 +29,40 @@ round-trips through `torch.save`. The eval cadence (`eval_marks_for`,
 
 Randomness. Everything the protocol draws is independent of model values,
 so it is made up front: the per-tick gumbel rows, the per-lane ``tau_raw``
-(`StalenessRandomness`) and the per-(tick, lane) payload noise plus one
-noise row per client for the init batch (`PayloadNoise`). The port draws
-them from a `torch.Generator` seeded with ``seed``
-(`build_staleness_randomness`, `build_payload_noise`); a caller may pass its
-own (the tests replay the JAX package's streams through ``randomness=`` and
-``payload_noise=``). `jax.random` is never reproduced.
+(`StalenessRandomness`), the per-(tick, lane) payload noise plus one
+noise row per client for the init batch (`PayloadNoise`) and, for a
+faulted run, the per-(tick, lane) fault kinds and scales (`FaultSchedule`).
+The port draws them from `torch.Generator`s seeded from ``seed``
+(`build_staleness_randomness`, `build_payload_noise`,
+`build_fault_schedule`, the last on a stream of its own, so a faulted run
+and a clean one share their gumbels and τ event for event); a caller may
+pass its own (the tests replay the JAX package's streams through
+``randomness=``, ``payload_noise=`` and ``faults=``). `jax.random` is never
+reproduced.
 
-Not ported yet: fault schedules and guards, resync, checkify, the tree
-layout, seeds/grids and the sharded runner.
+Guards. With ``guards=True`` the tick runs the JAX package's fault-guard
+pipeline on every lane: the payload is multiplied by its fault (NaN,
+explode × scale, a sign flip; 1.0 when clean), then a non-finite payload is
+quarantined, an over-stale request (injected or natural) rejected, and a
+surviving payload with ‖g‖ > ``clip_norm`` scaled to it (``clip_norm ≤ 0``
+disables the clip). Counters ride the carry (``carry["guards"]``) and
+per-event flags the outputs. ``resync_every`` re-derives a rule's running
+sums from its cache (`Aggregator.resync`) on every `resync_every`-th
+emitted update: the tick computes the resync every time and selects it
+with ``torch.where`` (a captured graph cannot branch on a device value).
+Off, neither adds an op to the tick.
+
+Sweeps. `run_staleness_seeds` and `run_staleness_grid` call one runner
+once per seed and per (lr, seed) cell: every cell has the same event
+count, and lr and ``clip_norm`` are runtime buffers, so one capture serves
+the whole sweep.
+
+Not ported yet: checkify, the tree layout and the sharded runner.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +73,10 @@ from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
 from repro_torch.core.cache import FlatCache
 from repro_torch.core.scan_engine import (ScanResult, _payload_chain,
                                           _to_result, default_n_events)
-from repro_torch.core.staleness_sim import (NEVER, default_tau_max,
+from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
+                                            FAULT_NAN, FAULT_NONE,
+                                            FAULT_OVERSTALE, NEVER,
+                                            default_tau_max,
                                             staleness_client_probs)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
@@ -145,6 +168,87 @@ def build_payload_noise(grad_fn, seed: int, n_events: int, n_clients: int,
 
 
 # ---------------------------------------------------------------------------
+# Client faults: per-event descriptors, runtime tensors like the windows.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FaultSchedule:
+    """Per-event fault descriptors of one run (the JAX package's record, as
+    tensors), read by the guard pipeline of a runner built with
+    ``guards=True``. ``kind`` holds a FAULT_* code (`staleness_sim`),
+    ``scale`` the norm multiplier an EXPLODE event applies."""
+    kind: torch.Tensor       # (n_events,) int32; (n_events, k_batch) with K > 1
+    scale: torch.Tensor      # f32, kind's shape
+
+    @property
+    def n_events(self) -> int:
+        return int(self.kind.shape[0])
+
+    def counts(self) -> Dict[str, int]:
+        """Host-side {kind name: count} of the scheduled faults."""
+        k = self.kind.cpu().numpy()
+        return {"nan": int((k == FAULT_NAN).sum()),
+                "explode": int((k == FAULT_EXPLODE).sum()),
+                "byzantine": int((k == FAULT_BYZANTINE).sum()),
+                "overstale": int((k == FAULT_OVERSTALE).sum())}
+
+    def slice(self, start: int, stop: int) -> "FaultSchedule":
+        """Events ``start..stop-1``: the slice a chunk of
+        `make_chunked_staleness_runner` consumes."""
+        return FaultSchedule(self.kind[start:stop], self.scale[start:stop])
+
+
+def no_faults(n_events: int, k_batch: int = 1, device=None) -> FaultSchedule:
+    """An all-clean schedule: the guard pipeline runs (clipping, natural
+    over-stale rejection) with nothing injected. ``k_batch > 1`` shapes it
+    per lane."""
+    device = resolve_device(device)
+    shape = (n_events,) if k_batch == 1 else (n_events, int(k_batch))
+    return FaultSchedule(
+        torch.full(shape, FAULT_NONE, dtype=torch.int32, device=device),
+        torch.ones(shape, dtype=torch.float32, device=device))
+
+
+def _fault_seed(seed: int) -> int:
+    """The fault stream's generator seed for `seed`: a stream of its own
+    (the JAX package folds 201 into the seed's key), so it is neither the
+    seed's protocol stream nor another seed's (``seed + 201`` would be the
+    protocol stream of seed + 201)."""
+    state = np.random.SeedSequence((int(seed), 201)).generate_state(
+        1, np.uint64)
+    return int(state[0]) >> 1
+
+
+def build_fault_schedule(seed: int, n_events: int, *, k_batch: int = 1,
+                         nan_rate: float = 0.0, explode_rate: float = 0.0,
+                         byzantine_rate: float = 0.0,
+                         overstale_rate: float = 0.0,
+                         explode_scale: float = 1e4,
+                         device=None) -> FaultSchedule:
+    """Draw a per-event fault schedule on `device` from a generator of its
+    own for `seed` (`_fault_seed`): each event (each lane with ``k_batch >
+    1``) independently becomes one fault kind with the given rate — NAN
+    poisons the payload, EXPLODE multiplies it by `explode_scale`,
+    BYZANTINE flips its sign, OVERSTALE forces the staleness request past
+    tau_max. Rates must be ≥ 0 and sum to ≤ 1."""
+    rates = (nan_rate, explode_rate, byzantine_rate, overstale_rate)
+    if min(rates) < 0 or sum(rates) > 1.0:
+        raise ValueError(f"fault rates must be ≥0 and sum to ≤1: {rates}")
+    device = resolve_device(device)
+    shape = (n_events,) if k_batch == 1 else (n_events, int(k_batch))
+    gen = torch.Generator(device=device).manual_seed(_fault_seed(seed))
+    u = torch.rand(shape, generator=gen, device=device)
+    edges = np.concatenate([[0.0], np.cumsum(rates)])
+    kind = torch.full(shape, FAULT_NONE, dtype=torch.int32, device=device)
+    for code, lo, hi in zip(
+            (FAULT_NAN, FAULT_EXPLODE, FAULT_BYZANTINE, FAULT_OVERSTALE),
+            edges[:-1], edges[1:]):
+        kind = torch.where((u >= float(lo)) & (u < float(hi)), code, kind)
+    return FaultSchedule(kind, torch.full(shape, explode_scale,
+                                          dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
 # Ring-buffer model history: the bounded deque, on the device.
 # ---------------------------------------------------------------------------
 
@@ -189,6 +293,35 @@ def _select_state(proc, new, old, saved, idx):
     return out
 
 
+def _guard_payloads(payloads, kind, scale, clip_norm):
+    """The guard pipeline's payload stage over (K, d) lanes: inject each
+    lane's fault (× NaN, × `scale` for EXPLODE, × −1 for BYZANTINE; × 1.0,
+    an identity, when clean), then clip lanes with ‖g‖ > `clip_norm` to it
+    (``clip_norm ≤ 0`` disables; a NaN norm compares False, so a
+    quarantined lane is never also clipped). Returns ``(payloads, finite
+    (K,), do_clip (K,))``."""
+    mult = torch.where(kind == FAULT_NAN, float("nan"), 1.0)
+    mult = mult * torch.where(kind == FAULT_EXPLODE, scale, 1.0)
+    mult = torch.where(kind == FAULT_BYZANTINE, -mult, mult)
+    payloads = payloads * mult[:, None]
+    finite = torch.isfinite(payloads).all(1)
+    gnorm = torch.linalg.vector_norm(payloads, dim=1)
+    do_clip = (clip_norm > 0) & (gnorm > clip_norm)
+    cscale = torch.where(do_clip, clip_norm / torch.clamp(gnorm, min=1e-12),
+                         1.0)
+    return payloads * cscale[:, None], finite, do_clip
+
+
+def _resync_select(do, synced, state):
+    """``where(do, synced, state)`` over the aggregator state: what JAX's
+    ``lax.cond(do, agg.resync, identity, state)`` gives, without a branch
+    on a device value. A resync only reads the caches and hands the
+    tensors it does not recompute back as they were, so only the
+    recomputed ones are selected."""
+    return {k: v if v is state[k] else torch.where(do, v, state[k])
+            for k, v in synced.items()}
+
+
 # ---------------------------------------------------------------------------
 # In-scan eval cadence: snapshot buffer written on mark crossings.
 # ---------------------------------------------------------------------------
@@ -230,6 +363,8 @@ def _apply_evals(snaps, hits, marks, eval_fn, unravel_fn):
 #: the per-event outputs a tick writes at row ``e``
 _OUT_DTYPES = {"loss": torch.float32, "emit": torch.bool, "t": torch.int32,
                "unorm": torch.float32, "alive": torch.bool}
+#: the guard pipeline's counters (carry) and per-event flags (outputs)
+GUARD_KEYS = ("quarantined", "clipped", "rejected")
 
 
 @dataclasses.dataclass
@@ -244,6 +379,9 @@ class _Program:
     d: int
     record_w: bool
     device: torch.device
+    guards: bool
+    resync_every: Optional[int]
+    out_dtypes: Dict[str, torch.dtype]   # the per-event outputs
 
 
 def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -254,20 +392,35 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        eval_marks: Optional[Tuple[int, ...]] = None,
                        local_steps: int = 1, local_lr: float = 0.05,
                        init_cache_grads: bool = True, record_w: bool = False,
-                       k_batch: int = 1, device=None) -> _Program:
+                       k_batch: int = 1, guards: bool = False,
+                       resync_every: Optional[int] = None,
+                       device=None) -> _Program:
     """The engine as the JAX package's `_staleness_program` builds it.
 
     ``init(lr, init_noise=None) -> carry``: the init batch (one payload per
     client at w⁰ from the noise rows `init_noise`, for the cache-init
-    rules), u⁰ applied with `lr`, the ring holding w⁰ (and w¹), ``e = 0``.
+    rules), u⁰ applied with `lr`, the ring holding w⁰ (and w¹), ``e = 0``
+    (and the zeroed ``guards`` counters with `guards`).
 
     ``tick(carry, xs, outs)``: one tick, in place. ``xs`` holds the
     pre-drawn streams (``gumbels (E, n)``, ``tau_raw (E,)`` or ``(E, K)``,
-    ``noise (E, K, local_steps, ...)``), the windows ``leave_at`` /
-    ``rejoin_at (n,)`` and the 0-d f32 ``lr``; the tick reads row
-    ``carry["e"]`` of each stream and writes row ``e`` of ``outs``. No host
-    value enters it, so it can be captured. `server_lr` is None (the tick
-    takes ``xs["lr"]``) or a callable of the 0-d int32 iteration tensor."""
+    ``noise (E, K, local_steps, ...)``; with `guards` also ``fault_kind``
+    and ``fault_scale``, tau_raw's shape), the windows ``leave_at`` /
+    ``rejoin_at (n,)``, the 0-d f32 ``lr`` (and with `guards` the 0-d f32
+    ``clip_norm``); the tick reads row ``carry["e"]`` of each stream and
+    writes row ``e`` of ``outs``. No host value enters it, so it can be
+    captured. `server_lr` is None (the tick takes ``xs["lr"]``) or a
+    callable of the 0-d int32 iteration tensor.
+
+    `guards` runs the fault-guard pipeline (module docstring; JAX's
+    ``guards=True``): a quarantined or rejected arrival consumes its event
+    without touching model, cache or running sums (a K = 1 rule still runs
+    its step, and the rows it wrote are restored as on a frozen tick), a
+    K > 1 lane is judged alone (``valid = lane_alive & ok``). The outputs
+    gain the per-event ``quarantined``/``clipped``/``rejected`` flags (bool
+    at K = 1, int32 counts of live lanes at K > 1), gated on ``t < T`` and
+    not frozen, and the carry their sums. `resync_every` re-derives the
+    rule's running sums on every `resync_every`-th emitted update."""
     device = resolve_device(device)
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,6 +435,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     if server_lr is not None and not callable(server_lr):
         raise TypeError("pass a constant lr at call time; server_lr is for "
                         "iteration schedules (callables) only")
+    if resync_every is not None and resync_every < 1:
+        raise ValueError(f"resync_every={resync_every} must be ≥ 1 or None")
     lr_of_t = ((lambda t, lr: server_lr(t)) if server_lr is not None
                else (lambda t, lr: lr))
     tau_max = tau_max if tau_max is not None else default_tau_max(beta)
@@ -332,6 +487,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             carry["snaps"] = torch.zeros((marks.shape[0], d), device=device)
             carry["hits"] = torch.zeros((marks.shape[0],), dtype=torch.bool,
                                         device=device)
+        if guards:
+            carry["guards"] = {k: i32(0) for k in GUARD_KEYS}
         return carry
 
     def tick(carry, xs, outs):
@@ -351,11 +508,23 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # Gumbel top-k: the tick's K distinct clients in sampling order
             js = torch.topk(score, K).indices
         tau_req = torch.floor(xs["tau_raw"].index_select(0, e)).int()
+        if guards:
+            # injected over-stale requests (clamped below for the read)
+            f_kind = xs["fault_kind"].index_select(0, e).reshape(-1)
+            tau_req = torch.where(f_kind == FAULT_OVERSTALE, tau_max + 1,
+                                  tau_req.reshape(-1))
         taus = torch.minimum(tau_req.reshape(-1),
                              torch.clamp(n_upd, max=tau_max))
         w_stale = ring_read(carry["ring"], carry["cursor"], taus)
         payloads, losses = payload_fn(w_stale, js,
                                       xs["noise"].index_select(0, e)[0])
+        if guards:
+            payloads, finite, do_clip = _guard_payloads(
+                payloads, f_kind,
+                xs["fault_scale"].index_select(0, e).reshape(-1),
+                xs["clip_norm"])
+            reject = tau_req > tau_max
+            ok = finite & ~reject                          # (K,)
         if K == 1:
             # a frozen K = 1 tick still writes its row in place: keep the
             # old one to restore (at K > 1 an all-invalid batch writes every
@@ -363,13 +532,16 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             saved = {k: (v.data.index_select(0, js),
                          v.scale.index_select(0, js))
                      for k, v in state.items() if isinstance(v, FlatCache)}
-            proc = any_alive
+            # a quarantined or rejected arrival is undone the same way
+            proc = any_alive & ok[0] if guards else any_alive
             new_state, u, emit, lr_scale = agg.step(
                 state, Arrival(js, payloads[0], t, taus[0]))
             loss = losses[0]
         else:
             saved = {}
-            valid = ~gone[js]
+            valid = lane_alive = ~gone[js]
+            if guards:          # each lane judged alone
+                valid = lane_alive & ok
             proc = valid.any()
             new_state, u, emit, lr_scale = agg.step_batch(
                 state, ArrivalBatch(js, payloads, t, taus, valid))
@@ -378,10 +550,17 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         emit = emit & (t < T) & proc
         # frozen ticks perform no aggregator transition
         new_state = _select_state(proc, new_state, state, saved, js)
+        n_upd_new = n_upd + emit.int()
+        if resync_every:
+            synced = agg.resync(new_state)
+            if synced is not new_state:
+                new_state = _resync_select(
+                    emit & (torch.remainder(n_upd_new, resync_every) == 0),
+                    synced, new_state)
         eta = lr_of_t(t, xs["lr"]) * lr_scale
         w = torch.where(emit, carry["w"] - eta * u, carry["w"])
         _, cursor = ring_append(carry["ring"], carry["cursor"], w, emit)
-        new = {"w": w, "n_upd": n_upd + emit.int(), "cursor": cursor,
+        new = {"w": w, "n_upd": n_upd_new, "cursor": cursor,
                "t": torch.where(any_alive, t + emit.int(), thaw_t)}
         if marks is not None:
             new["snaps"], new["hits"] = snapshot_update(
@@ -390,6 +569,18 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                "unorm": torch.linalg.vector_norm(u), "alive": any_alive}
         if record_w:
             row["w"] = w
+        if guards:
+            # only the live window counts (t < T, not frozen), so chunked
+            # totals equal one run's; K > 1 counts live lanes
+            win = (t < T) & any_alive
+            flags = {"quarantined": ~finite, "rejected": finite & reject,
+                     "clipped": ok & do_clip}
+            if K == 1:
+                flags = {k: win & v[0] for k, v in flags.items()}
+            else:
+                flags = {k: torch.where(win, (lane_alive & v).sum(
+                    dtype=torch.int32), 0) for k, v in flags.items()}
+            row.update(flags)
         for k, v in row.items():
             outs[k].index_copy_(0, e, v.to(outs[k].dtype).reshape(
                 (1,) + outs[k].shape[1:]))
@@ -397,6 +588,9 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         # is a fresh tensor; the caches were written in place)
         for k, v in new.items():
             carry[k].copy_(v)
+        if guards:
+            for k, v in flags.items():
+                carry["guards"][k].add_(v)
         for k, v in new_state.items():
             if isinstance(v, FlatCache):
                 # a rule writes its cache in place and hands back the same
@@ -408,8 +602,12 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                 state[k].copy_(v)
         carry["e"].add_(1)
 
+    out_dtypes = dict(_OUT_DTYPES)
+    if guards:
+        out_dtypes.update(dict.fromkeys(
+            GUARD_KEYS, torch.bool if K == 1 else torch.int32))
     return _Program(init, tick, eval_marks, tau_max, K, local_steps, d,
-                    record_w, device)
+                    record_w, device, bool(guards), resync_every, out_dtypes)
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +659,7 @@ class _Ticks:
         self.use_graph = graph
         dev = prog.device
         self.outs = {k: torch.zeros((self.capacity,), dtype=dt, device=dev)
-                     for k, dt in _OUT_DTYPES.items()}
+                     for k, dt in prog.out_dtypes.items()}
         if prog.record_w:
             self.outs["w"] = torch.zeros((self.capacity, prog.d),
                                          device=dev)
@@ -471,9 +669,13 @@ class _Ticks:
         self._graph = None
         self._per_tick: Dict[str, int] = {}   # kernel launches of one tick
 
-    def feed(self, rand: StalenessRandomness, noise_ticks, lr) -> int:
-        """Copy an event slice's streams, its windows and `lr` into the
-        static buffers -> the slice's event count."""
+    def feed(self, rand: StalenessRandomness, noise_ticks, lr,
+             faults: Optional[FaultSchedule] = None,
+             clip_norm=0.0) -> int:
+        """Copy an event slice's streams, its windows and `lr` (and, for a
+        guarded program, the slice's fault schedule, all clean when None,
+        and `clip_norm`) into the static buffers -> the slice's event
+        count."""
         L, K, steps = rand.n_events, self.prog.k_batch, self.prog.local_steps
         if L > self.capacity:
             raise ValueError(f"a slice of {L} events for a runner built for "
@@ -487,6 +689,18 @@ class _Ticks:
                              f"k_batch={K}, local_steps={steps}")
         streams = {"gumbels": rand.gumbels, "tau_raw": rand.tau_raw,
                    "noise": noise_ticks}
+        if self.prog.guards:
+            if faults is None:
+                faults = no_faults(L, K, self.prog.device)
+            if tuple(faults.kind.shape) != tuple(rand.tau_raw.shape):
+                raise ValueError(
+                    f"a fault schedule of shape {tuple(faults.kind.shape)} "
+                    f"for {L} events at k_batch={K}: rebuild it with "
+                    "build_fault_schedule(..., k_batch=k_batch)")
+            streams.update(fault_kind=faults.kind, fault_scale=faults.scale)
+        elif faults is not None or float(clip_norm) > 0:
+            raise ValueError("faults or clip_norm given to a runner built "
+                             "without guards: build it with guards=True")
         if self.xs is None:
             dev = self.prog.device
             self.xs = {k: torch.zeros((self.capacity,) + tuple(v.shape[1:]),
@@ -498,6 +712,9 @@ class _Ticks:
                 rejoin_at=torch.zeros(rand.rejoin_at.shape,
                                       dtype=torch.int32, device=dev),
                 lr=torch.zeros((), dtype=torch.float32, device=dev))
+            if self.prog.guards:
+                self.xs["clip_norm"] = torch.zeros((), dtype=torch.float32,
+                                                   device=dev)
         for k, v in streams.items():
             if tuple(v.shape[1:]) != tuple(self.xs[k].shape[1:]):
                 raise ValueError(f"{k} rows of shape {tuple(v.shape[1:])} "
@@ -507,6 +724,9 @@ class _Ticks:
         self.xs["leave_at"].copy_(rand.leave_at)
         self.xs["rejoin_at"].copy_(rand.rejoin_at)
         self.xs["lr"].copy_(torch.as_tensor(lr, dtype=torch.float32))
+        if self.prog.guards:
+            self.xs["clip_norm"].copy_(torch.as_tensor(clip_norm,
+                                                       dtype=torch.float32))
         return L
 
     def load(self, carry) -> None:
@@ -557,8 +777,8 @@ class _Ticks:
 
 
 class _Runner:
-    """``runner(randomness, payload_noise, lr) -> (w, state, outs,
-    extras)``; see `make_staleness_runner`."""
+    """``runner(randomness, payload_noise, lr, faults=None, clip_norm=0.0)
+    -> (w, state, outs, extras)``; see `make_staleness_runner`."""
 
     def __init__(self, prog: _Program, graph: bool):
         self.prog, self.use_graph = prog, graph
@@ -573,19 +793,22 @@ class _Runner:
         return self._retired + (self._ticks.captures if self._ticks else 0)
 
     def __call__(self, randomness: StalenessRandomness,
-                 payload_noise: PayloadNoise, lr=0.0):
+                 payload_noise: PayloadNoise, lr=0.0,
+                 faults: Optional[FaultSchedule] = None, clip_norm=0.0):
         E = randomness.n_events
         ticks = self._ticks
         if ticks is None or ticks.capacity != E:
             self._retired = self.captures
             ticks = self._ticks = _Ticks(self.prog, E, self.use_graph)
-        ticks.feed(randomness, payload_noise.ticks, lr)
+        ticks.feed(randomness, payload_noise.ticks, lr, faults, clip_norm)
         ticks.load(self.prog.init(ticks.xs["lr"], payload_noise.init))
         ticks.run(E)
         carry, extras = ticks.carry, {}
         if self.prog.marks is not None:
             extras = {"snaps": carry["snaps"].clone(),
                       "hits": carry["hits"].clone()}
+        if self.prog.guards:
+            extras["guards"] = _tree_clone(carry["guards"])
         return (carry["w"].clone(), _tree_clone(carry["state"]),
                 {k: v.clone() for k, v in ticks.outs.items()}, extras)
 
@@ -599,10 +822,12 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
                           local_steps: int = 1, local_lr: float = 0.05,
                           init_cache_grads: bool = True,
                           record_w: bool = False, k_batch: int = 1,
+                          guards: bool = False,
+                          resync_every: Optional[int] = None,
                           device=None, graph: Optional[bool] = None):
-    """Build the runner
-    ``run(randomness, payload_noise, lr) -> (w, state, outs, extras)``
-    once: the counterpart of the JAX package's jitted runner (flat layout).
+    """Build the runner ``run(randomness, payload_noise, lr, faults=None,
+    clip_norm=0.0) -> (w, state, outs, extras)`` once: the counterpart of
+    the JAX package's jitted runner (flat layout).
 
     `lr` is the constant server lr, a number or a 0-d tensor copied into
     the runner's own buffer, so one capture serves every lr (as JAX's traced
@@ -613,6 +838,15 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
     ``unorm``, ``alive`` (and ``w`` with `record_w`); with `eval_marks`,
     ``extras`` holds ``snaps (n_marks, d)`` and ``hits (n_marks,)``. All
     results stay on the device.
+
+    ``guards=True`` runs the fault-guard pipeline (`_staleness_program`):
+    the call then takes a `FaultSchedule` of the call's event count (None:
+    `no_faults`) and a `clip_norm`, both copied into the runner's buffers
+    like lr, so one capture serves every schedule and threshold; ``outs``
+    gains the ``quarantined``/``clipped``/``rejected`` flags and
+    ``extras["guards"]`` their totals. A runner built without guards raises
+    when given either. ``resync_every`` re-derives the rule's running sums
+    on every `resync_every`-th emitted update.
 
     On a CUDA device the runner copies the streams into static buffers,
     runs one warm-up tick on a side stream, resets the carry, captures one
@@ -630,27 +864,34 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=eval_marks,
         local_steps=local_steps, local_lr=local_lr,
         init_cache_grads=init_cache_grads, record_w=record_w,
-        k_batch=k_batch, device=device)
+        k_batch=k_batch, guards=guards, resync_every=resync_every,
+        device=device)
     return _Runner(prog, _use_graph(graph, prog.device))
 
 
 @dataclasses.dataclass
 class ChunkedStalenessRunner:
     """Chunked execution of the engine: ``init(lr, init_noise) -> carry``,
-    then ``chunk(carry, randomness_slice, noise_slice, lr) -> (carry,
-    outs)`` over consecutive event slices (`StalenessRandomness.slice`,
-    ``PayloadNoise.ticks[a:b]``), bit-identical to one run over the whole
-    stream. The carry is a plain dict of tensors (and the caches) holding
-    the full protocol state, ``e`` the events consumed so far; it
-    round-trips through `torch.save` / `torch.load`, so a run resumes from
-    a checkpoint exactly. ``marks`` are the baked eval marks (None without
-    a cadence); with marks the carry holds ``snaps``/``hits``."""
+    then ``chunk(carry, randomness_slice, noise_slice, lr, faults_slice=None,
+    clip_norm=0.0) -> (carry, outs)`` over consecutive event slices
+    (`StalenessRandomness.slice`, ``PayloadNoise.ticks[a:b]``,
+    `FaultSchedule.slice`), bit-identical to one run over the whole stream.
+    The carry is a plain dict of tensors (and the caches) holding the full
+    protocol state, ``e`` the events consumed so far; it round-trips
+    through `torch.save` / `torch.load`, so a run resumes from a checkpoint
+    exactly. ``marks`` are the baked eval marks (None without a cadence);
+    with marks the carry holds ``snaps``/``hits``, with guards the
+    ``guards`` counters."""
     init: Callable
     chunk: Callable
     marks: Optional[Tuple[int, ...]]
     tau_max: int
     #: arrivals per tick; the slices carry the matching tau_raw lane axis
     k_batch: int = 1
+    #: the guard pipeline is in the tick (chunk takes the fault slices and
+    #: clip_norm; the carry holds the counters)
+    guards: bool = False
+    resync_every: Optional[int] = None
 
 
 def make_chunked_staleness_runner(*, capacity: int,
@@ -664,8 +905,9 @@ def make_chunked_staleness_runner(*, capacity: int,
     prog = _staleness_program(**kwargs)
     ticks = _Ticks(prog, capacity, _use_graph(graph, prog.device))
 
-    def chunk(carry, randomness: StalenessRandomness, noise_ticks, lr=0.0):
-        L = ticks.feed(randomness, noise_ticks, lr)
+    def chunk(carry, randomness: StalenessRandomness, noise_ticks, lr=0.0,
+              faults: Optional[FaultSchedule] = None, clip_norm=0.0):
+        L = ticks.feed(randomness, noise_ticks, lr, faults, clip_norm)
         ticks.load(carry)
         ticks.carry["e"].zero_()          # the slice is read from its row 0
         ticks.run(L)
@@ -674,7 +916,44 @@ def make_chunked_staleness_runner(*, capacity: int,
         return out, {k: v[:L].clone() for k, v in ticks.outs.items()}
 
     return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
-                                  prog.k_batch)
+                                  prog.k_batch, prog.guards,
+                                  prog.resync_every)
+
+
+def _window_slack(n_clients: int, rejoin_at, windows) -> int:
+    """Extra events for freeze fast-forward jumps: each all-gone freeze
+    burns exactly one event and jumps to a strictly later rejoin, so at most
+    `n_clients` events are ever lost to freezes."""
+    return n_clients if (rejoin_at is not None or windows is not None) else 0
+
+
+def _check_faults(faults: FaultSchedule, n_events: Optional[int],
+                  k_batch: int) -> None:
+    """The JAX package's rules for a schedule: its event count is the
+    run's, and it was built for the run's `k_batch`."""
+    if n_events is not None and n_events != faults.n_events:
+        raise ValueError(
+            f"n_events={n_events} != faults.n_events={faults.n_events}")
+    lanes = faults.kind.shape[1] if faults.kind.dim() == 2 else 1
+    if lanes != k_batch:
+        raise ValueError(
+            f"faults built for k_batch={lanes} but the engine runs "
+            f"k_batch={k_batch}: rebuild the schedule with "
+            "build_fault_schedule(..., k_batch=k_batch)")
+
+
+def _staleness_result(run, T: int, n_init: int, marks, eval_fn,
+                      params0) -> ScanResult:
+    """The host record of one runner call ``(w, state, outs, extras)``,
+    the eval cadence's `eval_fn` applied to its snapshots."""
+    w, _, outs, extras = run
+    evals, eval_ts = [], []
+    if marks is not None and eval_fn is not None:
+        evals, eval_ts = _apply_evals(extras["snaps"], extras["hits"], marks,
+                                      eval_fn, lambda f: unravel(f, params0))
+    host = {k: v.cpu().numpy() for k, v in outs.items()}
+    return _to_result(w.cpu().numpy(), host, T, n_init, evals=evals,
+                      eval_ts=eval_ts)
 
 
 def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -688,6 +967,9 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        n_events: Optional[int] = None, local_steps: int = 1,
                        local_lr: float = 0.05, init_cache_grads: bool = True,
                        seed: int = 0, record_w: bool = False,
+                       faults: Optional[FaultSchedule] = None,
+                       clip_norm: float = 0.0,
+                       resync_every: Optional[int] = None,
                        k_batch: int = 1, device=None,
                        randomness: Optional[StalenessRandomness] = None,
                        payload_noise: Optional[PayloadNoise] = None
@@ -706,6 +988,13 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     ``eval_marks_for(T, eval_every or T)`` and `eval_fn` runs on the host
     after the run on those the run reached (`ScanResult.evals`/`eval_ts`).
 
+    ``faults`` (a `FaultSchedule`) or ``clip_norm > 0`` turn the guard
+    pipeline on, as in the JAX package (`ScanResult.faults` holds its
+    counters); the schedule's event count is the run's (an `n_events` that
+    differs raises, as does a schedule built for another `k_batch`).
+    ``resync_every`` re-derives the rule's running sums from its cache on
+    every `resync_every`-th emitted update.
+
     The run is on the GPU unless ``device="cpu"``; with no GPU and no CPU
     request it raises. ``randomness`` / ``payload_noise`` replace the
     streams drawn from `seed` (the event count is then theirs).
@@ -714,6 +1003,10 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     package)."""
     device = resolve_device(device)
     n, K, agg = n_clients, int(k_batch), aggregator
+    guards = faults is not None or clip_norm > 0
+    if faults is not None:
+        _check_faults(faults, n_events, K)
+        n_events = faults.n_events
     marks = (eval_marks_for(T, eval_every or T) if eval_fn is not None
              else None)
     runner = make_staleness_runner(
@@ -722,12 +1015,12 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=marks,
         local_steps=local_steps, local_lr=local_lr,
         init_cache_grads=init_cache_grads, record_w=record_w, k_batch=K,
-        device=device)
+        guards=guards, resync_every=resync_every, device=device)
     if randomness is not None:
         n_events = randomness.n_events
     elif n_events is None:
-        slack = n if (rejoin_at is not None or windows is not None) else 0
-        n_events = default_n_events(agg, T, init_cache_grads) + slack
+        n_events = (default_n_events(agg, T, init_cache_grads)
+                    + _window_slack(n, rejoin_at, windows))
     if randomness is None:
         randomness = build_staleness_randomness(
             seed, n_events, n, beta, dropout_frac, speed_skew,
@@ -736,13 +1029,167 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     if payload_noise is None:
         payload_noise = build_payload_noise(grad_fn, seed, n_events, n, K,
                                             local_steps, device)
-    w, _, outs, extras = runner(randomness, payload_noise,
-                                0.0 if callable(server_lr) else server_lr)
-    evals, eval_ts = [], []
-    if marks is not None:
-        evals, eval_ts = _apply_evals(extras["snaps"], extras["hits"], marks,
-                                      eval_fn, lambda f: unravel(f, params0))
-    host = {k: v.cpu().numpy() for k, v in outs.items()}
+    run = runner(randomness, payload_noise,
+                 0.0 if callable(server_lr) else server_lr, faults, clip_norm)
     wants_init = init_cache_grads and wants_cache_init(agg)
-    return _to_result(w.cpu().numpy(), host, T, n if wants_init else 0,
-                      evals=evals, eval_ts=eval_ts)
+    return _staleness_result(run, T, n if wants_init else 0, marks, eval_fn,
+                             params0)
+
+
+def _staleness_sweep(*, grad_fn: Callable, params0, aggregator: Aggregator,
+                     n_clients: int, T: int, seeds: Sequence[int],
+                     lrs: Sequence, server_lr: Optional[Callable], beta,
+                     tau_max, speed_skew, dropout_frac, dropout_at,
+                     rejoin_at, windows, eval_fn, eval_every, n_events,
+                     local_steps, local_lr, init_cache_grads, runner,
+                     fault_rates, clip_norm, resync_every, k_batch, device,
+                     randomness, payload_noise,
+                     faults) -> List[List[ScanResult]]:
+    """``results[i_lr][i_seed]`` of one runner called once per (lr, seed)
+    cell, seed-outer: each seed's streams (and fault schedule) are drawn
+    once and serve every lr, as JAX's nested vmap broadcasts them. Every
+    cell has the same event count, so the runner captures once."""
+    device = resolve_device(device)
+    n, K, agg = n_clients, int(k_batch), aggregator
+    guards = bool(fault_rates) or clip_norm > 0 or faults is not None
+    for name, given in (("randomness", randomness),
+                        ("payload_noise", payload_noise), ("faults", faults)):
+        if given is not None and len(given) != len(seeds):
+            raise ValueError(f"{len(given)} {name} entries for "
+                             f"{len(seeds)} seeds")
+    if randomness is not None:
+        n_events = randomness[0].n_events
+    elif faults is not None:
+        n_events = faults[0].n_events
+    elif n_events is None:
+        n_events = (default_n_events(agg, T, init_cache_grads)
+                    + _window_slack(n, rejoin_at, windows))
+    marks = (eval_marks_for(T, eval_every or T) if eval_fn is not None
+             else None)
+    if runner is None:
+        runner = make_staleness_runner(
+            grad_fn=grad_fn, params0=params0, aggregator=agg, n_clients=n,
+            T=T, beta=beta, server_lr=server_lr, tau_max=tau_max,
+            speed_skew=speed_skew, eval_marks=marks, local_steps=local_steps,
+            local_lr=local_lr, init_cache_grads=init_cache_grads, k_batch=K,
+            guards=guards, resync_every=resync_every, device=device)
+    else:
+        prog = runner.prog
+        have = (prog.guards, prog.resync_every, prog.marks, prog.k_batch)
+        want = (guards, resync_every, marks, K)
+        if have != want:
+            raise ValueError(
+                f"a runner built with (guards, resync_every, eval_marks, "
+                f"k_batch) = {have} for a sweep that needs {want}")
+    wants_init = init_cache_grads and wants_cache_init(agg)
+    results = [[None] * len(seeds) for _ in lrs]
+    for i, seed in enumerate(seeds):
+        rand = (randomness[i] if randomness is not None else
+                build_staleness_randomness(
+                    seed, n_events, n, beta, dropout_frac, speed_skew,
+                    dropout_at=dropout_at, rejoin_at=rejoin_at,
+                    windows=windows, k_batch=K, device=device))
+        noise = (payload_noise[i] if payload_noise is not None else
+                 build_payload_noise(grad_fn, seed, n_events, n, K,
+                                     local_steps, device))
+        if rand.n_events != n_events:
+            raise ValueError(f"seed {seed}: {rand.n_events} events, the "
+                             f"sweep's cells have {n_events}")
+        fa = None
+        if guards:
+            fa = (faults[i] if faults is not None else build_fault_schedule(
+                seed, n_events, k_batch=K, device=device,
+                **(fault_rates or {})))
+            _check_faults(fa, n_events, K)
+        for j, lr in enumerate(lrs):
+            results[j][i] = _staleness_result(
+                runner(rand, noise, lr, fa, clip_norm), T,
+                n if wants_init else 0, marks, eval_fn, params0)
+    return results
+
+
+def run_staleness_seeds(*, grad_fn: Callable, params0,
+                        aggregator: Aggregator, n_clients: int, server_lr,
+                        T: int, seeds: Sequence[int], beta: float = 5.0,
+                        tau_max: Optional[int] = None,
+                        speed_skew: float = 0.0, dropout_frac: float = 0.0,
+                        dropout_at: Optional[int] = None,
+                        rejoin_at: Optional[int] = None, windows=None,
+                        eval_fn: Optional[Callable] = None,
+                        eval_every: Optional[int] = None,
+                        n_events: Optional[int] = None, local_steps: int = 1,
+                        local_lr: float = 0.05, init_cache_grads: bool = True,
+                        runner=None,
+                        fault_rates: Optional[Dict[str, float]] = None,
+                        clip_norm: float = 0.0,
+                        resync_every: Optional[int] = None,
+                        k_batch: int = 1, device=None,
+                        randomness: Optional[Sequence[StalenessRandomness]]
+                        = None,
+                        payload_noise: Optional[Sequence[PayloadNoise]] = None,
+                        faults: Optional[Sequence[FaultSchedule]] = None
+                        ) -> List[ScanResult]:
+    """One `ScanResult` per seed, each seed's run equal bit for bit to
+    `run_staleness_scan` with that seed: one runner called once per seed,
+    so one capture serves the sweep. Pass `runner` (a
+    `make_staleness_runner` result whose ``guards``, ``resync_every``,
+    ``eval_marks`` and ``k_batch`` match the sweep's, else it raises) to
+    reuse it across calls. ``fault_rates`` (`build_fault_schedule`'s
+    rates; each seed draws its own schedule) or ``clip_norm > 0`` turn the
+    guards on; ``resync_every`` the periodic recompute. ``randomness``,
+    ``payload_noise`` and ``faults`` take per-seed lists in place of the
+    streams drawn from each seed (the tests replay the JAX package's)."""
+    lr = 0.0 if callable(server_lr) else float(server_lr)
+    return _staleness_sweep(
+        grad_fn=grad_fn, params0=params0, aggregator=aggregator,
+        n_clients=n_clients, T=T, seeds=seeds, lrs=[lr],
+        server_lr=server_lr if callable(server_lr) else None, beta=beta,
+        tau_max=tau_max, speed_skew=speed_skew, dropout_frac=dropout_frac,
+        dropout_at=dropout_at, rejoin_at=rejoin_at, windows=windows,
+        eval_fn=eval_fn, eval_every=eval_every, n_events=n_events,
+        local_steps=local_steps, local_lr=local_lr,
+        init_cache_grads=init_cache_grads, runner=runner,
+        fault_rates=fault_rates, clip_norm=clip_norm,
+        resync_every=resync_every, k_batch=k_batch, device=device,
+        randomness=randomness, payload_noise=payload_noise, faults=faults)[0]
+
+
+def run_staleness_grid(*, grad_fn: Callable, params0, aggregator: Aggregator,
+                       n_clients: int, lrs: Sequence[float], T: int,
+                       seeds: Sequence[int], beta: float = 5.0,
+                       tau_max: Optional[int] = None, speed_skew: float = 0.0,
+                       dropout_frac: float = 0.0,
+                       dropout_at: Optional[int] = None,
+                       rejoin_at: Optional[int] = None, windows=None,
+                       eval_fn: Optional[Callable] = None,
+                       eval_every: Optional[int] = None,
+                       n_events: Optional[int] = None, local_steps: int = 1,
+                       local_lr: float = 0.05, init_cache_grads: bool = True,
+                       runner=None,
+                       fault_rates: Optional[Dict[str, float]] = None,
+                       clip_norm: float = 0.0,
+                       resync_every: Optional[int] = None,
+                       k_batch: int = 1, device=None,
+                       randomness: Optional[Sequence[StalenessRandomness]]
+                       = None,
+                       payload_noise: Optional[Sequence[PayloadNoise]] = None,
+                       faults: Optional[Sequence[FaultSchedule]] = None
+                       ) -> List[List[ScanResult]]:
+    """The lr-tuning grid × seed sweep: ``results[i_lr][i_seed]``, each
+    cell equal bit for bit to `run_staleness_scan` with that seed and lr.
+    Each seed's streams (and schedule) are drawn once and serve every lr;
+    lr is the runner's runtime buffer, so one capture serves the whole
+    grid (``runner.captures == 1`` on the card). The other arguments are
+    `run_staleness_seeds`'s."""
+    return _staleness_sweep(
+        grad_fn=grad_fn, params0=params0, aggregator=aggregator,
+        n_clients=n_clients, T=T, seeds=seeds,
+        lrs=[float(lr) for lr in lrs], server_lr=None, beta=beta,
+        tau_max=tau_max, speed_skew=speed_skew, dropout_frac=dropout_frac,
+        dropout_at=dropout_at, rejoin_at=rejoin_at, windows=windows,
+        eval_fn=eval_fn, eval_every=eval_every, n_events=n_events,
+        local_steps=local_steps, local_lr=local_lr,
+        init_cache_grads=init_cache_grads, runner=runner,
+        fault_rates=fault_rates, clip_norm=clip_norm,
+        resync_every=resync_every, k_batch=k_batch, device=device,
+        randomness=randomness, payload_noise=payload_noise, faults=faults)

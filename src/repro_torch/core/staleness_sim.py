@@ -9,6 +9,18 @@ import numpy as np
 #: always on; one with ``rejoin_at == NEVER`` never comes back.
 NEVER: int = int(np.iinfo(np.int32).max)
 
+#: per-event fault kinds of a `FaultSchedule`: NONE passes the payload
+#: through; NAN poisons it with a non-finite multiplier (quarantined by the
+#: guard pipeline); EXPLODE scales it by the schedule's per-event scale
+#: (caught by global-norm clipping); BYZANTINE flips its sign (finite:
+#: clipped, never quarantined); OVERSTALE forces the requested staleness
+#: past tau_max (rejected by the over-stale guard).
+FAULT_NONE: int = 0
+FAULT_NAN: int = 1
+FAULT_EXPLODE: int = 2
+FAULT_BYZANTINE: int = 3
+FAULT_OVERSTALE: int = 4
+
 
 def default_tau_max(beta: float) -> int:
     """History bound when none is given; covers essentially all Exp(β)

@@ -15,7 +15,8 @@ holding a NaN or ±inf gets int8 codes 0, as in the JAX package; the tests
 pin the zeros as well as comparing with the plain versions. Run only these
 with ``-k "masked_agg or row_delta or nan"``, the ACE step's with
 ``-k "ace or row_kernels"``, the graph runner's (the tick captured as a
-CUDA graph, bit-identical to the eager tick) with ``-k graph``."""
+CUDA graph, bit-identical to the eager tick; faulted and guarded runs and
+one capture serving a sweep included) with ``-k graph``."""
 import numpy as np
 import pytest
 
@@ -27,8 +28,9 @@ from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
 from repro_torch.core.cache import FlatCache  # noqa: E402
 from repro_torch.core.fl_tasks import ClientGrad  # noqa: E402
 from repro_torch.core.scan_staleness import (  # noqa: E402
-    build_payload_noise, build_staleness_randomness,
-    make_chunked_staleness_runner, make_staleness_runner, run_staleness_scan)
+    build_fault_schedule, build_payload_noise, build_staleness_randomness,
+    make_chunked_staleness_runner, make_staleness_runner, no_faults,
+    run_staleness_grid, run_staleness_scan)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import cache_update as _cu  # noqa: E402
 from repro_torch.kernels import masked_agg as _ma  # noqa: E402
@@ -822,3 +824,120 @@ def test_graph_capture_of_a_host_reading_server_lr_raises(cuda):
     with pytest.raises(RuntimeError):
         runner(rand, noise)
     assert runner.captures == 0
+
+
+# --- the guard pipeline, resync and sweeps in the captured tick ------------
+
+RATES = dict(nan_rate=0.05, explode_rate=0.05, byzantine_rate=0.05,
+             overstale_rate=0.05)
+
+
+def _same_faulted(a, b):
+    """`_same_result` for faulted runs: a quarantined event's update norm
+    is NaN in both."""
+    (w1, s1, o1, x1), (w2, s2, o2, x2) = a, b
+    _same_result((w1, s1, {}, None), (w2, s2, {}, None))
+    assert o1.keys() == o2.keys()
+    assert all(_same(o1[k].float(), o2[k].float()) for k in o1)
+    assert {k: int(v) for k, v in x1["guards"].items()} == \
+        {k: int(v) for k, v in x2["guards"].items()}
+
+
+@pytest.mark.parametrize("name,dtype,K", GRAPH_RULES)
+def test_faulted_graph_run_matches_eager(cuda, name, dtype, K):
+    """NaN, exploding, Byzantine and over-stale clients under quarantine,
+    clipping and rejection, resync every 4th update: the replayed tick ends
+    bit for bit where the eager tick ends (NaN rows written by the K = 1
+    kernels and restored, NaN lanes zeroed by commit_batch), the counters
+    equal the flags' sums, and the model is finite."""
+    n, E = 20, 40
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, K, E, cuda)
+    fa = build_fault_schedule(3, E, k_batch=K, device=cuda, **RATES)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=30,
+              beta=2.0, tau_max=6, k_batch=K, guards=True, resync_every=4,
+              device=cuda)
+    runs = [make_staleness_runner(aggregator=_rule(name, dtype, K),
+                                  graph=g, **kw)(rand, noise, 0.2, fa, 1.0)
+            for g in (True, False)]
+    _same_faulted(*runs)
+    w, _, outs, extras = runs[0]
+    assert torch.isfinite(w).all()
+    for k, total in extras["guards"].items():
+        assert int(outs[k].sum()) == int(total)
+    assert int(extras["guards"]["quarantined"]) > 0
+
+
+@pytest.mark.parametrize("name,dtype,K", [("ace", "int8", 1),
+                                          ("ace", "int8", 16),
+                                          ("aced", "int8", 1),
+                                          ("ca2fl", "float32", 16)])
+def test_graph_guards_on_a_clean_schedule_equal_guards_off(cuda, name,
+                                                           dtype, K):
+    """Guards on with an all-clean schedule and the clip off replay bit
+    for bit like the unguarded graph (× 1.0 is an identity)."""
+    n, E = 20, 30
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, K, E, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=20,
+              beta=2.0, k_batch=K, device=cuda)
+    off = make_staleness_runner(aggregator=_rule(name, dtype, K), **kw)(
+        rand, noise, 0.2)
+    w, state, outs, _ = make_staleness_runner(
+        aggregator=_rule(name, dtype, K), guards=True, **kw)(
+        rand, noise, 0.2, no_faults(E, K, device=cuda), 0.0)
+    _same_result(off, (w, state, {k: outs[k] for k in off[2]}, None))
+    assert all(int(outs[k].sum()) == 0 for k in ("quarantined", "clipped",
+                                                  "rejected"))
+
+
+def test_graph_one_capture_serves_a_grid(cuda):
+    """A faulted 2 × 2 lr × seed grid through one runner: one capture, and
+    each cell ends where `run_staleness_scan` with that seed and lr ends."""
+    n = 20
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0,
+              aggregator=tagg.ACED(tau_algo=4, cache_dtype="int8"),
+              n_clients=n, T=20, beta=2.0, n_events=40, device=cuda)
+    runner = make_staleness_runner(
+        grad_fn=task.grad_fn, params0=task.params0,
+        aggregator=kw["aggregator"], n_clients=n, T=20, beta=2.0,
+        guards=True, device=cuda)
+    grid = run_staleness_grid(lrs=(0.1, 0.2), seeds=(1, 2), runner=runner,
+                              fault_rates=RATES, clip_norm=1.0, **kw)
+    assert runner.captures == 1
+    for i, lr in enumerate((0.1, 0.2)):
+        for j, seed in enumerate((1, 2)):
+            one = run_staleness_scan(
+                seed=seed, server_lr=lr, clip_norm=1.0,
+                faults=build_fault_schedule(seed, 40, device=cuda, **RATES),
+                **kw)
+            assert np.array_equal(grid[i][j].w, one.w)
+            assert np.array_equal(grid[i][j].emit, one.emit)
+            assert grid[i][j].faults == one.faults
+
+
+def test_graph_clip_norm_change_needs_no_new_capture(cuda):
+    """clip_norm is the runner's own buffer: a second threshold replays the
+    same graph and ends where a fresh runner with that threshold ends."""
+    n, E = 20, 30
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, 1, E, cuda)
+    fa = build_fault_schedule(3, E, device=cuda, **RATES)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=20,
+              beta=2.0, guards=True, device=cuda)
+
+    def runner():
+        return make_staleness_runner(
+            aggregator=tagg.ACEIncremental(cache_dtype="int8"), **kw)
+    r = runner()
+    a = r(rand, noise, 0.2, fa, 0.05)
+    b = r(rand, noise, 0.2, fa, 5.0)
+    assert r.captures == 1
+    _same_faulted(a, runner()(rand, noise, 0.2, fa, 0.05))
+    _same_faulted(b, runner()(rand, noise, 0.2, fa, 5.0))
+    assert int(a[3]["guards"]["clipped"]) > int(b[3]["guards"]["clipped"])

@@ -40,36 +40,52 @@ from repro_torch.core.scan_staleness import run_staleness_scan as torch_run  # n
 
 
 def replay_streams(seed, n_events, n, beta, k_batch, noise_of, noise_shape,
-                   wants_init, windows=None):
+                   wants_init, windows=None, local_steps=1):
     """The JAX engine's random streams for a run with `seed`, as the port's
-    `StalenessRandomness` and `PayloadNoise` (local_steps = 1)."""
+    `StalenessRandomness` and `PayloadNoise`. Each payload call splits its
+    key once and, with ``local_steps > 1``, drops that draw and splits once
+    more per local step (`repro.core.scan_engine._payload_chain`)."""
     r = build_staleness_randomness(seed, n_events, n, beta, windows=windows,
                                    k_batch=k_batch)
     rand = StalenessRandomness(*(torch.as_tensor(np.array(x)) for x in
                                  (r.gumbels, r.tau_raw, r.leave_at,
                                   r.rejoin_at)))
+    L = local_steps
     split = jax.jit(jax.random.split, static_argnums=1)
     draw = jax.jit(jax.vmap(noise_of))
+
+    def call(key):
+        """One payload call's chain -> (key after it, (L, 2) step keys)."""
+        key, sub = split(key, 2)
+        if L == 1:
+            return key, sub[None]
+        steps = []
+        for _ in range(L):
+            key, sub = split(key, 2)
+            steps.append(sub)
+        return key, jnp.stack(steps)
+
     key = jax.random.PRNGKey(seed)
-    init = np.zeros((n, 1) + noise_shape, np.float32)
+    init = np.zeros((n, L) + noise_shape, np.float32)
     if wants_init:
         subs = []
         for _ in range(n):
-            key, sub = split(key, 2)
-            subs.append(sub)
-        init[:, 0] = np.asarray(draw(jnp.stack(subs)))
+            key, steps = call(key)
+            subs.append(steps)
+        init[:] = np.asarray(draw(jnp.concatenate(subs))).reshape(
+            (n, L) + noise_shape)
     subs = []
     for _ in range(n_events):
         if k_batch == 1:
-            key, sub = split(key, 2)
-            subs.append(sub[None])
+            key, steps = call(key)
+            subs.append(steps[None])
         else:
             keys = split(key, k_batch + 1)
             key = keys[0]
-            subs.append(jax.vmap(lambda k: jax.random.split(k)[1])(keys[1:]))
-    subs = jnp.stack(subs)                        # (E, K, 2)
+            subs.append(jnp.stack([call(k)[1] for k in keys[1:]]))
+    subs = jnp.stack(subs)                        # (E, K, L, 2)
     ticks = np.array(draw(subs.reshape(-1, subs.shape[-1])))
-    ticks = ticks.reshape((n_events, k_batch, 1) + noise_shape)
+    ticks = ticks.reshape((n_events, k_batch, L) + noise_shape)
     return rand, PayloadNoise(torch.as_tensor(init), torch.as_tensor(ticks))
 
 

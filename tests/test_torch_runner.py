@@ -1,7 +1,9 @@
 """The port's runners on the CPU: the eval cadence, the chunked runner and
 the runtime lr against the JAX package's `run_staleness_scan` on the same
 random streams (replayed as `tests/test_torch_engine.py` replays them), and
-the runners against the port's own single run.
+the runners against the port's own single run. Also the engine's remaining
+differential cases against JAX: K = 16 on 20 clients, a callable
+server_lr, several local steps, speed skew and a bf16 cache.
 
 Tolerances: 1e-5 against the JAX package (the repo's contract between its
 engines); bit for bit where the port is compared with itself (the chunked
@@ -247,17 +249,18 @@ def quadratic20(seed=1, zeta=3.0, sigma=0.3):
 
 
 def _matches_jax(j_agg, t_agg, K, server_lr, t_server_lr, windows=None,
-                 T=14):
+                 T=14, local_steps=1, speed_skew=0.0):
     beta, seed = 2.0, 7
     jax_grad, torch_grad, noise_of = quadratic20()
     n_events = default_n_events(j_agg, T) + (N20 if windows else 0)
     kw = dict(n_clients=N20, T=T, beta=beta, tau_max=6, n_events=n_events,
-              seed=seed, k_batch=K, windows=windows, record_w=True)
+              seed=seed, k_batch=K, windows=windows, record_w=True,
+              local_steps=local_steps, speed_skew=speed_skew)
     jr = jax_run(grad_fn=jax_grad, params0=jnp.ones(D), aggregator=j_agg,
                  server_lr=server_lr, **kw)
     rand, noise = replay_streams(seed, n_events, N20, beta, K, noise_of,
                                  (D,), jagg.wants_cache_init(j_agg),
-                                 windows=windows)
+                                 windows=windows, local_steps=local_steps)
     tr = torch_run(grad_fn=torch_grad, params0=torch.ones(D),
                    aggregator=t_agg, server_lr=t_server_lr, device="cpu",
                    randomness=rand, payload_noise=noise, **kw)
@@ -296,3 +299,34 @@ def test_callable_server_lr_matches_jax(name, K):
                  _make(name, "int8", K, "torch"), K,
                  lambda t: 0.2 / (1.0 + 0.1 * t),
                  lambda t: 0.2 / (1.0 + 0.1 * t))
+
+
+@pytest.mark.parametrize("name,dtype,K", [("ace", "int8", 1),
+                                          ("aced", "int8", 4),
+                                          ("ca2fl", "float32", 1)])
+def test_local_steps_match_jax(name, dtype, K):
+    """Three local steps a payload (the displacement (w₀ − w₃)/(3·lr_loc)),
+    each on its own noise draw of JAX's key chain, per lane at K > 1: the
+    model after every tick within 1e-5 of the JAX package's."""
+    _matches_jax(_make(name, dtype, K, "jax"), _make(name, dtype, K, "torch"),
+                 K, 0.1, 0.1, local_steps=3)
+
+
+@pytest.mark.parametrize("name,dtype,K,skew", [("ace", "int8", 1, 1.0),
+                                               ("aced", "int8", 4, 1.0),
+                                               ("ace", "bfloat16", 4, 0.5)])
+def test_speed_skew_matches_jax(name, dtype, K, skew):
+    """Log-spaced participation weights in [1/(1+skew), 1+skew] folded into
+    the sampling logits, with a freeze and thaw: within 1e-5 of the JAX
+    package after every tick."""
+    _matches_jax(_make(name, dtype, K, "jax"), _make(name, dtype, K, "torch"),
+                 K, 0.1, 0.1, windows=WINDOWS20, speed_skew=skew)
+
+
+@pytest.mark.parametrize("name,K", [("ca2fl", 1), ("aced", 1), ("ace", 4)])
+def test_bf16_cache_matches_jax(name, K):
+    """A bf16 gradient cache (rows rounded to bf16 on write, read back in
+    f32): within 1e-5 of the JAX package after every tick."""
+    _matches_jax(_make(name, "bfloat16", K, "jax"),
+                 _make(name, "bfloat16", K, "torch"), K, 0.1, 0.1,
+                 windows=WINDOWS20)
