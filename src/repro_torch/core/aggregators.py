@@ -589,7 +589,11 @@ class ACED(Aggregator):
         i = torch.arange(first_slot, P, dtype=torch.int32, device=dev)
         s = torch.remainder(t - tau - 1 - i, P).long()
         owners = ring.index_select(0, s)
-        ow = torch.clamp(owners, min=0).long()
+        # rows are gathered at the owners clamped into [0, n−1]: a corrupted
+        # slot reads a real row (JAX's gather clamps too) and never faults,
+        # and the sanitize ring check reports it; `owners >= 0` marks a
+        # full slot
+        ow = torch.clamp(owners, 0, state["t_start"].shape[0] - 1).long()
         visit = (i < dt).reshape((-1,) + (1,) * (owners.dim() - 1))
         gone = visit & (owners >= 0) & (state["t_start"][ow] <= t - tau - 1)
         rows = cache_rows(cache, ow.reshape(-1), backend=self.backend)
@@ -635,7 +639,7 @@ class ACED(Aggregator):
         dt = torch.clamp(t - state["t_prev"], 0, P)
         s0 = torch.remainder(t - tau - 1, P).long().reshape(1)
         k0 = ring.index_select(0, s0)
-        k0c = torch.clamp(k0, min=0).long()
+        k0c = torch.clamp(k0, 0, t_start.shape[0] - 1).long()
         dead = (dt >= 1) & (k0 >= 0) & (t_start[k0c] <= t - tau - 1)
         dead_row = cache_row(cache, k0c, backend=self.backend)
         ring = ring.index_copy(0, s0, torch.where(dead, -1, k0))

@@ -1,12 +1,14 @@
 """Ready-made FL tasks binding synthetic data + Dirichlet partition + a small
-model into (grad_fn, eval_fn, params0) — port of the vision task of
-`repro.core.fl_tasks` (the Fig. 2/3 CIFAR-10 stand-in).
+model into (grad_fn, eval_fn, params0) — port of the vision and text tasks
+of `repro.core.fl_tasks` (the Fig. 2/3 CIFAR-10 stand-in and the Table a.2
+20 Newsgroups stand-in).
 
-The model keeps the JAX layout: ``x @ w + b`` with `w` of shape (in, out),
-and a parameter list of ``{"w", "b"}`` dicts raveled in JAX's order
-(`repro_torch.convert`). A client gradient is computed for a batch of B
-lanes at once — B models, B clients, B noise rows — so the K arrivals of a
-tick (and the n clients of the init batch) are one batched call.
+The models keep the JAX layout: ``x @ w + b`` with `w` of shape (in, out),
+and parameters raveled in JAX's order (`repro_torch.convert`: the MLP's
+list of ``{"w", "b"}`` dicts, the text model's dict by sorted key). A
+client gradient is computed for a batch of B lanes at once — B models, B
+clients, B noise rows — so the K arrivals of a tick (and the n clients of
+the init batch) are one batched call.
 
 Minibatch sampling reads a per-call uniform vector ``u (batch,)`` as
 ``ix = min(floor(u · n_client), n_client − 1)``; the uniforms are the
@@ -21,10 +23,12 @@ from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.convert import unravel
 from repro_torch.data.partition import dirichlet_partition
-from repro_torch.data.synthetic import make_classification
+from repro_torch.data.synthetic import (make_classification,
+                                        make_text_classification)
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -48,6 +52,39 @@ def mlp_classifier(dims: Sequence[int]):
             if i < len(params) - 1:
                 x = torch.relu(x)
         return x
+    return init, apply
+
+
+def tiny_text_classifier(vocab: int, d: int, n_classes: int, seq_len: int):
+    """Embedding + mean-pool + 2-layer head (the BERT-experiment stand-in):
+    ``(init(generator, device) -> params, apply(params, toks) -> logits)``.
+    `apply` takes plain leaves against toks (N, seq_len) and leaves with a
+    leading lane axis B (emb (B, vocab, d), ...) against toks (B, N,
+    seq_len). The B tables are gathered as one flat (B·vocab, d) table at
+    lane-offset indices through `F.embedding`, whose backward sums each
+    row's gradient without the scattered atomic adds that indexing
+    ``emb[b, toks]`` would put in it."""
+    def init(generator: torch.Generator, device=None):
+        def normal(shape, std):
+            return (torch.randn(shape, generator=generator,
+                                device=generator.device) * std).to(device)
+        return {"emb": normal((vocab, d), 0.05),
+                "w1": normal((d, d), (2.0 / d) ** 0.5),
+                "b1": torch.zeros((d,), device=device),
+                "w2": normal((d, n_classes), (1.0 / d) ** 0.5),
+                "b2": torch.zeros((n_classes,), device=device)}
+
+    def apply(params, toks):
+        emb = params["emb"]
+        if emb.dim() == 3:
+            lanes = emb.shape[0]
+            offset = torch.arange(lanes, device=toks.device) * vocab
+            toks = toks + offset.reshape((lanes,) + (1,) * (toks.dim() - 1))
+            emb = emb.reshape(lanes * vocab, d)
+        h = F.embedding(toks, emb).mean(-2)
+        h = torch.relu(torch.matmul(h, params["w1"])
+                       + params["b1"].unsqueeze(-2))
+        return torch.matmul(h, params["w2"]) + params["b2"].unsqueeze(-2)
     return init, apply
 
 
@@ -99,6 +136,47 @@ class FLTask:
     meta: Dict
 
 
+def _task(x, y, n_train, n_clients, alpha, seed, init, apply, batch, device,
+          meta) -> FLTask:
+    """The task around a model: the first `n_train` examples split over the
+    clients by Dir(α) (seed + 1), the rest the test set, weights drawn from
+    a generator seeded with `seed`, the batched client gradient and the
+    test accuracy."""
+    xtr, ytr, xte, yte = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+    parts = dirichlet_partition(ytr, n_clients, alpha, seed=seed + 1)
+    params0 = init(torch.Generator().manual_seed(seed), device)
+    cx, cy, cn = (torch.as_tensor(a).to(device)
+                  for a in _pad_clients(xtr, ytr, parts))
+    if not cx.is_floating_point():           # token ids index the embedding
+        cx = cx.long()
+    cy = cy.long()
+
+    def grad(w, clients, u):
+        clients = clients.long()
+        n_c = cn[clients].unsqueeze(-1)                        # (B, 1)
+        ix = torch.minimum(torch.floor(u * n_c.float()).long(), n_c - 1)
+        xb = cx[clients.unsqueeze(-1), ix]                     # (B, batch, ...)
+        yb = cy[clients.unsqueeze(-1), ix]
+        with torch.enable_grad():
+            w = w.detach().requires_grad_(True)
+            loss = _xent(apply(unravel(w, params0), xb), yb)   # (B,)
+            (g,) = torch.autograd.grad(loss.sum(), w)
+        return loss.detach(), g
+
+    xte_t = torch.as_tensor(xte).to(device)
+    if not xte_t.is_floating_point():
+        xte_t = xte_t.long()
+    yte_t = torch.as_tensor(yte).to(device)
+
+    def eval_fn(params):
+        with torch.no_grad():
+            pred = torch.argmax(apply(params, xte_t), -1)
+            return {"accuracy": float((pred == yte_t).float().mean())}
+
+    return FLTask(params0, ClientGrad(grad, (batch,)), eval_fn, n_clients,
+                  meta)
+
+
 def make_vision_task(*, n_clients=100, alpha=0.3, batch=50, n_classes=10,
                      dim=64, hidden=(128, 64), n_train=20000, n_test=4000,
                      noise=0.6, seed=0, device=None) -> FLTask:
@@ -109,32 +187,23 @@ def make_vision_task(*, n_clients=100, alpha=0.3, batch=50, n_classes=10,
     device = resolve_device(device)
     x, y = make_classification(n_train + n_test, n_classes, dim, noise=noise,
                                seed=seed)
-    xtr, ytr, xte, yte = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
-    parts = dirichlet_partition(ytr, n_clients, alpha, seed=seed + 1)
     init, apply = mlp_classifier((dim,) + tuple(hidden) + (n_classes,))
-    params0 = init(torch.Generator().manual_seed(seed), device)
-    cx, cy, cn = (torch.as_tensor(a).to(device)
-                  for a in _pad_clients(xtr, ytr, parts))
-    cy = cy.long()
+    return _task(x, y, n_train, n_clients, alpha, seed, init, apply, batch,
+                 device, {"alpha": alpha, "kind": "vision"})
 
-    def grad(w, clients, u):
-        clients = clients.long()
-        n_c = cn[clients].unsqueeze(-1)                        # (B, 1)
-        ix = torch.minimum(torch.floor(u * n_c.float()).long(), n_c - 1)
-        xb = cx[clients.unsqueeze(-1), ix]                     # (B, batch, dim)
-        yb = cy[clients.unsqueeze(-1), ix]
-        with torch.enable_grad():
-            w = w.detach().requires_grad_(True)
-            loss = _xent(apply(unravel(w, params0), xb), yb)   # (B,)
-            (g,) = torch.autograd.grad(loss.sum(), w)
-        return loss.detach(), g
 
-    xte_t, yte_t = torch.as_tensor(xte).to(device), torch.as_tensor(yte).to(device)
-
-    def eval_fn(params):
-        with torch.no_grad():
-            pred = torch.argmax(apply(params, xte_t), -1)
-            return {"accuracy": float((pred == yte_t).float().mean())}
-
-    return FLTask(params0, ClientGrad(grad, (batch,)), eval_fn, n_clients,
-                  {"alpha": alpha, "kind": "vision"})
+def make_text_task(*, n_clients=20, alpha=1.0, batch=32, n_classes=20,
+                   vocab=1024, d=64, seq_len=64, n_train=6000, n_test=2000,
+                   seed=0, device=None) -> FLTask:
+    """20 Newsgroups stand-in for the DistilBERT/BERT table (a.2): token
+    sequences whose class sets the token distribution, Dir(α) partition
+    (the same arrays as the JAX package's from the same seed), embedding +
+    mean-pool + 2-layer head with weights drawn from a generator seeded
+    with `seed` (d = 70,996 at the defaults). On the GPU unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
+    x, y = make_text_classification(n_train + n_test, n_classes, seq_len,
+                                    vocab, seed=seed)
+    init, apply = tiny_text_classifier(vocab, d, n_classes, seq_len)
+    return _task(x, y, n_train, n_clients, alpha, seed, init, apply, batch,
+                 device, {"alpha": alpha, "kind": "text"})

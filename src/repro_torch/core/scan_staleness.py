@@ -57,7 +57,13 @@ once per seed and per (lr, seed) cell: every cell has the same event
 count, and lr and ``clip_norm`` are runtime buffers, so one capture serves
 the whole sweep.
 
-Not ported yet: checkify, the tree layout and the sharded runner.
+Checks. ``checkify_invariants`` (default: ``REPRO_CHECKIFY``) puts the JAX
+package's sanitize checks in the tick as device-side records
+(`repro_torch.core.sanitize`); the runner raises after the run, the chunked
+runner after the chunk that violated one. The sweeps build their runners
+with the checks off, as JAX's do.
+
+Not ported yet: the tree layout and the sharded runner.
 """
 from __future__ import annotations
 
@@ -70,15 +76,19 @@ import torch
 from repro_torch.convert import ravel, unravel
 from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
                                           wants_cache_init)
+from repro_torch.core import sanitize
 from repro_torch.core.cache import FlatCache
-from repro_torch.core.scan_engine import (ScanResult, _payload_chain,
-                                          _to_result, default_n_events)
+from repro_torch.core.scan_engine import (PayloadNoise, ScanResult, _Program,
+                                          _Ticks, _TickRunner, _copy_state_,
+                                          _payload_chain, _to_result,
+                                          _tree_clone, _use_graph,
+                                          _write_outs, build_payload_noise,
+                                          default_n_events)
 from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
                                             FAULT_NAN, FAULT_NONE,
                                             FAULT_OVERSTALE, NEVER,
                                             default_tau_max,
                                             staleness_client_probs)
-from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -102,14 +112,6 @@ class StalenessRandomness:
         return StalenessRandomness(self.gumbels[start:stop],
                                    self.tau_raw[start:stop], self.leave_at,
                                    self.rejoin_at)
-
-
-@dataclasses.dataclass
-class PayloadNoise:
-    """The noise every client payload consumes, per local step: one row per
-    client for the init batch and one per (tick, lane)."""
-    init: torch.Tensor       # (n, local_steps, *noise_shape)
-    ticks: torch.Tensor      # (n_events, k_batch, local_steps, *noise_shape)
 
 
 def build_staleness_randomness(seed: int, n_events: int, n_clients: int,
@@ -151,20 +153,6 @@ def build_staleness_randomness(seed: int, n_events: int, n_clients: int,
         if rejoin_at is not None:
             rejoin[idx] = rejoin_at
     return StalenessRandomness(gumbels, tau_raw, leave, rejoin)
-
-
-def build_payload_noise(grad_fn, seed: int, n_events: int, n_clients: int,
-                        k_batch: int = 1, local_steps: int = 1,
-                        device=None) -> PayloadNoise:
-    """Draw the payload noise of a run with ``grad_fn.sample_noise`` from a
-    generator seeded with `seed` (a stream of its own, apart from
-    `build_staleness_randomness`'s)."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed + 0x5EED)
-    init = grad_fn.sample_noise((n_clients, local_steps), gen, device)
-    ticks = grad_fn.sample_noise((n_events, k_batch, local_steps), gen,
-                                 device)
-    return PayloadNoise(init, ticks)
 
 
 # ---------------------------------------------------------------------------
@@ -368,20 +356,14 @@ GUARD_KEYS = ("quarantined", "clipped", "rejected")
 
 
 @dataclasses.dataclass
-class _Program:
+class _StalenessProgram(_Program):
     """One configuration of the engine (see `_staleness_program`)."""
-    init: Callable            # (lr, init_noise) -> carry
-    tick: Callable            # (carry, xs, outs) -> None, all in place
     marks: Optional[Tuple[int, ...]]
     tau_max: int
     k_batch: int
     local_steps: int
-    d: int
-    record_w: bool
-    device: torch.device
     guards: bool
     resync_every: Optional[int]
-    out_dtypes: Dict[str, torch.dtype]   # the per-event outputs
 
 
 def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -394,7 +376,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        init_cache_grads: bool = True, record_w: bool = False,
                        k_batch: int = 1, guards: bool = False,
                        resync_every: Optional[int] = None,
-                       device=None) -> _Program:
+                       checks: bool = False,
+                       device=None) -> _StalenessProgram:
     """The engine as the JAX package's `_staleness_program` builds it.
 
     ``init(lr, init_noise=None) -> carry``: the init batch (one payload per
@@ -420,7 +403,12 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     gain the per-event ``quarantined``/``clipped``/``rejected`` flags (bool
     at K = 1, int32 counts of live lanes at K > 1), gated on ``t < T`` and
     not frozen, and the carry their sums. `resync_every` re-derives the
-    rule's running sums on every `resync_every`-th emitted update."""
+    rule's running sums on every `resync_every`-th emitted update.
+
+    `checks` puts JAX's sanitize checks in the tick where JAX's checkify
+    has them (`repro_torch.core.sanitize`): the carry's ``checks`` records
+    hold the first event each one failed at, or −1. Off, the tick has no
+    check op."""
     device = resolve_device(device)
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -489,6 +477,15 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                                         device=device)
         if guards:
             carry["guards"] = {k: i32(0) for k in GUARD_KEYS}
+        if checks:
+            # JAX's order of the checks within a tick
+            names = ([sanitize.RESYNC] if resync_every else []) + [
+                sanitize.MODEL, sanitize.PAYLOAD, sanitize.CURSOR]
+            names += sanitize.state_messages(state)
+            if K > 1:
+                names += (list(sanitize.BATCH_MESSAGES)
+                          + sanitize.commit_messages(state))
+            carry["checks"] = sanitize.records(names, device)
         return carry
 
     def tick(carry, xs, outs):
@@ -551,15 +548,33 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         # frozen ticks perform no aggregator transition
         new_state = _select_state(proc, new_state, state, saved, js)
         n_upd_new = n_upd + emit.int()
+        found = []                          # the sanitize checks' results
         if resync_every:
             synced = agg.resync(new_state)
             if synced is not new_state:
-                new_state = _resync_select(
-                    emit & (torch.remainder(n_upd_new, resync_every) == 0),
-                    synced, new_state)
+                do = emit & (torch.remainder(n_upd_new, resync_every) == 0)
+                if checks:
+                    found += sanitize.check_resync_agreement(new_state,
+                                                             synced, do)
+                new_state = _resync_select(do, synced, new_state)
         eta = lr_of_t(t, xs["lr"]) * lr_scale
         w = torch.where(emit, carry["w"] - eta * u, carry["w"])
         _, cursor = ring_append(carry["ring"], carry["cursor"], w, emit)
+        if checks:
+            # at K > 1 only the lanes the batch applied (a quarantined lane
+            # carries its NaN)
+            applied = (payloads[0] if K == 1 else
+                       torch.where(valid[:, None], payloads, 0.0))
+            found += (sanitize.check_model_finite(w)
+                      + sanitize.check_payload_finite(applied, emit)
+                      + sanitize.check_cursor_bounds(cursor, S)
+                      + sanitize.check_aggregator_state(new_state, n))
+            if K > 1:
+                found += (sanitize.check_batch_arrivals(js, taus, valid, n,
+                                                        tau_max)
+                          + sanitize.check_commit_batch(u, new_state, state,
+                                                        valid))
+            sanitize.record(carry["checks"], found, carry["e"])
         new = {"w": w, "n_upd": n_upd_new, "cursor": cursor,
                "t": torch.where(any_alive, t + emit.int(), thaw_t)}
         if marks is not None:
@@ -581,9 +596,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                 flags = {k: torch.where(win, (lane_alive & v).sum(
                     dtype=torch.int32), 0) for k, v in flags.items()}
             row.update(flags)
-        for k, v in row.items():
-            outs[k].index_copy_(0, e, v.to(outs[k].dtype).reshape(
-                (1,) + outs[k].shape[1:]))
+        _write_outs(outs, e, row)
         # the new carry goes into the carry's own tensors (every value above
         # is a fresh tensor; the caches were written in place)
         for k, v in new.items():
@@ -591,218 +604,74 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         if guards:
             for k, v in flags.items():
                 carry["guards"][k].add_(v)
-        for k, v in new_state.items():
-            if isinstance(v, FlatCache):
-                # a rule writes its cache in place and hands back the same
-                # object; a fresh one would be lost to the next tick
-                if v is not state[k]:
-                    raise RuntimeError(f"{type(agg).__name__}.step returned "
-                                       f"a new cache for {k!r}")
-            else:
-                state[k].copy_(v)
+        _copy_state_(agg, state, new_state)
         carry["e"].add_(1)
 
     out_dtypes = dict(_OUT_DTYPES)
     if guards:
         out_dtypes.update(dict.fromkeys(
             GUARD_KEYS, torch.bool if K == 1 else torch.int32))
-    return _Program(init, tick, eval_marks, tau_max, K, local_steps, d,
-                    record_w, device, bool(guards), resync_every, out_dtypes)
+    return _StalenessProgram(
+        init=init, tick=tick, d=d, record_w=record_w, device=device,
+        out_dtypes=out_dtypes, checks=checks, marks=eval_marks,
+        tau_max=tau_max, k_batch=K, local_steps=local_steps,
+        guards=bool(guards), resync_every=resync_every)
 
 
 # ---------------------------------------------------------------------------
-# Running the tick: eagerly, or captured once as a CUDA graph and replayed.
+# Running the tick: the runner, the chunked runner and one run.
 # ---------------------------------------------------------------------------
 
-def _tree_clone(x):
-    """A copy of a carry (or of a part of one) sharing no storage with it."""
-    if isinstance(x, dict):
-        return {k: _tree_clone(v) for k, v in x.items()}
-    if isinstance(x, FlatCache):
-        return FlatCache(x.data.clone(), x.scale.clone())
-    return x.clone()
+def _staleness_feed(prog: _StalenessProgram, rand: StalenessRandomness,
+                    noise_ticks, lr, faults: Optional[FaultSchedule] = None,
+                    clip_norm=0.0):
+    """An event slice's streams and the run's inputs, checked against the
+    program -> ``(streams, inputs)`` for `_Ticks.feed`: the gumbels,
+    tau_raw and payload noise (and, for a guarded program, the slice's
+    fault schedule, all clean when None), the windows and `lr` (and
+    `clip_norm`)."""
+    L, K, steps = rand.n_events, prog.k_batch, prog.local_steps
+    if tuple(rand.tau_raw.shape) != ((L,) if K == 1 else (L, K)):
+        raise ValueError(f"tau_raw of shape {tuple(rand.tau_raw.shape)} "
+                         f"for k_batch={K}")
+    if tuple(noise_ticks.shape[:3]) != (L, K, steps):
+        raise ValueError(f"payload noise ticks of shape "
+                         f"{tuple(noise_ticks.shape)} for {L} events, "
+                         f"k_batch={K}, local_steps={steps}")
+    streams = {"gumbels": rand.gumbels, "tau_raw": rand.tau_raw,
+               "noise": noise_ticks}
+    dev = prog.device
+    inputs = {"leave_at": rand.leave_at, "rejoin_at": rand.rejoin_at,
+              "lr": torch.as_tensor(lr, dtype=torch.float32).to(dev)}
+    if prog.guards:
+        if faults is None:
+            faults = no_faults(L, K, dev)
+        if tuple(faults.kind.shape) != tuple(rand.tau_raw.shape):
+            raise ValueError(
+                f"a fault schedule of shape {tuple(faults.kind.shape)} "
+                f"for {L} events at k_batch={K}: rebuild it with "
+                "build_fault_schedule(..., k_batch=k_batch)")
+        streams.update(fault_kind=faults.kind, fault_scale=faults.scale)
+        inputs["clip_norm"] = torch.as_tensor(
+            clip_norm, dtype=torch.float32).to(dev)
+    elif faults is not None or float(clip_norm) > 0:
+        raise ValueError("faults or clip_norm given to a runner built "
+                         "without guards: build it with guards=True")
+    return streams, inputs
 
 
-def _tree_copy_(dst, src):
-    """Copy carry `src` into carry `dst`, tensor by tensor."""
-    if isinstance(dst, dict):
-        if dst.keys() != src.keys():
-            raise ValueError(f"a carry with keys {sorted(src)} for a runner "
-                             f"whose carry has {sorted(dst)}")
-        for k in dst:
-            _tree_copy_(dst[k], src[k])
-    elif isinstance(dst, FlatCache):
-        dst.data.copy_(src.data)
-        dst.scale.copy_(src.scale)
-    else:
-        dst.copy_(src)
-
-
-def _use_graph(graph: Optional[bool], device: torch.device) -> bool:
-    """None: capture on a CUDA device, run eagerly on the CPU."""
-    if graph is None:
-        return device.type == "cuda"
-    if graph and device.type != "cuda":
-        raise ValueError("graph=True captures a CUDA graph: it needs a CUDA "
-                         f"device, not {device}")
-    return bool(graph)
-
-
-class _Ticks:
-    """A program's tick over static buffers for up to `capacity` events:
-    the streams (`feed`), the carry (`load`) and the per-event outputs.
-    `run` steps the carry eagerly or, with `use_graph`, by replays of one
-    tick captured the first time it runs; a capture that fails raises."""
-
-    def __init__(self, prog: _Program, capacity: int, graph: bool):
-        self.prog, self.capacity = prog, int(capacity)
-        self.use_graph = graph
-        dev = prog.device
-        self.outs = {k: torch.zeros((self.capacity,), dtype=dt, device=dev)
-                     for k, dt in prog.out_dtypes.items()}
-        if prog.record_w:
-            self.outs["w"] = torch.zeros((self.capacity, prog.d),
-                                         device=dev)
-        self.xs: Optional[Dict[str, torch.Tensor]] = None
-        self.carry = None
-        self.captures = 0
-        self._graph = None
-        self._per_tick: Dict[str, int] = {}   # kernel launches of one tick
-
-    def feed(self, rand: StalenessRandomness, noise_ticks, lr,
-             faults: Optional[FaultSchedule] = None,
-             clip_norm=0.0) -> int:
-        """Copy an event slice's streams, its windows and `lr` (and, for a
-        guarded program, the slice's fault schedule, all clean when None,
-        and `clip_norm`) into the static buffers -> the slice's event
-        count."""
-        L, K, steps = rand.n_events, self.prog.k_batch, self.prog.local_steps
-        if L > self.capacity:
-            raise ValueError(f"a slice of {L} events for a runner built for "
-                             f"{self.capacity}")
-        if tuple(rand.tau_raw.shape) != ((L,) if K == 1 else (L, K)):
-            raise ValueError(f"tau_raw of shape {tuple(rand.tau_raw.shape)} "
-                             f"for k_batch={K}")
-        if tuple(noise_ticks.shape[:3]) != (L, K, steps):
-            raise ValueError(f"payload noise ticks of shape "
-                             f"{tuple(noise_ticks.shape)} for {L} events, "
-                             f"k_batch={K}, local_steps={steps}")
-        streams = {"gumbels": rand.gumbels, "tau_raw": rand.tau_raw,
-                   "noise": noise_ticks}
-        if self.prog.guards:
-            if faults is None:
-                faults = no_faults(L, K, self.prog.device)
-            if tuple(faults.kind.shape) != tuple(rand.tau_raw.shape):
-                raise ValueError(
-                    f"a fault schedule of shape {tuple(faults.kind.shape)} "
-                    f"for {L} events at k_batch={K}: rebuild it with "
-                    "build_fault_schedule(..., k_batch=k_batch)")
-            streams.update(fault_kind=faults.kind, fault_scale=faults.scale)
-        elif faults is not None or float(clip_norm) > 0:
-            raise ValueError("faults or clip_norm given to a runner built "
-                             "without guards: build it with guards=True")
-        if self.xs is None:
-            dev = self.prog.device
-            self.xs = {k: torch.zeros((self.capacity,) + tuple(v.shape[1:]),
-                                      dtype=v.dtype, device=dev)
-                       for k, v in streams.items()}
-            self.xs.update(
-                leave_at=torch.zeros(rand.leave_at.shape, dtype=torch.int32,
-                                     device=dev),
-                rejoin_at=torch.zeros(rand.rejoin_at.shape,
-                                      dtype=torch.int32, device=dev),
-                lr=torch.zeros((), dtype=torch.float32, device=dev))
-            if self.prog.guards:
-                self.xs["clip_norm"] = torch.zeros((), dtype=torch.float32,
-                                                   device=dev)
-        for k, v in streams.items():
-            if tuple(v.shape[1:]) != tuple(self.xs[k].shape[1:]):
-                raise ValueError(f"{k} rows of shape {tuple(v.shape[1:])} "
-                                 "for a runner fed "
-                                 f"{tuple(self.xs[k].shape[1:])}")
-            self.xs[k][:L].copy_(v)
-        self.xs["leave_at"].copy_(rand.leave_at)
-        self.xs["rejoin_at"].copy_(rand.rejoin_at)
-        self.xs["lr"].copy_(torch.as_tensor(lr, dtype=torch.float32))
-        if self.prog.guards:
-            self.xs["clip_norm"].copy_(torch.as_tensor(clip_norm,
-                                                       dtype=torch.float32))
-        return L
-
-    def load(self, carry) -> None:
-        """Copy `carry` into the carry the tick steps (the first one is
-        cloned, so the tick's carry shares storage with nothing)."""
-        if self.carry is None:
-            self.carry = _tree_clone(carry)
-        else:
-            _tree_copy_(self.carry, carry)
-
-    def run(self, n: int) -> None:
-        """`n` ticks of the loaded carry over the fed streams."""
-        if not self.use_graph:
-            for _ in range(n):
-                self.prog.tick(self.carry, self.xs, self.outs)
-            return
-        if self._graph is None:
-            self._capture()
-        for _ in range(n):
-            self._graph.replay()
-        kernel_ops.add_launch_counts(self._per_tick, n)
-
-    def _capture(self) -> None:
-        dev = self.prog.device
-        start = _tree_clone(self.carry)
-        # one tick on a side stream first, as PyTorch asks of a capture that
-        # takes autograd: it also builds and loads the kernel libraries,
-        # cuBLAS's workspace and the rules' constants
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.prog.tick(self.carry, self.xs, self.outs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # that tick ran: back to the carry it started from
-        _tree_copy_(self.carry, start)
-        graph = torch.cuda.CUDAGraph()
-        before = kernel_ops.launch_counts()
-        try:
-            with torch.cuda.graph(graph):
-                self.prog.tick(self.carry, self.xs, self.outs)
-        finally:
-            # the wrappers counted launches the capture only recorded
-            after = kernel_ops.launch_counts()
-            per_tick = {k: after[k] - before[k] for k in after}
-            kernel_ops.add_launch_counts(per_tick, -1)
-        self._graph, self._per_tick = graph, per_tick
-        self.captures += 1
-
-
-class _Runner:
+class _Runner(_TickRunner):
     """``runner(randomness, payload_noise, lr, faults=None, clip_norm=0.0)
     -> (w, state, outs, extras)``; see `make_staleness_runner`."""
-
-    def __init__(self, prog: _Program, graph: bool):
-        self.prog, self.use_graph = prog, graph
-        # the buffers (and the graph) of the event count last run; another
-        # count rebuilds them and captures anew
-        self._ticks: Optional[_Ticks] = None
-        self._retired = 0
-
-    @property
-    def captures(self) -> int:
-        """CUDA graphs this runner has captured."""
-        return self._retired + (self._ticks.captures if self._ticks else 0)
 
     def __call__(self, randomness: StalenessRandomness,
                  payload_noise: PayloadNoise, lr=0.0,
                  faults: Optional[FaultSchedule] = None, clip_norm=0.0):
-        E = randomness.n_events
-        ticks = self._ticks
-        if ticks is None or ticks.capacity != E:
-            self._retired = self.captures
-            ticks = self._ticks = _Ticks(self.prog, E, self.use_graph)
-        ticks.feed(randomness, payload_noise.ticks, lr, faults, clip_norm)
-        ticks.load(self.prog.init(ticks.xs["lr"], payload_noise.init))
-        ticks.run(E)
+        streams, inputs = _staleness_feed(self.prog, randomness,
+                                          payload_noise.ticks, lr, faults,
+                                          clip_norm)
+        ticks = self._run(randomness.n_events, streams, inputs,
+                          payload_noise.init)
         carry, extras = ticks.carry, {}
         if self.prog.marks is not None:
             extras = {"snaps": carry["snaps"].clone(),
@@ -824,6 +693,7 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
                           record_w: bool = False, k_batch: int = 1,
                           guards: bool = False,
                           resync_every: Optional[int] = None,
+                          checkify_invariants: Optional[bool] = None,
                           device=None, graph: Optional[bool] = None):
     """Build the runner ``run(randomness, payload_noise, lr, faults=None,
     clip_norm=0.0) -> (w, state, outs, extras)`` once: the counterpart of
@@ -848,6 +718,11 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
     when given either. ``resync_every`` re-derives the rule's running sums
     on every `resync_every`-th emitted update.
 
+    ``checkify_invariants`` (default: the ``REPRO_CHECKIFY`` environment
+    variable) puts JAX's sanitize checks in the tick (`_staleness_program`):
+    the call raises `RuntimeError` with the first violation's message and
+    event after the run. Off, the tick has no check op.
+
     On a CUDA device the runner copies the streams into static buffers,
     runs one warm-up tick on a side stream, resets the carry, captures one
     tick as a CUDA graph and replays it once per event, the host doing
@@ -865,7 +740,7 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
         local_steps=local_steps, local_lr=local_lr,
         init_cache_grads=init_cache_grads, record_w=record_w,
         k_batch=k_batch, guards=guards, resync_every=resync_every,
-        device=device)
+        checks=sanitize.enabled(checkify_invariants), device=device)
     return _Runner(prog, _use_graph(graph, prog.device))
 
 
@@ -892,6 +767,9 @@ class ChunkedStalenessRunner:
     #: clip_norm; the carry holds the counters)
     guards: bool = False
     resync_every: Optional[int] = None
+    #: the sanitize checks are in the tick (the carry holds their records;
+    #: chunk raises at the slice that violated one)
+    checkify_invariants: bool = False
 
 
 def make_chunked_staleness_runner(*, capacity: int,
@@ -901,23 +779,31 @@ def make_chunked_staleness_runner(*, capacity: int,
     init and a chunk over slices of at most `capacity` events; a longer
     slice raises. ``chunk`` copies the carry into the tick's static
     buffers, replays the captured tick once per event of the slice (or
-    runs it eagerly, as `graph` says) and returns a copy of the carry."""
-    prog = _staleness_program(**kwargs)
+    runs it eagerly, as `graph` says) and returns a copy of the carry.
+    With ``checkify_invariants`` (default: ``REPRO_CHECKIFY``) a chunk
+    whose slice violated a sanitize check raises `RuntimeError` with the
+    check's message and the event (counted from the run's start)."""
+    checks = sanitize.enabled(kwargs.pop("checkify_invariants", None))
+    prog = _staleness_program(checks=checks, **kwargs)
     ticks = _Ticks(prog, capacity, _use_graph(graph, prog.device))
 
     def chunk(carry, randomness: StalenessRandomness, noise_ticks, lr=0.0,
               faults: Optional[FaultSchedule] = None, clip_norm=0.0):
-        L = ticks.feed(randomness, noise_ticks, lr, faults, clip_norm)
+        L = ticks.feed(*_staleness_feed(prog, randomness, noise_ticks, lr,
+                                        faults, clip_norm))
         ticks.load(carry)
         ticks.carry["e"].zero_()          # the slice is read from its row 0
         ticks.run(L)
+        if checks:
+            # the records hold events of the slice
+            sanitize.raise_first(ticks.carry["checks"], int(carry["e"]))
         out = _tree_clone(ticks.carry)
         out["e"] = carry["e"].to(out["e"].device) + L
         return out, {k: v[:L].clone() for k, v in ticks.outs.items()}
 
     return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
                                   prog.k_batch, prog.guards,
-                                  prog.resync_every)
+                                  prog.resync_every, checks)
 
 
 def _window_slack(n_clients: int, rejoin_at, windows) -> int:
@@ -970,7 +856,9 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        faults: Optional[FaultSchedule] = None,
                        clip_norm: float = 0.0,
                        resync_every: Optional[int] = None,
-                       k_batch: int = 1, device=None,
+                       k_batch: int = 1,
+                       checkify_invariants: Optional[bool] = None,
+                       device=None,
                        randomness: Optional[StalenessRandomness] = None,
                        payload_noise: Optional[PayloadNoise] = None
                        ) -> ScanResult:
@@ -993,7 +881,8 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     counters); the schedule's event count is the run's (an `n_events` that
     differs raises, as does a schedule built for another `k_batch`).
     ``resync_every`` re-derives the rule's running sums from its cache on
-    every `resync_every`-th emitted update.
+    every `resync_every`-th emitted update. ``checkify_invariants``
+    (default: ``REPRO_CHECKIFY``) raises on a violated sanitize check.
 
     The run is on the GPU unless ``device="cpu"``; with no GPU and no CPU
     request it raises. ``randomness`` / ``payload_noise`` replace the
@@ -1015,7 +904,8 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=marks,
         local_steps=local_steps, local_lr=local_lr,
         init_cache_grads=init_cache_grads, record_w=record_w, k_batch=K,
-        guards=guards, resync_every=resync_every, device=device)
+        guards=guards, resync_every=resync_every,
+        checkify_invariants=checkify_invariants, device=device)
     if randomness is not None:
         n_events = randomness.n_events
     elif n_events is None:
@@ -1048,7 +938,8 @@ def _staleness_sweep(*, grad_fn: Callable, params0, aggregator: Aggregator,
     """``results[i_lr][i_seed]`` of one runner called once per (lr, seed)
     cell, seed-outer: each seed's streams (and fault schedule) are drawn
     once and serve every lr, as JAX's nested vmap broadcasts them. Every
-    cell has the same event count, so the runner captures once."""
+    cell has the same event count, so the runner captures once. A runner
+    built here has the sanitize checks off, as JAX's sweeps have."""
     device = resolve_device(device)
     n, K, agg = n_clients, int(k_batch), aggregator
     guards = bool(fault_rates) or clip_norm > 0 or faults is not None
@@ -1072,7 +963,8 @@ def _staleness_sweep(*, grad_fn: Callable, params0, aggregator: Aggregator,
             T=T, beta=beta, server_lr=server_lr, tau_max=tau_max,
             speed_skew=speed_skew, eval_marks=marks, local_steps=local_steps,
             local_lr=local_lr, init_cache_grads=init_cache_grads, k_batch=K,
-            guards=guards, resync_every=resync_every, device=device)
+            guards=guards, resync_every=resync_every,
+            checkify_invariants=False, device=device)
     else:
         prog = runner.prog
         have = (prog.guards, prog.resync_every, prog.marks, prog.k_batch)

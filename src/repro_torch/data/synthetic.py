@@ -1,8 +1,12 @@
-"""Deterministic synthetic datasets — the offline stand-in for CIFAR-10.
+"""Deterministic synthetic datasets — the offline stand-ins for CIFAR-10
+and 20 Newsgroups. Copies of `repro.data.synthetic`'s functions (plain
+numpy, the same arrays from the same seed):
 
-A copy of `repro.data.synthetic.make_classification` (plain numpy, same
-arrays from the same seed): a K-class mixture of Gaussians with
-class-dependent means on a hypersphere plus per-class low-rank structure.
+* ``make_classification``: a K-class mixture of Gaussians with
+  class-dependent means on a hypersphere plus per-class low-rank structure;
+* ``make_text_classification``: token sequences whose class sets the token
+  distribution (the text task's data).
+
 Heterogeneity comes from Dirichlet label partitioning
 (`repro_torch.data.partition`), matching the paper's non-IID protocol.
 """
@@ -26,3 +30,20 @@ def make_classification(n: int = 10000, n_classes: int = 10, dim: int = 64,
     x = means[y] + np.einsum("ndk,nk->nd", basis[y], z) + \
         rng.normal(size=(n, dim)) * noise
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def make_text_classification(n: int = 8000, n_classes: int = 20,
+                             seq_len: int = 64, vocab: int = 1024,
+                             seed: int = 0
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Class-conditional unigram token sequences (20NG stand-in)."""
+    rng = np.random.default_rng(seed)
+    # each class has a topic distribution concentrated on a token subset
+    topic_logits = rng.normal(size=(n_classes, vocab)) * 2.0
+    topic = np.exp(topic_logits)
+    topic /= topic.sum(1, keepdims=True)
+    y = rng.integers(0, n_classes, size=n).astype(np.int32)
+    x = np.zeros((n, seq_len), np.int32)
+    for i in range(n):
+        x[i] = rng.choice(vocab, size=seq_len, p=topic[y[i]])
+    return x, y

@@ -16,7 +16,9 @@ pin the zeros as well as comparing with the plain versions. Run only these
 with ``-k "masked_agg or row_delta or nan"``, the ACE step's with
 ``-k "ace or row_kernels"``, the graph runner's (the tick captured as a
 CUDA graph, bit-identical to the eager tick; faulted and guarded runs and
-one capture serving a sweep included) with ``-k graph``."""
+one capture serving a sweep included; the event engine and the text task
+at its full width too) with ``-k graph``, the sanitize checks with
+``-k sanitize``."""
 import numpy as np
 import pytest
 
@@ -24,7 +26,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.convert import unravel  # noqa: E402
 from repro_torch.core import aggregators as tagg  # noqa: E402
-from repro_torch.core.fl_tasks import make_vision_task  # noqa: E402
+from repro_torch.core.delays import ExponentialDelays, build_schedule  # noqa: E402
+from repro_torch.core.fl_tasks import make_text_task, make_vision_task  # noqa: E402
+from repro_torch.core.scan_engine import make_scan_runner  # noqa: E402
 from repro_torch.core.cache import FlatCache  # noqa: E402
 from repro_torch.core.fl_tasks import ClientGrad  # noqa: E402
 from repro_torch.core.scan_staleness import (  # noqa: E402
@@ -941,3 +945,103 @@ def test_graph_clip_norm_change_needs_no_new_capture(cuda):
     _same_faulted(a, runner()(rand, noise, 0.2, fa, 0.05))
     _same_faulted(b, runner()(rand, noise, 0.2, fa, 5.0))
     assert int(a[3]["guards"]["clipped"]) > int(b[3]["guards"]["clipped"])
+
+
+# --- the event engine, the text task and the sanitize checks ----------------
+
+EVENT_RULES = [(r, dt) for r in ("ace", "aced", "ca2fl", "aced_direct")
+               for dt in ("int8", "float32")] + [("asgd", None),
+                                                 ("fedbuff", None)]
+
+
+@pytest.mark.parametrize("name,dtype", EVENT_RULES)
+def test_graph_event_run_matches_eager(cuda, name, dtype):
+    """The event engine's tick replayed from one captured graph ends bit
+    for bit where the eager tick ends: model, state, every output, and
+    each client's received iteration and model."""
+    n = 20
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    sched = build_schedule(ExponentialDelays(beta=2.0, kappa=2.0,
+                                             n_clients=n, seed=1), 60, 7, 1)
+    noise = build_payload_noise(task.grad_fn, 1, 60, n, device=cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n,
+              server_lr=0.2, T=40, device=cuda)
+    runners = [make_scan_runner(aggregator=_rule(name, dtype, 1), graph=g,
+                                **kw) for g in (True, False)]
+    first, ref = (r(sched.arrive, sched.dispatch, noise) for r in runners)
+    again = runners[0](sched.arrive, sched.dispatch, noise)
+    assert runners[0].captures == 1
+    for out in (first, again):
+        _same_result((*out, None), (*ref, None))
+    for k in ("t", "t_recv", "w_recv"):
+        assert torch.equal(runners[0].carry[k], runners[1].carry[k])
+
+
+@pytest.fixture(scope="module")
+def text_task():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    return make_text_task(device=torch.device("cuda"))
+
+
+@pytest.mark.parametrize("name,K", [("ace", 1), ("aced", 1), ("ace", 16)])
+def test_text_task_graph_matches_eager_at_full_width(cuda, text_task, name,
+                                                     K):
+    """The text task at its defaults (d = 70,996, n = 20): int8 ACE K = 1
+    runs cache_row_update on its cooperative grid inside the captured tick;
+    graph = eager bit for bit, and two eager runs agree bit for bit (the
+    embedding gradient sums without atomics)."""
+    from repro_torch.kernels.cache_update import _ace_plan
+    d = sum(p.numel() for p in text_task.params0.values())
+    assert d == 70996 and _ace_plan(d, _q._sm_count(cuda))[3] == "grid"
+    rand, noise = _streams(text_task.grad_fn, 20, K, 24, cuda)
+    kw = dict(grad_fn=text_task.grad_fn, params0=text_task.params0,
+              n_clients=20, T=30, beta=5.0, k_batch=K, device=cuda)
+    ops.reset_launch_counts()
+    graph = make_staleness_runner(aggregator=_rule(name, "int8", K),
+                                  graph=True, **kw)(rand, noise, 0.5)
+    counts = ops.launch_counts()
+    kernel = ("commit_batch" if K > 1 else
+              "cache_row_update" if name == "ace" else "row_delta")
+    assert counts[kernel] > 0
+    eager = [make_staleness_runner(aggregator=_rule(name, "int8", K),
+                                   graph=False, **kw)(rand, noise, 0.5)
+             for _ in range(2)]
+    _same_result(graph, eager[0])
+    _same_result(eager[0], eager[1])
+
+
+def test_sanitize_checks_on_the_card(cuda):
+    """Checks on are bit-identical to off (graph runs); a NaN params0 and a
+    chunk whose carry holds an owner-ring slot of 9999 raise the checks'
+    errors, with no device assert (the card runs on)."""
+    n, E = 20, 40
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, 1, E, cuda)
+    kw = dict(grad_fn=task.grad_fn, n_clients=n, T=30, beta=2.0,
+              device=cuda)
+    on, off = (make_staleness_runner(
+        aggregator=_rule("aced", "int8", 1), params0=task.params0,
+        checkify_invariants=c, **kw)(rand, noise, 0.2) for c in (True, False))
+    _same_result(on, off)
+    nan = unravel(torch.full((off[0].numel(),), float("nan"), device=cuda),
+                  task.params0)
+    with pytest.raises(RuntimeError, match="non-finite server model"):
+        make_staleness_runner(aggregator=_rule("aced", "int8", 1),
+                              params0=nan, checkify_invariants=True,
+                              **kw)(rand, noise, 0.2)
+    cr = make_chunked_staleness_runner(
+        aggregator=_rule("aced", "int8", 1), params0=task.params0,
+        checkify_invariants=True, capacity=20, **kw)
+    carry, _ = cr.chunk(cr.init(0.2, noise.init), rand.slice(0, 20),
+                        noise.ticks[:20], 0.2)
+    bad = {**carry, "state": {**carry["state"],
+                              "ring": carry["state"]["ring"].clone()}}
+    bad["state"]["ring"][0] = 9999
+    with pytest.raises(RuntimeError, match="owner-ring slot out of bounds"):
+        cr.chunk(bad, rand.slice(20, E), noise.ticks[20:], 0.2)
+    torch.cuda.synchronize()
+    rest, _ = cr.chunk(carry, rand.slice(20, E), noise.ticks[20:], 0.2)
+    assert torch.isfinite(rest["w"]).all()
