@@ -96,6 +96,20 @@ result line):
      NaN params0 raising "non-finite server model" and a chunk whose carry
      holds an owner-ring slot of 9999 raising "owner-ring slot out of
      bounds" with no device assert;
+  4d. the host references on the same task and width (T = 100, seed 0's
+     streams), the launch counts added to the totals: `StalenessSimulator`
+     in replay mode against the graph runner on the same streams — ACE,
+     ACED, ACED-direct int8 K = 1, CA²FL int8 K = 16 and ACE int8 K = 16
+     with the fault study's schedule, the clip and resync every 10 — and
+     `AFLSimulator` against the event engine's graph runner (β = 5, κ = 4,
+     concurrency n) for ACE and ACED int8: the final models within 1e-5,
+     `ts`, uploads and guard counters identical, losses and update norms
+     within rtol 1e-4, each host run's kernels (and the int8 init's
+     quantize_rows) launched, whether each pair is bit-identical printed,
+     and wall ms a tick of the host run beside the graph run's (cold and
+     warm) and the eager tick's; then examples/torch_quickstart.py through
+     its `main` on the card: 319 and 300 uploads, finite models, final
+     accuracies above 0.5;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -1318,6 +1332,173 @@ def sanitize_phase(torch, ops, task, dev, card, totals, off_per_tick):
           f"2 ran after it [{card}]")
 
 
+# --- phase 4d: the host references ------------------------------------------
+
+HOST_T = 100
+# (rule, cache dtype, K, guarded (the fault study's schedule, the clip and
+# resync every 10), the kernels its host run must launch)
+HOST_RUNS = (("ace", "int8", 1, False, ("cache_row_update", "quantize_rows")),
+             ("aced", "int8", 1, False, ("row_delta", "quantize_rows")),
+             ("ca2fl", "int8", K_SLICE, False, ("commit_batch",)),
+             ("ace", "int8", K_SLICE, True,
+              ("commit_batch", "dequantize_rows", "quantize_rows")),
+             ("aced_direct", "int8", 1, False,
+              ("masked_agg", "quantize_rows")))
+HOST_EVENT_RUNS = (("ace", "int8", ("cache_row_update", "quantize_rows")),
+                   ("aced", "int8", ("row_delta", "quantize_rows")))
+
+
+def host_agrees(torch, label, host_w, hr, engine_w, sr, uploads, card,
+                walls, E):
+    """The host run against the engine's: the final model within 1e-5,
+    `ts`, client uploads and guard counters identical, losses and update
+    norms within rtol 1e-4; prints whether the pair is bit-identical and
+    the wall ms per tick of each run."""
+    import numpy as np
+    hw, ew = host_w.cpu().numpy(), engine_w.cpu().numpy()
+    dev_w = float(np.abs(hw - ew).max())
+    check(np.isfinite(hw).all() and dev_w <= 1e-5,
+          f"{label}: host model {dev_w} from the graph run's")
+    check(hr.ts == sr.ts.tolist(), f"{label}: ts differ")
+    check(hr.total_comms == uploads, f"{label}: {hr.total_comms} uploads, "
+          f"the graph run's {uploads}")
+    check(hr.faults == sr.faults, f"{label}: guards {hr.faults} against "
+          f"{sr.faults}")
+    for name in ("losses", "update_norms"):
+        a, b = np.asarray(getattr(hr, name)), getattr(sr, name)
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-6),
+              f"{label}: {name} differ by {float(np.abs(a - b).max())}")
+    same = bool((hw == ew).all() and hr.losses == sr.losses.tolist()
+                and hr.update_norms == sr.update_norms.tolist())
+    ms = {k: 1e3 * v / E for k, v in walls.items()}
+    print(f"host {label}: {len(hr.ts)} updates, {hr.total_comms} uploads, "
+          f"guards {hr.faults or 'off'}; final w max |host - graph| "
+          f"{dev_w:.3e}, ts, uploads and guard counters identical, "
+          f"bit-identical: {same}; wall ms per tick host {ms['host']:.4f}, "
+          f"graph {ms['graph']:.4f} (first call, its capture and warm-up "
+          f"tick included: {ms['graph_cold']:.4f}), eager "
+          f"{ms['eager']:.4f} [{card}]")
+
+
+def host_phase(torch, ops, task, dev, card, totals):
+    """The host references on the card at the vision task's full width:
+    `StalenessSimulator` in replay mode against the graph runner on the
+    same streams (and fault schedule), `AFLSimulator` against the event
+    engine's graph runner on `build_schedule`'s schedule, each host run's
+    kernels launched; then the port's quickstart through its `main`."""
+    import importlib.util
+    from repro_torch.core import (AFLSimulator, ExponentialDelays,
+                                  StalenessSimulator, build_fault_schedule,
+                                  build_schedule, make_scan_runner)
+    from repro_torch.core.aggregators import wants_cache_init
+    from repro_torch.core.scan_engine import (_scan_result,
+                                              build_payload_noise,
+                                              default_n_events)
+    from repro_torch.core.scan_staleness import _staleness_result
+    n, T = task.n_clients, HOST_T
+    lr = engine_lr(task, T)
+    clip = clip_norm_of(torch, task, dev)
+    print(f"host: vision task, n={n}, d={D_SLICE}, T={T}, lr {lr:.4f}, "
+          f"seed 0's streams; guarded: rates {FAULT_RATES}, clip_norm "
+          f"{clip:.6g}, resync every {RESYNC_EVERY} [{card}]")
+    for rule, dtype, K, guarded, kernels in HOST_RUNS:
+        label = f"{rule} {dtype} K={K}{' guarded' if guarded else ''}"
+        agg = make_rule(rule, dtype, K)
+        n_init = n if wants_cache_init(agg) else 0
+        E = T - (1 if n_init else 0)     # every tick emits (K = 16: ≥ 10)
+        rand, noise = engine_streams(task, K, E, dev)
+        guard, statics = (), {}
+        if guarded:
+            guard = (build_fault_schedule(0, E, k_batch=K, device=dev,
+                                          **FAULT_RATES), clip)
+            statics = dict(guards=True, resync_every=RESYNC_EVERY)
+        sim = StalenessSimulator(
+            grad_fn=task.grad_fn, params0=task.params0, aggregator=agg,
+            n_clients=n, server_lr=lr, beta=5.0, seed=0, replay=rand,
+            payload_noise=noise, k_batch=K,
+            faults=guard[0] if guard else None,
+            clip_norm=guard[1] if guard else 0.0, device=dev,
+            resync_every=statics.get("resync_every"))
+        (hr, host_s), counts = counted(ops, totals, lambda: run_engine(
+            torch, sim.run, T))
+        for kernel in kernels:
+            check(counts[kernel] > 0, f"host {label}: {kernel} was not "
+                  "launched")
+        runner = engine_runner(task, rule, dtype, K, T, dev, **statics)
+        eager = engine_runner(task, rule, dtype, K, T, dev, graph=False,
+                              **statics)
+        walls = {"host": host_s}
+        for key, r in (("graph_cold", runner), ("graph", runner),
+                       ("eager", eager)):
+            (run, walls[key]), _ = counted(ops, totals, lambda: run_engine(
+                torch, r, rand, noise, lr, *guard))
+        check(runner.captures == 1, f"host {label}: {runner.captures} "
+              "captures")
+        sr = _staleness_result(run, T, n_init, None, None, task.params0)
+        # the engine counts a tick, the host (as JAX's) a live lane: here
+        # every lane of every tick is live
+        uploads = n_init + K * (sr.total_comms - n_init)
+        host_agrees(torch, label, sim.w, hr, run[0], sr, uploads, card,
+                    walls, E)
+        if guarded:
+            check(min(hr.faults.values()) > 0, f"host {label}: a guard never "
+                  f"fired: {hr.faults}")
+
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n,
+              server_lr=lr, device=dev)
+
+    def delays():
+        return ExponentialDelays(beta=5.0, kappa=EVENT_KAPPA, n_clients=n,
+                                 seed=0)
+    for rule, dtype, kernels in HOST_EVENT_RUNS:
+        label = f"event {rule} {dtype}"
+        E = default_n_events(make_rule(rule, dtype, 1), T)
+        sim = AFLSimulator(aggregator=make_rule(rule, dtype, 1),
+                           delays=delays(), seed=0, **kw)
+        (hr, host_s), counts = counted(ops, totals, lambda: run_engine(
+            torch, sim.run, T))
+        for kernel in kernels:
+            check(counts[kernel] > 0, f"host {label}: {kernel} was not "
+                  "launched")
+        sched = build_schedule(delays(), E, None, 0)
+        args = (sched.arrive, sched.dispatch,
+                build_payload_noise(task.grad_fn, 0, E, n, device=dev))
+        walls = {"host": host_s}
+        runner = make_scan_runner(aggregator=make_rule(rule, dtype, 1), T=T,
+                                  **kw)
+        eager = make_scan_runner(aggregator=make_rule(rule, dtype, 1), T=T,
+                                 graph=False, **kw)
+        for key, r in (("graph_cold", runner), ("graph", runner),
+                       ("eager", eager)):
+            (run, walls[key]), _ = counted(ops, totals, lambda: run_engine(
+                torch, r, *args))
+        sr = _scan_result(run, T, n if wants_cache_init(sim.agg) else 0)
+        host_agrees(torch, label, sim.w, hr, run[0], sr, sr.total_comms,
+                    card, walls, E)
+
+    # the port's front door: examples/torch_quickstart.py on the card
+    path = ROOT / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    (runs, wall), counts = counted(ops, totals, lambda: run_engine(
+        torch, quickstart.main, dev))
+    uploads = [r.total_comms for _, r in runs.values()]
+    check(uploads == [319, 300], f"quickstart: uploads {uploads}, not "
+          "[319, 300]")
+    for name, (sim, r) in runs.items():
+        check(bool(torch.isfinite(sim.w).all()), f"quickstart {name}: "
+              "non-finite model")
+        acc = r.final_eval()["accuracy"]
+        check(acc > 0.5, f"quickstart {name}: accuracy {acc} (chance 0.1)")
+    check(counts["cache_row_update"] > 0, "quickstart: ACE int8 launched no "
+          "cache_row_update")
+    print(f"host quickstart (examples/torch_quickstart.py): {wall:.2f} s, "
+          f"uploads {uploads}, final accuracies "
+          f"{[round(r.final_eval()['accuracy'], 4) for _, r in runs.values()]}"
+          f"; launches {counts} [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1502,6 +1683,12 @@ def main() -> int:
     event_phase(torch, ops, task, dev, card, totals)
     sanitize_phase(torch, ops, task, dev, card, totals,
                    per_tick["aced", "int8", 1])
+
+    # 4d. the host references against the engines, and the quickstart
+    start_4d = time.perf_counter()
+    print(f"phase 4d starts at {start_4d - start:.1f} s")
+    host_phase(torch, ops, task, dev, card, totals)
+    print(f"phase 4d took {time.perf_counter() - start_4d:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

@@ -33,7 +33,9 @@ is the K-arrival form. States are dicts of tensors plus one `FlatCache`
 `repro_torch.core.cache`); every other state entry is replaced by a new
 tensor, never written in place, so an engine can keep the previous state
 and select between the two. The server applies
-``w ← w − η · lr_scale · update``.
+``w ← w − η · lr_scale · update``. The host simulators call the rules
+through `on_arrival` / `on_batch`, which read ``emit`` on the host; the
+engines' ticks never do.
 
 ``state_dtype`` ("float32" | "bfloat16") is the dtype the running vectors
 (FedBuff's and CA²FL's buffers, ACE's u, ACED's sums) are stored in; they
@@ -56,8 +58,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.cache import (DTYPES, cache_mean, cache_n, cache_row,
-                                    cache_rows, cache_set_row,
+from repro_torch.core.cache import (DTYPES, FlatCache, cache_mean, cache_n,
+                                    cache_row, cache_rows, cache_set_row,
                                     cache_set_row_delta, cache_set_rows_delta,
                                     cache_sum, flat_commit_batch,
                                     init_flat_cache, row_index)
@@ -181,6 +183,13 @@ class Aggregator:
         """-> (state, update (d,), emit (0-d bool), lr_scale)."""
         raise NotImplementedError
 
+    def on_arrival(self, state, arr: Arrival):
+        """Host wrapper over `step` for the host simulators -> (state,
+        update (d,) or None, lr_scale float). It reads ``emit`` on the host
+        (one sync), so an engine's tick never calls it."""
+        state, update, emit, lr_scale = self.step(state, arr)
+        return state, (update if bool(emit) else None), float(lr_scale)
+
     def step_batch(self, state, batch: ArrivalBatch):
         """K-arrival transition: one aggregation and one emission decision
         for the whole batch; invalid lanes are perfect no-ops, and a batch
@@ -188,11 +197,22 @@ class Aggregator:
         raise NotImplementedError(
             f"{type(self).__name__} does not support K-batched arrivals")
 
+    def on_batch(self, state, batch: ArrivalBatch):
+        """Host wrapper over `step_batch` (the mirror of `on_arrival`)."""
+        state, update, emit, lr_scale = self.step_batch(state, batch)
+        return state, (update if bool(emit) else None), float(lr_scale)
+
     def resync(self, state):
         """Exact self-heal: re-derive every incrementally maintained running
         aggregate from the per-client cache. O(n·d); rules without running
         sums return the state unchanged."""
         return state
+
+    def nbytes(self, state) -> int:
+        """Bytes of every tensor of `state`: a cache's codes and scales and
+        the running vectors and counters."""
+        return sum(v.nbytes() if isinstance(v, FlatCache)
+                   else v.numel() * v.element_size() for v in state.values())
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,9 @@ package's sanitize checks in the tick as device-side records
 runner after the chunk that violated one. The sweeps build their runners
 with the checks off, as JAX's do.
 
-Not ported yet: the tree layout and the sharded runner.
+The host reference of this engine is
+`repro_torch.core.staleness_sim.StalenessSimulator`. Not ported yet: the
+tree layout and the sharded runner.
 """
 from __future__ import annotations
 
@@ -87,7 +89,7 @@ from repro_torch.core.scan_engine import (PayloadNoise, ScanResult, _Program,
 from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
                                             FAULT_NAN, FAULT_NONE,
                                             FAULT_OVERSTALE, NEVER,
-                                            default_tau_max,
+                                            _window_slack, default_tau_max,
                                             staleness_client_probs)
 from repro_torch.kernels.backend import resolve_device
 
@@ -804,13 +806,6 @@ def make_chunked_staleness_runner(*, capacity: int,
     return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
                                   prog.k_batch, prog.guards,
                                   prog.resync_every, checks)
-
-
-def _window_slack(n_clients: int, rejoin_at, windows) -> int:
-    """Extra events for freeze fast-forward jumps: each all-gone freeze
-    burns exactly one event and jumps to a strictly later rejoin, so at most
-    `n_clients` events are ever lost to freezes."""
-    return n_clients if (rejoin_at is not None or windows is not None) else 0
 
 
 def _check_faults(faults: FaultSchedule, n_events: Optional[int],

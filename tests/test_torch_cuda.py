@@ -18,7 +18,8 @@ with ``-k "masked_agg or row_delta or nan"``, the ACE step's with
 CUDA graph, bit-identical to the eager tick; faulted and guarded runs and
 one capture serving a sweep included; the event engine and the text task
 at its full width too) with ``-k graph``, the sanitize checks with
-``-k sanitize``."""
+``-k sanitize``, the host references against the graph runs with
+``-k host``."""
 import numpy as np
 import pytest
 
@@ -28,7 +29,10 @@ from repro_torch.convert import unravel  # noqa: E402
 from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core.delays import ExponentialDelays, build_schedule  # noqa: E402
 from repro_torch.core.fl_tasks import make_text_task, make_vision_task  # noqa: E402
-from repro_torch.core.scan_engine import make_scan_runner  # noqa: E402
+from repro_torch.core.scan_engine import (default_n_events,  # noqa: E402
+                                          make_scan_runner)
+from repro_torch.core.simulator import AFLSimulator  # noqa: E402
+from repro_torch.core.staleness_sim import StalenessSimulator  # noqa: E402
 from repro_torch.core.cache import FlatCache  # noqa: E402
 from repro_torch.core.fl_tasks import ClientGrad  # noqa: E402
 from repro_torch.core.scan_staleness import (  # noqa: E402
@@ -274,6 +278,35 @@ def test_quantizing_kernels_code_nan_and_inf_rows_as_0(cuda, kind):
     r2, _, _ = ops.commit_batch(**kw, backend="torch")
     torch.cuda.synchronize()
     assert torch.equal(r1, r2) and not bool(r1[0].any())
+
+
+@pytest.mark.parametrize("kind", ["nan", "+inf", "-inf"])
+def test_op_chain_row_swap_codes_nan_and_inf_lanes_as_0(cuda, kind):
+    """The op chain's K-lane swap `FlatCache.set_rows_delta` (int8 K > 1
+    steps with a bf16 state, or with the fused commit off) quantizes in
+    PyTorch ops, not in a kernel: a valid lane holding a NaN or ±inf gets
+    int8 codes 0 and the scale (NaN, inf) the CPU path gives, as the JAX
+    package does; every other row, scale, delta and old row is the CPU
+    path's too."""
+    n, d = 6, 17226
+    g = torch.Generator().manual_seed(5)
+    init = torch.randn((n, d), generator=g)
+    G = torch.randn((4, d), generator=g) * 3
+    G[1, [5, d // 2, d - 2]] = {"nan": float("nan"), "+inf": float("inf"),
+                                "-inf": -float("inf")}[kind]
+    idx = torch.tensor([4, 0, 2, 5])
+    valid = torch.tensor([True, True, False, True])
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        cache = FlatCache(*tref.quantize_rows_ref(init.to(dev)))
+        _, delta, old = cache.set_rows_delta(idx.to(dev), G.to(dev),
+                                             valid.to(dev))
+        outs.append([t.cpu() for t in (cache.data, cache.scale, delta, old)])
+    (q0, s0, d0, o0), (q1, s1, d1, o1) = outs
+    assert not bool(q0[0].any()) and not bool(q1[0].any())
+    assert torch.equal(q1, q0)
+    assert _same(s1, s0) and not bool(torch.isfinite(s1[0]))
+    assert _same(d1, d0) and _same(o1, o0)
 
 
 def commit_inputs(seed, K, d, R, dtype, lanes, device, valid=None):
@@ -976,6 +1009,66 @@ def test_graph_event_run_matches_eager(cuda, name, dtype):
         _same_result((*out, None), (*ref, None))
     for k in ("t", "t_recv", "w_recv"):
         assert torch.equal(runners[0].carry[k], runners[1].carry[k])
+
+
+@pytest.mark.parametrize("name,dtype,K", GRAPH_RULES)
+def test_host_reference_equals_the_graph_run(cuda, name, dtype, K):
+    """`StalenessSimulator` driven from the host (Python ints for the
+    client, t and staleness at K = 1; every rule's index and ring tensors
+    made on the state's device) on the streams a graph run replays: the
+    same final model, `ts` and losses, bit for bit."""
+    n, T = 20, 30
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    agg = _rule(name, dtype, K)
+    E = default_n_events(agg, T) if K == 1 else T
+    rand, noise = _streams(task.grad_fn, n, K, E, cuda)
+    sim = StalenessSimulator(
+        grad_fn=task.grad_fn, params0=task.params0, aggregator=agg,
+        n_clients=n, server_lr=0.2, beta=2.0, seed=3, replay=rand,
+        payload_noise=noise, k_batch=K, device=cuda)
+    hr = sim.run(T)
+    runner = make_staleness_runner(
+        grad_fn=task.grad_fn, params0=task.params0,
+        aggregator=_rule(name, dtype, K), n_clients=n, T=T, beta=2.0,
+        k_batch=K, device=cuda, graph=True)
+    w, _, outs, _ = runner(rand, noise, 0.2)
+    emit = outs["emit"]
+    assert runner.captures == 1 and len(hr.ts) > 0
+    assert torch.equal(sim.w, w)
+    assert hr.ts == outs["t"][emit].tolist()
+    assert hr.losses == outs["loss"][emit].tolist()
+
+
+@pytest.mark.parametrize("name,dtype", [("ace", "int8"), ("aced", "int8"),
+                                        ("ca2fl", "float32"),
+                                        ("aced_direct", "int8")])
+def test_host_event_reference_equals_the_graph_run(cuda, name, dtype):
+    """`AFLSimulator` against the event engine's graph run on
+    `build_schedule`'s schedule (limited concurrency), bit for bit."""
+    n, T = 20, 30
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    E = default_n_events(_rule(name, dtype, 1), T)
+
+    def delays():
+        return ExponentialDelays(beta=2.0, kappa=2.0, n_clients=n, seed=1)
+    sim = AFLSimulator(grad_fn=task.grad_fn, params0=task.params0,
+                       aggregator=_rule(name, dtype, 1), n_clients=n,
+                       server_lr=0.2, delays=delays(), concurrency=7, seed=1,
+                       device=cuda)
+    hr = sim.run(T)
+    sched = build_schedule(delays(), E, 7, 1)
+    runner = make_scan_runner(grad_fn=task.grad_fn, params0=task.params0,
+                              aggregator=_rule(name, dtype, 1), n_clients=n,
+                              server_lr=0.2, T=T, device=cuda, graph=True)
+    w, _, outs = runner(sched.arrive, sched.dispatch,
+                        build_payload_noise(task.grad_fn, 1, E, n,
+                                            device=cuda))
+    emit = outs["emit"]
+    assert torch.equal(sim.w, w)
+    assert hr.ts == outs["t"][emit].tolist()
+    assert hr.losses == outs["loss"][emit].tolist()
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,8 @@ and the payload noise that JAX's key chain hands to each client call
   * The slice: the vision task (MLP) at reduced widths, models carried
     across with `repro_torch.convert`.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -39,6 +41,15 @@ from repro_torch.core.scan_staleness import (PayloadNoise,  # noqa: E402
 from repro_torch.core.scan_staleness import run_staleness_scan as torch_run  # noqa: E402
 
 
+_SPLIT = jax.jit(jax.random.split, static_argnums=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _draw(noise_of):
+    """`noise_of` over a batch of keys, compiled once per function."""
+    return jax.jit(jax.vmap(noise_of))
+
+
 def replay_streams(seed, n_events, n, beta, k_batch, noise_of, noise_shape,
                    wants_init, windows=None, local_steps=1):
     """The JAX engine's random streams for a run with `seed`, as the port's
@@ -51,8 +62,7 @@ def replay_streams(seed, n_events, n, beta, k_batch, noise_of, noise_shape,
                                  (r.gumbels, r.tau_raw, r.leave_at,
                                   r.rejoin_at)))
     L = local_steps
-    split = jax.jit(jax.random.split, static_argnums=1)
-    draw = jax.jit(jax.vmap(noise_of))
+    split, draw = _SPLIT, _draw(noise_of)
 
     def call(key):
         """One payload call's chain -> (key after it, (L, 2) step keys)."""
@@ -242,7 +252,8 @@ def jax_vision_grad(task_kw):
                                        seed=kw["seed"] + 1)
     _, apply = jtasks.mlp_classifier((kw["dim"],) + kw["hidden"]
                                      + (kw["n_classes"],))
-    cx, cy, cn = jtasks._pad_clients(xtr, ytr, parts)
+    cx, cy, cn = (jnp.asarray(a)
+                  for a in jtasks._pad_clients(xtr, ytr, parts))
     batch = kw["batch"]
 
     def grad_fn(params, client, key):
