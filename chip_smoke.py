@@ -110,6 +110,21 @@ result line):
      warm) and the eager tick's; then examples/torch_quickstart.py through
      its `main` on the card: 319 and 300 uploads, finite models, final
      accuracies above 0.5;
+  4e. the tree layout (``layout="tree"``: the model as the MLP's list of
+     six leaves, tree caches, the history ring a tree cache) on the same
+     task and width (300 ticks, seed 0's streams), the launch counts added
+     to the totals: ACE, ACED and CA²FL with int8 and f32 caches at K = 1
+     (each f32 run's final model within 1e-5 of phase 4's flat run), int8
+     ACE at K = 16, int8 ACE with an int8 history ring, int8 ACED faulted
+     with the clip and resync every 10 (every guard fired, its counters
+     beside phase 4b's flat run's) and the text task's int8 ACE K = 1 (the
+     1024 × 64 embedding a leaf; accuracy above 0.10); each graph run
+     bit-identical to its eager run (model and caches leaf by leaf), every
+     int8 run's quantize_rows and dequantize_rows launched, accuracy above
+     0.5; int8 ACE and ACED K = 1 timed eager, graph, graph, eager and
+     traced (both kernels seen in the replays as often as their counters
+     count), wall ms and device kernels a tick printed beside phase 4's
+     flat runs;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -490,10 +505,11 @@ def _offset(torch, t, offset):
     return view
 
 
-def compare_quant(torch, ops, n, d, dev, card, timed=True):
+def compare_quant(torch, ops, n, d, dev, card, timed=True, quiet=False):
     """quantize_rows at (n, d), also with x at 4, 8 and 12 bytes past a
     16-byte line: q and s bit-identical to the plain version. Prints the
-    launch plan. Returns (max abs error of s, timing row or None)."""
+    launch plan unless `quiet`. Returns (max abs error of s, timing row or
+    None)."""
     from repro_torch.kernels import quant as kq
     x = quant_input(torch, n, d, dev, seed=n + d % 1000)
     q1, s1 = ops.quantize_rows(x)
@@ -505,12 +521,14 @@ def compare_quant(torch, ops, n, d, dev, card, timed=True):
     if n > 2:
         check(float(s1[1]) > 0 and not bool(q1[1].any()),
               f"{tag}: all-zero row")
-        check(q1[2, :8].tolist() == [127, 2, 0, 2, 4, -2, 0, -126],
+        check(q1[2, :8].tolist() == [127, 2, 0, 2, 4, -2, 0, -126][:d],
               f"{tag}: half-way ties not rounded to even")
     for off in (1, 2, 3):
         qo, so = ops.quantize_rows(_offset(torch, x, off))
         check(torch.equal(qo, q2) and torch.equal(so, s2),
               f"{tag}: x at offset {4 * off} B differs from plain")
+    if quiet:
+        return 0.0, None
     C, T, V, on_chip = kq._quant_plan(n, d, kq._sm_count(dev))
     rows_note = "all-zero row, half-way ties and " if n > 2 else ""
     print(f"kernel {tag}: q and s bit-identical ({rows_note}x at offsets "
@@ -527,10 +545,10 @@ def compare_quant(torch, ops, n, d, dev, card, timed=True):
     return 0.0, row
 
 
-def compare_dequant(torch, ops, n, d, dev, card, timed=True):
+def compare_dequant(torch, ops, n, d, dev, card, timed=True, quiet=False):
     """dequantize_rows at (n, d), also with q 1-3, 4, 8 and 12 bytes past
     an aligned address: bit-identical to the plain version and to
-    torch.mul(q, s[:, None]). Prints the launch plan."""
+    torch.mul(q, s[:, None]). Prints the launch plan unless `quiet`."""
     from repro_torch.kernels import quant as kq
     q, s = ops.quantize_rows(quant_input(torch, n, d, dev, seed=7 + n),
                              backend="torch")
@@ -544,6 +562,8 @@ def compare_dequant(torch, ops, n, d, dev, card, timed=True):
     for off in (1, 2, 3, 4, 8, 12):
         check(torch.equal(ops.dequantize_rows(_offset(torch, q, off), s), x2),
               f"{tag}: q at offset {off} B differs from plain")
+    if quiet:
+        return 0.0, None
     head, W, vec_q, T, blocks = kq._dequant_plan(n, d, q.data_ptr(),
                                                  x1.data_ptr())
     print(f"kernel {tag}: bit-identical to the plain version and to "
@@ -675,7 +695,8 @@ def engine_runner(task, rule, dtype, K, T, dev, backend=None, graph=None,
                   **statics):
     """`make_staleness_runner` for one configuration of the main path:
     the tick captured as a CUDA graph (graph=None on the card), or eager
-    (graph=False); `statics` are its guards and resync cadence."""
+    (graph=False); `statics` are its guards and resync cadence (and, for
+    phase 4e, its layout and history dtype)."""
     from repro_torch.core import make_staleness_runner
     return make_staleness_runner(
         grad_fn=task.grad_fn, params0=task.params0,
@@ -712,19 +733,28 @@ def run_engine(torch, runner, *args):
     return out, time.perf_counter() - t0
 
 
+def tensors_of(tree):
+    """Every tensor of a model or a state, either layout, in leaf order: a
+    `FlatCache` gives its rows and scales, a tree cache each leaf's."""
+    from repro_torch.convert import leaves
+    from repro_torch.core.cache import cache_tensors
+    return [t for v in leaves(tree) for t in (cache_tensors(v) or [v])]
+
+
+def same_tensors(torch, a, b):
+    ta, tb = tensors_of(a), tensors_of(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
 def same_run(torch, a, b):
     """Model, every cache's int8 rows (or f32 rows) and scales, every other
     state tensor, every per-event output (a quarantined event's update
-    norm is NaN in both) and the guard counters, bit for bit."""
-    from repro_torch.core import FlatCache
+    norm is NaN in both) and the guard counters, bit for bit — in either
+    layout (a tree model and tree caches leaf by leaf)."""
     (w1, s1, o1, x1), (w2, s2, o2, x2) = a, b
-    same = torch.equal(w1, w2) and s1.keys() == s2.keys()
-    for k in s1 if same else ():
-        if isinstance(s1[k], FlatCache):
-            same = same and torch.equal(s1[k].data, s2[k].data) and \
-                torch.equal(s1[k].scale, s2[k].scale)
-        else:
-            same = same and torch.equal(s1[k], s2[k])
+    same = (same_tensors(torch, w1, w2) and s1.keys() == s2.keys()
+            and same_tensors(torch, s1, s2))
     same = same and o1.keys() == o2.keys() and all(
         _same(torch, o1[k].float(), o2[k].float()) for k in o1)
     g1, g2 = x1.get("guards", {}), x2.get("guards", {})
@@ -736,7 +766,7 @@ TRACE_ATTEMPTS = 3
 
 
 def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
-                 per_tick_expected=None):
+                 per_tick_expected=None, must=()):
     """One traced graph run of `runner(*args)`: device busy ms and device
     kernels a tick, the idle share against the untraced wall clock
     `tick_ms`, the six largest kernels, and each port kernel's launches in
@@ -747,7 +777,8 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     times than the graph ran it, the run bit-identical to its eager run);
     such a trace is taken again, up to `TRACE_ATTEMPTS` traces in all, so
     a difference that every trace shows still fails. Returns (device busy
-    ms a tick, device kernels a tick)."""
+    ms a tick, device kernels a tick). Each kernel named in `must` has to
+    be seen in the replays."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -779,6 +810,8 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
               f"{'; tracing again' if attempt < TRACE_ATTEMPTS else ''}")
     check(not off, f"{label}: every one of {TRACE_ATTEMPTS} traces differs "
           f"(seen, expected): {off}")
+    for name in must:
+        check(seen[name] > 0, f"{label}: no {name} launch in the replays")
     busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3 / E
     print(f"engine {label}: device busy {busy_ms:.4f} ms per tick of "
           f"{tick_ms:.4f} ms wall, idle share {1 - busy_ms / tick_ms:.3f}, "
@@ -799,14 +832,15 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     return busy_ms, per_tick
 
 
-def time_and_trace(torch, ops, prefix, kept, card, untraced=()):
+def time_and_trace(torch, ops, prefix, kept, card, untraced=(), must=()):
     """Eager against graph in turns (eager, graph, graph, eager), untraced
     — the graphs were captured before, so a graph call is its replays plus
     the streams' copies and the init — then where a tick's time goes: one
     traced graph run each (but those in `untraced`) against the untraced
-    graph runs' wall clock (the trace itself slows the host). `kept` maps
-    (rule, dtype, K) to (graph runner, eager runner, call args, events,
-    arrivals a tick). Returns {key: device kernels a tick}."""
+    graph runs' wall clock (the trace itself slows the host); the kernels
+    in `must` seen in every trace. `kept` maps (rule, dtype, K) to (graph
+    runner, eager runner, call args, events, arrivals a tick). Returns
+    ({key: device kernels a tick}, {key: graph wall ms a tick})."""
     graph_ms = {}
     for key, (runner, eager, args, E, K) in kept.items():
         rule, dtype, _ = key
@@ -825,8 +859,8 @@ def time_and_trace(torch, ops, prefix, kept, card, untraced=()):
         rule, dtype, _ = key
         per_tick[key] = trace_engine(
             torch, ops, f"{prefix}{rule} {dtype} K={K} graph", runner, args,
-            E, graph_ms[key], card)[1]
-    return per_tick
+            E, graph_ms[key], card, must=must)[1]
+    return per_tick, graph_ms
 
 
 # --- phase 4b: faults, guards, resync and sweeps ----------------------------
@@ -953,7 +987,7 @@ def guard_phase(torch, ops, task, dev, card, totals, clean):
               f"counters {({k: int(v) for k, v in out[3]['guards'].items()})}"
               f" [{card}]")
 
-    synced_runs = {}
+    synced_runs, resync_guards = {}, {}
     for rule, dtype, K in RESYNC:
         runner, args, out, acc, counts, wall, _ = guarded_run(
             torch, ops, task, dev, card, totals, rule, dtype, K, clip,
@@ -972,8 +1006,12 @@ def guard_phase(torch, ops, task, dev, card, totals, clean):
         print(f"engine resync {rule} {dtype} K={K} every {RESYNC_EVERY}: "
               f"faulted, graph = eager bit for bit, final running sums "
               f"against a fresh resync (relative) {devs}, accuracy "
-              f"{acc:.4f}; launches {counts} [{card}]")
+              f"{acc:.4f}, guard counters "
+              f"{({k: int(v) for k, v in out[3]['guards'].items()})}; "
+              f"launches {counts} [{card}]")
         synced_runs[rule, dtype, K] = (runner, args)
+        resync_guards[rule, dtype, K] = {
+            k: int(v) for k, v in out[3]["guards"].items()}
 
     # the lr × seed grid on one capture against six single runs (six
     # captures), in turns: singles, grid, grid, singles
@@ -1067,6 +1105,7 @@ def guard_phase(torch, ops, task, dev, card, totals, clean):
                                     (n2, r2, a2, (ms[1] + ms[2]) / 2)):
             trace_engine(torch, ops, f"{label} {name} graph", r, a, E,
                          tick_ms, card)
+    return resync_guards
 
 
 # --- phase 4c: the text task, the event engine and the sanitize checks -----
@@ -1499,6 +1538,211 @@ def host_phase(torch, ops, task, dev, card, totals):
           f"; launches {counts} [{card}]")
 
 
+# --- phase 4e: the tree layout ---------------------------------------------
+
+# the tree runs at K = 1 (each f32 one against phase 4's flat run), then
+# int8 ACE at K = 16, and those timed and traced beside phase 4's flat ones
+TREE_RUNS = ([(rule, dtype, 1) for rule in ("ace", "aced", "ca2fl")
+              for dtype in ("int8", "float32")] + [("ace", "int8", K_SLICE)])
+TREE_TIMED = (("ace", "int8", 1), ("aced", "int8", 1))
+# what a tree run launches: every int8 leaf write quantizes, every read
+# dequantizes (an f32 tree with an f32 ring launches no kernel)
+TREE_KERNELS = ("quantize_rows", "dequantize_rows")
+
+
+def tree_leaf_kernels(torch, ops, tasks, rows, dev, card):
+    """quantize_rows and dequantize_rows at every ``(rows, numel)`` view the
+    tree layout hands them: each leaf of each task's parameters, by one
+    arriving row, a K-lane batch, the client count (the int8 init, the
+    means, the resync) and the history ring's tau_max + 1 rows; q, s and
+    the dequantized rows bit-identical to the plain versions (the all-zero
+    row, the half-way ties and the offsets of `compare_quant` /
+    `compare_dequant` included)."""
+    from repro_torch.convert import leaves
+    numels = sorted({x.numel() for t in tasks for x in leaves(t.params0)})
+    for d in numels:
+        for n in rows:
+            compare_quant(torch, ops, n, d, dev, card, timed=False,
+                          quiet=True)
+            compare_dequant(torch, ops, n, d, dev, card, timed=False,
+                            quiet=True)
+    print(f"kernel quantize_rows, dequantize_rows at the tree's leaf views: "
+          f"bit-identical to the plain versions at rows {list(rows)} × "
+          f"numel {numels} [{card}]")
+
+
+def tree_plain(torch, ops, label, make, args, ref, card):
+    """The run of `ref` again eagerly with the rule's ``backend="torch"``
+    (`make(False, "torch")`: the plain versions in the rule's caches and in
+    the history ring): no kernel launched, the final model within 1e-4
+    (relative) of the kernels' run."""
+    from repro_torch.convert import ravel
+    plain = make(False, "torch")
+    ops.reset_launch_counts()
+    out, wall = run_engine(torch, plain, *args)
+    check(sum(ops.launch_counts().values()) == 0,
+          f"{label}: backend='torch' launched a kernel")
+    w, w_ref = ravel(out[0]), ravel(ref[0])
+    dev_w = float((w - w_ref).abs().max() / w_ref.abs().max().clamp(
+        min=1e-12))
+    check(dev_w <= 1e-4, f"{label}: plain run deviates {dev_w}")
+    print(f"engine {label} plain versions (eager): {wall:.2f} s, final w "
+          f"within {dev_w:.3e} (relative) of the kernels' run, the run "
+          f"bit-identical: {same_run(torch, out, ref)} [{card}]")
+
+
+def tree_run(torch, ops, totals, label, make, args, must):
+    """One tree configuration through the graph runner (`make(graph)`) and
+    again eagerly: bit for bit (model and caches leaf by leaf), one
+    capture, the kernels in `must` launched, a finite model -> (graph
+    runner, eager runner, the run, launch counts, graph s, eager s)."""
+    runner = make(None)
+    (out, wall), counts = counted(ops, totals, lambda: run_engine(
+        torch, runner, *args))
+    check(runner.captures == 1, f"{label}: {runner.captures} captures")
+    for kernel in must:
+        check(counts[kernel] > 0, f"{label}: {kernel} was not launched")
+    check(all(bool(torch.isfinite(x).all()) for x in tensors_of(out[0])),
+          f"{label}: non-finite model")
+    eager = make(False)
+    ref, wall_e = run_engine(torch, eager, *args)
+    check(same_run(torch, out, ref), f"{label}: the graph run differs from "
+          "the eager run")
+    return runner, eager, out, counts, wall, wall_e
+
+
+def tree_phase(torch, ops, task, dev, card, totals, flat_w, flat_tick,
+               flat_ms, flat_guards):
+    """The tree layout (`layout="tree"`) on the card: the vision task at
+    full width (n = 100, d = 17,226 over six leaves, 300 ticks) for ACE,
+    ACED and CA²FL with int8 and f32 tree caches at K = 1 (each f32 run
+    within 1e-5 of phase 4's flat run on the same streams), int8 ACE at K
+    = 16, int8 ACE with an int8 history ring, int8 ACED faulted with the
+    clip and resync every 10 (every guard fired, the counters beside the
+    flat run's), and the text task (d = 70,996, the 1024 × 64 embedding a
+    leaf) for int8 ACE K = 1; every graph run bit-identical to its eager
+    run, accuracy above 0.5 (text: 0.10), and the int8-ring and text runs
+    again with the plain versions (within 1e-4); quantize_rows and
+    dequantize_rows first held against their plain versions at every leaf
+    view the phase gives them; then int8 ACE and ACED K = 1 timed eager,
+    graph, graph, eager and traced, quantize_rows and dequantize_rows seen
+    in the replays as often as their counters count, printed beside phase
+    4's flat numbers."""
+    import numpy as np
+    from repro_torch.convert import leaves, ravel
+    from repro_torch.core import build_fault_schedule, make_text_task
+    from repro_torch.core.staleness_sim import default_tau_max
+    n_leaves = len(leaves(task.params0))
+    check(n_leaves == 6, f"the vision MLP has {n_leaves} leaves, not 6")
+    print(f"engine tree: vision task, n={task.n_clients}, d={D_SLICE} over "
+          f"{n_leaves} leaves {[tuple(x.shape) for x in leaves(task.params0)]}"
+          f" [{card}]")
+    text = make_text_task(device=dev)
+    tree_leaf_kernels(torch, ops, (task, text), sorted(
+        {1, K_SLICE, task.n_clients, text.n_clients,
+         default_tau_max(5.0) + 1}), dev, card)
+    kept = {}
+    for rule, dtype, K in TREE_RUNS:
+        T, E = _depth(rule, K)
+        label = f"tree {rule} {dtype} K={K}"
+        streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+        runner, eager, out, counts, wall, wall_e = tree_run(
+            torch, ops, totals, label,
+            lambda g: engine_runner(task, rule, dtype, K, T, dev, graph=g,
+                                    layout="tree"),
+            (*streams, lr), TREE_KERNELS if dtype == "int8" else ())
+        acc = task.eval_fn(out[0])["accuracy"]
+        check(acc > 0.5, f"{label}: accuracy {acc} (chance 0.1)")
+        note = ""
+        if dtype == "float32":
+            w, ref = ravel(out[0]).cpu().numpy(), flat_w[rule, dtype, K]
+            dw = float(np.abs(w - ref).max())
+            check(dw <= 1e-5 * max(1.0, float(np.abs(ref).max())),
+                  f"{label}: {dw} from the flat run")
+            note = f"; final w max |tree - flat| {dw:.3e}"
+        print(f"engine {label}: T={T}, {E} ticks, "
+              f"{int(out[2]['emit'].sum())} updates, accuracy {acc:.4f}"
+              f"{note}; graph run {wall:.2f} s with its capture, eager run "
+              f"{wall_e:.2f} s; graph and eager bit-identical: True; "
+              f"launches {counts} [{card}]")
+        if (rule, dtype, K) in TREE_TIMED:
+            kept[rule, dtype, K] = (runner, eager, (*streams, lr), E, K)
+
+    # the int8 history ring: every stale read dequantizes, every append
+    # quantizes, leaf by leaf
+    rule, dtype, K = "ace", "int8", 1
+    T, E = _depth(rule, K)
+    streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+    label = "tree ace int8 K=1, int8 history ring"
+
+    def make(g, b=None):
+        return engine_runner(task, rule, dtype, K, T, dev, backend=b,
+                             graph=g, layout="tree", history_dtype="int8")
+    _, _, out, counts, wall, wall_e = tree_run(
+        torch, ops, totals, label, make, (*streams, lr), TREE_KERNELS)
+    acc = task.eval_fn(out[0])["accuracy"]
+    check(acc > 0.5, f"{label}: accuracy {acc}")
+    print(f"engine {label}: accuracy {acc:.4f}; graph run {wall:.2f} s, "
+          f"eager run {wall_e:.2f} s; graph and eager bit-identical: True; "
+          f"launches {counts} [{card}]")
+    tree_plain(torch, ops, label, make, (*streams, lr), out, card)
+
+    # faulted, the clip and resync every 10, against the flat run's counters
+    rule, dtype, K = "aced", "int8", 1
+    T, E = _depth(rule, K)
+    streams, lr = engine_streams(task, K, E, dev), engine_lr(task, T)
+    clip = clip_norm_of(torch, task, dev)
+    faults = build_fault_schedule(0, E, k_batch=K, device=dev, **FAULT_RATES)
+    label = f"tree {rule} {dtype} K={K} faulted, resync every {RESYNC_EVERY}"
+    _, _, out, counts, wall, wall_e = tree_run(
+        torch, ops, totals, label,
+        lambda g: engine_runner(task, rule, dtype, K, T, dev, graph=g,
+                                layout="tree", guards=True,
+                                resync_every=RESYNC_EVERY),
+        (*streams, lr, faults, clip), TREE_KERNELS)
+    guards = {k: int(v) for k, v in out[3]["guards"].items()}
+    check(all(v > 0 for v in guards.values()),
+          f"{label}: a guard never fired: {guards}")
+    acc = task.eval_fn(out[0])["accuracy"]
+    check(acc > 0.5, f"{label}: accuracy {acc}")
+    print(f"engine {label}: guard counters {guards} (flat, phase 4b: "
+          f"{flat_guards[rule, dtype, K]}), accuracy {acc:.4f}; graph run "
+          f"{wall:.2f} s, eager run {wall_e:.2f} s; graph and eager "
+          f"bit-identical: True; launches {counts} [{card}]")
+
+    # the text task: the embedding is a leaf of 1024 × 64
+    d_text = ravel(text.params0).numel()
+    check(d_text == D_TEXT, f"text task has d={d_text}, expected {D_TEXT}")
+    rule, dtype, K = "ace", "int8", 1
+    T, E = _depth(rule, K)
+    streams = engine_streams(text, K, E, dev)
+    lr = 3.0 * float(np.sqrt(text.n_clients / T))
+    label = "tree text ace int8 K=1"
+
+    def make_text(g, b=None):
+        return engine_runner(text, rule, dtype, K, T, dev, backend=b,
+                             graph=g, layout="tree")
+    _, _, out, counts, wall, wall_e = tree_run(
+        torch, ops, totals, label, make_text, (*streams, lr), TREE_KERNELS)
+    acc = text.eval_fn(out[0])["accuracy"]
+    check(acc > 0.10, f"{label}: accuracy {acc} (chance 0.05)")
+    print(f"engine {label}: n={text.n_clients}, d={D_TEXT}, leaves "
+          f"{ {k: tuple(v.shape) for k, v in text.params0.items()} }, "
+          f"accuracy {acc:.4f}; graph run {wall:.2f} s, eager run "
+          f"{wall_e:.2f} s; graph and eager bit-identical: True; launches "
+          f"{counts} [{card}]")
+    tree_plain(torch, ops, label, make_text, (*streams, lr), out, card)
+
+    per_tick, tree_ms = time_and_trace(torch, ops, "tree ", kept, card,
+                                       must=TREE_KERNELS)
+    for key in TREE_TIMED:
+        rule, dtype, K = key
+        print(f"engine tree vs flat {rule} {dtype} K={K}: graph wall ms a "
+              f"tick {tree_ms[key]:.4f} vs {flat_ms[key]:.4f}, device "
+              f"kernels a tick {per_tick[key]:.1f} vs {flat_tick[key]:.1f} "
+              f"[{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1670,12 +1914,12 @@ def main() -> int:
                   f"{float(abs(a - b).max() / max(1e-12, abs(b).max())):.3e} "
                   f"[{card}]")
 
-    per_tick = time_and_trace(torch, ops, "", kept, card)
+    per_tick, flat_ms = time_and_trace(torch, ops, "", kept, card)
     del kept
 
     # 4b. faults, the guard pipeline, resync and sweeps on the main path
     print(f"phase 4b starts at {time.perf_counter() - start:.1f} s")
-    guard_phase(torch, ops, task, dev, card, totals, clean)
+    flat_guards = guard_phase(torch, ops, task, dev, card, totals, clean)
 
     # 4c. the text task, the event engine and the sanitize checks
     print(f"phase 4c starts at {time.perf_counter() - start:.1f} s")
@@ -1689,6 +1933,13 @@ def main() -> int:
     print(f"phase 4d starts at {start_4d - start:.1f} s")
     host_phase(torch, ops, task, dev, card, totals)
     print(f"phase 4d took {time.perf_counter() - start_4d:.1f} s")
+
+    # 4e. the tree layout
+    start_4e = time.perf_counter()
+    print(f"phase 4e starts at {start_4e - start:.1f} s")
+    tree_phase(torch, ops, task, dev, card, totals, results, per_tick,
+               flat_ms, flat_guards)
+    print(f"phase 4e took {time.perf_counter() - start_4e:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

@@ -1,15 +1,17 @@
-"""The port's flat AFL server: the host references (`AFLSimulator`,
+"""The port's AFL server: the host references (`AFLSimulator`,
 `StalenessSimulator`: each protocol driven from the host one event at a
 time, the loop the engines are held against), the sampled-staleness
 engine (one run, seed sweeps and lr × seed grids on one runner, the
 runner whose tick the card replays as a CUDA graph, and the chunked
-runner; client fault schedules, the guard pipeline and periodic resync),
-the event-driven engine (`run_scan`, `run_scan_seeds`, `sweep` over
-`build_schedule`'s delay schedules), the sanitize checks of both
-(``checkify_invariants``), the nine rules of the zoo (ASGD,
-delay-adaptive ASGD, FedBuff, CA²FL, ACE, ACED and the direct
-CA²FL/ACE/ACED references) over the flat gradient cache, and the vision
-and text tasks — the counterpart of `repro.core`'s entry points."""
+runner, in the flat layout or the tree layout (``layout="tree"``: tree
+caches over the parameter structure, an int8 history ring); client fault
+schedules, the guard pipeline and periodic resync), the event-driven
+engine (`run_scan`, `run_scan_seeds`, `sweep` over `build_schedule`'s
+delay schedules), the sanitize checks of both (``checkify_invariants``),
+the nine rules of the zoo (ASGD, delay-adaptive ASGD, FedBuff, CA²FL, ACE,
+ACED and the direct CA²FL/ACE/ACED references) over the flat or tree
+gradient cache, and the vision and text tasks — the counterpart of
+`repro.core`'s entry points."""
 from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
                                           ACEDirect, ACEIncremental,
                                           CA2FLDirect, DelayAdaptiveASGD,

@@ -28,11 +28,18 @@ Every rule is a transition
 
 with `torch.where`-gated emission: no Python branching on tensor values and
 no host read, so a tick of the engine never waits for the card. `step_batch`
-is the K-arrival form. States are dicts of tensors plus one `FlatCache`
-(ASGD's is empty). The cache is updated **in place** (see
-`repro_torch.core.cache`); every other state entry is replaced by a new
-tensor, never written in place, so an engine can keep the previous state
-and select between the two. The server applies
+is the K-arrival form. States are dicts of tensors plus one cache (ASGD's
+is empty). `init_state` takes `d` as the raveled width (a `FlatCache` and
+(d,) running vectors) or as a parameter structure (the tree layout: a
+tree cache, and running vectors and payloads shaped like the parameters,
+every vector op applied per leaf), as in the JAX package. The cache is
+updated **in place** (see `repro_torch.core.cache`); every other state
+entry is replaced by a new tensor, never written in place, so an engine
+can keep the previous state and select between the two. The fused kernels
+(`commit_batch`, the K = 1 `cache_row_update` and `row_delta` swaps,
+`masked_agg`) serve the flat layout only, as in the JAX package; a tree
+cache takes the op chain, its int8 leaves through the quantize and
+dequantize kernels. The server applies
 ``w ← w − η · lr_scale · update``. The host simulators call the rules
 through `on_arrival` / `on_batch`, which read ``emit`` on the host; the
 engines' ticks never do.
@@ -56,13 +63,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core.cache import (DTYPES, FlatCache, cache_mean, cache_n,
+from repro_torch.convert import leaves, tree_map
+from repro_torch.core.cache import (DTYPES, FlatCache, broadcast_lanes,
+                                    cache_device, cache_mean, cache_n,
                                     cache_row, cache_rows, cache_set_row,
                                     cache_set_row_delta, cache_set_rows_delta,
-                                    cache_sum, flat_commit_batch,
-                                    init_flat_cache, row_index)
+                                    cache_sum, cache_tensors,
+                                    flat_commit_batch, init_flat_cache,
+                                    init_tree_cache, row_index)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 
@@ -99,20 +110,37 @@ def _int(x, device) -> torch.Tensor:
 
 
 def _acc(a, x):
-    """``a + x`` accumulated in f32 and stored in `a`'s dtype (the state
-    dtype; an identity cast for f32 states)."""
-    return (a.float() + x.float()).to(a.dtype)
+    """``a + x`` per leaf, accumulated in f32 and stored in `a`'s dtype (the
+    state dtype; an identity cast for f32 states)."""
+    return tree_map(lambda a_, x_: (a_.float() + x_.float()).to(a_.dtype),
+                    a, x)
+
+
+def _gate(emit, new, old):
+    """Per-leaf ``where(emit, new, old)``; `new` may be a number (0.0: the
+    flush of a buffer)."""
+    if isinstance(new, (int, float)):
+        return tree_map(lambda o_: torch.where(emit, new, o_), old)
+    return tree_map(lambda n_, o_: torch.where(emit, n_, o_), new, old)
 
 
 def _where_sub(a, x, gate):
-    """``a − x`` where `gate` else ``a``, accumulated in f32 and stored in
-    `a`'s dtype — the expiry primitive of the running-sum rules."""
-    return torch.where(gate, a.float() - x.float(), a.float()).to(a.dtype)
+    """Per-leaf ``a − x`` where `gate` else ``a``, accumulated in f32 and
+    stored in `a`'s dtype — the expiry primitive of the running-sum
+    rules."""
+    return tree_map(lambda a_, x_: torch.where(
+        gate, a_.float() - x_.float(), a_.float()).to(a_.dtype), a, x)
 
 
 def _astate(vec, dtype: str):
-    """A running vector cast to the rule's state dtype."""
-    return vec.to(DTYPES[dtype])
+    """A running vector (or structure of them) cast to the rule's state
+    dtype."""
+    return tree_map(lambda v: v.to(DTYPES[dtype]), vec)
+
+
+def _device(tree) -> torch.device:
+    """The device of a tensor or of a structure's first leaf."""
+    return leaves(tree)[0].device
 
 
 _CONSTANTS = {}
@@ -135,14 +163,46 @@ def _true(device) -> torch.Tensor:
         (), dtype=torch.bool, device=device))
 
 
-def _zeros_vec(d: int, dtype: str, device):
-    return torch.zeros((d,), dtype=DTYPES[dtype], device=device)
+# `init_state` takes `d` as the raveled width (an int: the flat layout, a
+# `FlatCache` and (d,) running vectors) or as a parameter structure, the
+# template of the tree layout (a tree cache, and running vectors shaped
+# like the parameters), as in the JAX package.
+
+def _is_template(d) -> bool:
+    return not isinstance(d, (int, np.integer))
+
+
+def _init_cache(n, d, dtype, init_grads, device, backend):
+    if _is_template(d):
+        return init_tree_cache(n, d, dtype, init_grads, device, backend)
+    return init_flat_cache(n, int(d), dtype, init_grads, device, backend)
+
+
+def _zeros_vec(d, dtype: str, device):
+    if _is_template(d):
+        return tree_map(lambda g: torch.zeros(tuple(g.shape),
+                                              dtype=DTYPES[dtype],
+                                              device=device), d)
+    return torch.zeros((int(d),), dtype=DTYPES[dtype], device=device)
 
 
 def _masked_batch_sum(rows, mask):
-    """``Σ_{k : mask[k]} rows[k]`` in f32, `where`-gated: a quarantined
-    lane's payload may be NaN/inf, and ``NaN · 0`` would poison the sum."""
-    return torch.where(mask[:, None], rows.float(), 0.0).sum(0)
+    """Per-leaf ``Σ_{k : mask[k]} rows[k]`` over the leading (K,) lane axis
+    in f32, `where`-gated: a quarantined lane's payload may be NaN/inf, and
+    ``NaN · 0`` would poison the sum."""
+    return tree_map(lambda p: torch.where(
+        broadcast_lanes(mask, p), p.float(), 0.0).sum(0), rows)
+
+
+def _sum_lanes(tree):
+    """Per-leaf f32 sum over the leading (K,) lane axis (unmasked: the
+    deltas of `cache_set_rows_delta` are already zero on invalid lanes)."""
+    return tree_map(lambda x: x.float().sum(0), tree)
+
+
+def _scaled(tree, s):
+    """Per-leaf ``x · s`` in f32 (`s` a scalar or a 0-d tensor)."""
+    return tree_map(lambda x: x.float() * s, tree)
 
 
 def _inv_count(count):
@@ -157,12 +217,14 @@ def _batch_mean_inv(valid):
     return torch.where(nv > 0, torch.clamp(nv, min=1.0).reciprocal(), 0.0)
 
 
-def _fused_flat_commit(flag, vecs) -> bool:
-    """The fused K-arrival commit is taken only when every carried running
-    vector is f32 (the kernel's accumulation dtype — non-f32 `state_dtype`
-    rules stay on the op chain) and the wiring is enabled (`fused_commit`
-    field / ``REPRO_NO_FUSED_COMMIT``)."""
-    return (all(v.dtype == torch.float32 for v in vecs)
+def _fused_flat_commit(flag, cache, vecs) -> bool:
+    """The fused K-arrival commit is taken only on the flat layout (a tree
+    cache keeps the op chain, as in the JAX package), when every carried
+    running vector is f32 (the kernel's accumulation dtype — non-f32
+    `state_dtype` rules stay on the op chain) and the wiring is enabled
+    (`fused_commit` field / ``REPRO_NO_FUSED_COMMIT``)."""
+    return (isinstance(cache, FlatCache)
+            and all(v.dtype == torch.float32 for v in vecs)
             and kernel_ops.fused_commit_enabled(flag))
 
 
@@ -174,9 +236,12 @@ class Aggregator:
     #: budget extra events (`scan_engine.default_n_events`)
     guaranteed_emit = True
 
-    def init_state(self, n: int, d: int, init_grads=None, device=None):
-        """Initial server state for n clients of dimension d; `init_grads`
-        is an (n, d) tensor for the cache-init rules."""
+    def init_state(self, n: int, d, init_grads=None, device=None):
+        """Initial server state for n clients. `d` is the raveled width (an
+        int: a `FlatCache` and (d,) running vectors) or a parameter
+        structure (the tree layout: a tree cache and running vectors shaped
+        like it); `init_grads` matches, an (n, d) tensor or a structure
+        whose leaves lead with (n,), for the cache-init rules."""
         raise NotImplementedError
 
     def step(self, state, arr: Arrival):
@@ -210,9 +275,9 @@ class Aggregator:
 
     def nbytes(self, state) -> int:
         """Bytes of every tensor of `state`: a cache's codes and scales and
-        the running vectors and counters."""
-        return sum(v.nbytes() if isinstance(v, FlatCache)
-                   else v.numel() * v.element_size() for v in state.values())
+        the running vectors and counters, in either layout."""
+        return sum(x.numel() * x.element_size() for v in state.values()
+                   for x in (cache_tensors(v) or leaves(v)))
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +291,14 @@ class VanillaASGD(Aggregator):
         return {}
 
     def step(self, state, arr):
-        true = torch.ones((), dtype=torch.bool, device=arr.payload.device)
+        true = torch.ones((), dtype=torch.bool, device=_device(arr.payload))
         return state, arr.payload, true, 1.0
 
     def step_batch(self, state, batch):
         # FedAsync's burst rule: average the simultaneously received
         # contributions into one server step
-        update = (_masked_batch_sum(batch.payloads, batch.valid)
-                  * _batch_mean_inv(batch.valid))
+        update = _scaled(_masked_batch_sum(batch.payloads, batch.valid),
+                         _batch_mean_inv(batch.valid))
         return state, update, batch.valid.any(), 1.0
 
 
@@ -257,7 +322,7 @@ class DelayAdaptiveASGD(Aggregator):
         return {}
 
     def step(self, state, arr):
-        dev = arr.payload.device
+        dev = _device(arr.payload)
         scale = _delay_scale(arr.staleness, self.tau_c, dev).reshape(())
         true = torch.ones((), dtype=torch.bool, device=dev)
         return state, arr.payload, true, scale
@@ -266,10 +331,11 @@ class DelayAdaptiveASGD(Aggregator):
         # the per-lane discounts fold INTO the averaged update (one scalar
         # lr_scale cannot carry K weights), so lr_scale = 1 here
         scale = _delay_scale(batch.staleness, self.tau_c,
-                             batch.payloads.device).reshape(-1)
-        scaled = batch.payloads.float() * scale[:, None]
-        update = (_masked_batch_sum(scaled, batch.valid)
-                  * _batch_mean_inv(batch.valid))
+                             _device(batch.payloads)).reshape(-1)
+        scaled = tree_map(lambda p: p.float() * broadcast_lanes(scale, p),
+                          batch.payloads)
+        update = _scaled(_masked_batch_sum(scaled, batch.valid),
+                         _batch_mean_inv(batch.valid))
         return state, update, batch.valid.any(), 1.0
 
 
@@ -290,8 +356,8 @@ class FedBuff(Aggregator):
         # "update" is a multiply by 0, not an O(d) divide
         emit = count >= self.buffer_size
         inv = torch.where(emit, inv, 0.0)
-        update = accum.float() * inv
-        return ({"accum": torch.where(emit, 0.0, accum),
+        update = _scaled(accum, inv)
+        return ({"accum": _gate(emit, 0.0, accum),
                  "count": torch.where(emit, 0, count)}, update, emit, 1.0)
 
     def step(self, state, arr):
@@ -327,12 +393,13 @@ class CA2FL(Aggregator):
     name = "ca2fl"
 
     def init_state(self, n, d, init_grads=None, device=None):
-        h = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
-                            backend=self.backend)
+        h = _init_cache(n, d, self.cache_dtype, init_grads, device,
+                        self.backend)
         mean = cache_mean(h, backend=self.backend)
-        dev = h.data.device
+        dev = cache_device(h)
         return {"h": h, "h_bar": _astate(mean, self.state_dtype),
-                "h_sum": _astate(mean * n, self.state_dtype),
+                "h_sum": _astate(tree_map(lambda m: m * n, mean),
+                                 self.state_dtype),
                 "accum": _zeros_vec(d, self.state_dtype, dev),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -345,30 +412,33 @@ class CA2FL(Aggregator):
         """The emit-gated tail shared by the op-chain forms: the update and
         the lazy h̄ = h_sum/n refresh."""
         emit, inv = self._emit(count)
-        h_bar = state["h_bar"]
-        update = h_bar.float() * emit.float() + accum.float() * inv
-        h_bar = torch.where(emit, h_sum.float() * (1.0 / cache_n(h)),
-                            h_bar.float()).to(h_bar.dtype)
+        g, inv_n = emit.float(), 1.0 / cache_n(h)
+        update = tree_map(lambda hb, a: hb.float() * g + a.float() * inv,
+                          state["h_bar"], accum)
+        h_bar = tree_map(lambda hb, hs: torch.where(
+            emit, hs.float() * inv_n, hb.float()).to(hb.dtype),
+            state["h_bar"], h_sum)
         new_state = {"h": h, "h_bar": h_bar, "h_sum": h_sum,
-                     "accum": torch.where(emit, 0.0, accum),
+                     "accum": _gate(emit, 0.0, accum),
                      "count": torch.where(emit, 0, count)}
         return new_state, update, emit, 1.0
 
     def step(self, state, arr):
-        j = row_index(arr.client, state["h"].data.device)
+        j = row_index(arr.client, cache_device(state["h"]))
         h, delta, old = cache_set_row_delta(state["h"], j, arr.payload,
                                             backend=self.backend)
-        accum = _acc(state["accum"], arr.payload.float() - old)
+        accum = _acc(state["accum"], tree_map(lambda g, o: g.float() - o,
+                                              arr.payload, old))
         h_sum = _acc(state["h_sum"], delta)
         return self._refresh(state, h, accum, h_sum, state["count"] + 1)
 
     def step_batch(self, state, batch):
         h = state["h"]
-        js = row_index(batch.clients, h.data.device)
+        js = row_index(batch.clients, cache_device(h))
         valid = batch.valid
         count = state["count"] + valid.sum(dtype=torch.int32)
         vecs = (state["accum"], state["h_sum"], state["h_bar"])
-        if _fused_flat_commit(self.fused_commit, vecs):
+        if _fused_flat_commit(self.fused_commit, h, vecs):
             # fused commit, basis [accum, h_sum, h_bar, S_Δ, S_A, S_B, S_G]
             # with lane_a = lane_g = valid (S_G − S_A = Σ_valid(g − old)):
             #   accum' = (1−g)·(accum + S_G − S_A)
@@ -394,10 +464,12 @@ class CA2FL(Aggregator):
                          "accum": out[0],
                          "count": torch.where(emit, 0, count)}
             return new_state, update, emit, 1.0
-        h, delta, old = cache_set_rows_delta(h, js, batch.payloads, valid)
+        h, delta, old = cache_set_rows_delta(h, js, batch.payloads, valid,
+                                             self.backend)
         accum = _acc(state["accum"], _masked_batch_sum(
-            batch.payloads.float() - old, valid))
-        h_sum = _acc(state["h_sum"], delta.sum(0))
+            tree_map(lambda g, o: g.float() - o, batch.payloads, old),
+            valid))
+        h_sum = _acc(state["h_sum"], _sum_lanes(delta))
         return self._refresh(state, h, accum, h_sum, count)
 
     def resync(self, state):
@@ -417,9 +489,9 @@ class CA2FLDirect(Aggregator):
     name = "ca2fl_direct"
 
     def init_state(self, n, d, init_grads=None, device=None):
-        h = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
-                            backend=self.backend)
-        dev = h.data.device
+        h = _init_cache(n, d, self.cache_dtype, init_grads, device,
+                        self.backend)
+        dev = cache_device(h)
         return {"h": h,
                 "h_bar": _astate(cache_mean(h, backend=self.backend),
                                  self.state_dtype),
@@ -428,19 +500,22 @@ class CA2FLDirect(Aggregator):
 
     def step(self, state, arr):
         h = state["h"]
-        j = row_index(arr.client, h.data.device)
+        j = row_index(arr.client, cache_device(h))
         # read the old row before the write: the cache is updated in place
         old = cache_row(h, j, backend=self.backend)
-        accum = _acc(state["accum"], arr.payload.float() - old)
+        accum = _acc(state["accum"], tree_map(lambda g, o: g.float() - o,
+                                              arr.payload, old))
         h = cache_set_row(h, j, arr.payload, backend=self.backend)
         count = state["count"] + 1
         emit = count >= self.buffer_size
-        h_bar = state["h_bar"]
-        update = h_bar.float() + accum.float() / count.float()
-        h_bar = torch.where(emit, cache_mean(h, backend=self.backend),
-                            h_bar.float()).to(h_bar.dtype)
+        cf = count.float()
+        update = tree_map(lambda hb, a: hb.float() + a.float() / cf,
+                          state["h_bar"], accum)
+        h_bar = tree_map(lambda hb, hm: torch.where(
+            emit, hm, hb.float()).to(hb.dtype), state["h_bar"],
+            cache_mean(h, backend=self.backend))
         new_state = {"h": h, "h_bar": h_bar,
-                     "accum": torch.where(emit, 0.0, accum),
+                     "accum": _gate(emit, 0.0, accum),
                      "count": torch.where(emit, 0, count)}
         return new_state, update, emit, 1.0
 
@@ -455,13 +530,13 @@ class ACEDirect(Aggregator):
     cache_init = True
 
     def init_state(self, n, d, init_grads=None, device=None):
-        return {"cache": init_flat_cache(n, d, self.cache_dtype, init_grads,
-                                         device, backend=self.backend)}
+        return {"cache": _init_cache(n, d, self.cache_dtype, init_grads,
+                                     device, self.backend)}
 
     def step(self, state, arr):
         cache = cache_set_row(state["cache"], arr.client, arr.payload,
                               backend=self.backend)
-        true = torch.ones((), dtype=torch.bool, device=cache.data.device)
+        true = torch.ones((), dtype=torch.bool, device=cache_device(cache))
         return ({"cache": cache}, cache_mean(cache, backend=self.backend),
                 true, 1.0)
 
@@ -483,18 +558,18 @@ class ACEIncremental(Aggregator):
     cache_init = True
 
     def init_state(self, n, d, init_grads=None, device=None):
-        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
-                                backend=self.backend)
+        cache = _init_cache(n, d, self.cache_dtype, init_grads, device,
+                            self.backend)
         return {"cache": cache,
                 "u": _astate(cache_mean(cache, backend=self.backend),
                              self.state_dtype)}
 
     def step(self, state, arr):
         cache, u = state["cache"], state["u"]
-        dev = cache.data.device
+        dev = cache_device(cache)
         j = row_index(arr.client, dev)
         true = _true(dev)
-        if cache.quantized:
+        if isinstance(cache, FlatCache) and cache.quantized:
             # one launch: the new scale, the row swap in place and a fresh
             # u' (added in f32, stored in the state dtype); u is not written
             u = kernel_ops.cache_row_update(cache.data, cache.scale, j,
@@ -502,10 +577,11 @@ class ACEIncremental(Aggregator):
                                             backend=self.backend)
             return {"cache": cache, "u": u}, u, true, 1.0
         n = cache_n(cache)
-        old = cache_row(cache, j)
-        cache = cache_set_row(cache, j, arr.payload)
-        new = cache_row(cache, j)
-        u = (u.float() + (new - old) / n).to(u.dtype)
+        old = cache_row(cache, j, self.backend)
+        cache = cache_set_row(cache, j, arr.payload, self.backend)
+        new = cache_row(cache, j, self.backend)
+        u = tree_map(lambda u_, nw, od: (u_.float() + (nw - od) / n
+                                         ).to(u_.dtype), u, new, old)
         return {"cache": cache, "u": u}, u, true, 1.0
 
     def step_batch(self, state, batch):
@@ -513,11 +589,11 @@ class ACEIncremental(Aggregator):
         # pass — the fused commit kernel (basis [u, S_Δ, ...]:
         # u' = u + S_Δ/n), or the op chain.
         cache = state["cache"]
-        dev = cache.data.device
+        dev = cache_device(cache)
         js = row_index(batch.clients, dev)
         n = cache_n(cache)
         emit = batch.valid.any()
-        if _fused_flat_commit(self.fused_commit, (state["u"],)):
+        if _fused_flat_commit(self.fused_commit, cache, (state["u"],)):
             coef = _constant(("ace_coef", n), dev, lambda: torch.tensor(
                 [[1.0, 1.0 / n, 0.0, 0.0, 0.0]], dtype=torch.float32,
                 device=dev))
@@ -526,9 +602,9 @@ class ACEIncremental(Aggregator):
                 coef, coef[0], backend=self.backend)
             return {"cache": cache, "u": u}, u, emit, 1.0
         cache, delta, _ = cache_set_rows_delta(cache, js, batch.payloads,
-                                               batch.valid)
-        u = state["u"]
-        u = (u.float() + delta.sum(0) / n).to(u.dtype)
+                                               batch.valid, self.backend)
+        u = tree_map(lambda u_, d_: (u_.float() + d_ / n).to(u_.dtype),
+                     state["u"], _sum_lanes(delta))
         return {"cache": cache, "u": u}, u, emit, 1.0
 
     def resync(self, state):
@@ -575,9 +651,9 @@ class ACED(Aggregator):
         return self.tau_algo + 2
 
     def init_state(self, n, d, init_grads=None, device=None):
-        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
-                                backend=self.backend)
-        dev = cache.data.device
+        cache = _init_cache(n, d, self.cache_dtype, init_grads, device,
+                            self.backend)
+        dev = cache_device(cache)
         ring_shape = ((self.ring_size,) if self.max_cohort == 1
                       else (self.ring_size, self.max_cohort))
         asum = _astate(cache_sum(cache, backend=self.backend),
@@ -619,11 +695,14 @@ class ACED(Aggregator):
         rows = cache_rows(cache, ow.reshape(-1), backend=self.backend)
         slot_gone = gone
         if owners.dim() == 2:            # a cohort per slot: sum its lanes
-            rows = torch.where(gone.reshape(-1, 1), rows, 0.0).reshape(
-                owners.shape + rows.shape[-1:]).sum(1)
+            g = gone.reshape(-1)
+            rows = tree_map(lambda r: torch.where(
+                broadcast_lanes(g, r), r, 0.0).reshape(
+                    owners.shape + r.shape[1:]).sum(1), rows)
             slot_gone = gone.any(1)
-        for k in range(rows.shape[0]):
-            asum = _where_sub(asum, rows[k], slot_gone[k])
+        for k in range(owners.shape[0]):
+            asum = _where_sub(asum, tree_map(lambda r: r[k], rows),
+                              slot_gone[k])
         ring = ring.index_copy(0, s, torch.where(gone, -1, owners))
         return asum, gone.sum(dtype=torch.int32), ring
 
@@ -640,12 +719,13 @@ class ACED(Aggregator):
 
     def step(self, state, arr):
         cache = state["cache"]
-        dev = cache.data.device
+        dev = cache_device(cache)
         if self.max_cohort > 1:
             # the (P, max_cohort) ring speaks cohorts — route single
             # arrivals through the batched transition as a 1-lane batch
             return self.step_batch(state, ArrivalBatch(
-                clients=row_index(arr.client, dev), payloads=arr.payload[None],
+                clients=row_index(arr.client, dev),
+                payloads=tree_map(lambda g: g[None], arr.payload),
                 t=arr.t, staleness=row_index(arr.staleness, dev),
                 valid=torch.ones((1,), dtype=torch.bool, device=dev)))
         j = row_index(arr.client, dev)
@@ -683,11 +763,16 @@ class ACED(Aggregator):
         g_fire = fire.float()
         g_ret = 1.0 - was_active.float()
         init_sum = state["init_sum"]
-        asum = (asum.float() - g_dead * dead_row - g_fire * init_sum.float()
-                + delta + g_ret * old).to(asum.dtype)
+        asum = tree_map(
+            lambda a, r_, i_, d_, o: (a.float() - g_dead * r_
+                                      - g_fire * i_.float() + d_ + g_ret * o
+                                      ).to(a.dtype),
+            asum, dead_row, init_sum, delta, old)
         count = count + 1 - was_active[0].int()
-        init_sum = ((1.0 - g_fire) * init_sum.float()
-                    - was_init.float() * old).to(init_sum.dtype)
+        g_wi = was_init.float()
+        init_sum = tree_map(lambda i_, o: ((1.0 - g_fire) * i_.float()
+                                           - g_wi * o).to(i_.dtype),
+                            init_sum, old)
         init_count = init_count - was_init[0].int()
         init_mask = init_mask.index_copy(
             0, j, torch.zeros((1,), dtype=torch.bool, device=dev))
@@ -700,7 +785,7 @@ class ACED(Aggregator):
                                j.int())
         t_start = t_start.index_copy(0, j, (t + 1).reshape(1))
 
-        update = asum.float() * _inv_count(count)
+        update = _scaled(asum, _inv_count(count))
         new_state = {"cache": cache, "t_start": t_start, "ring": ring,
                      "asum": asum, "count": count, "t_prev": t,
                      "init_sum": init_sum, "init_count": init_count,
@@ -712,7 +797,7 @@ class ACED(Aggregator):
         Requires ``max_cohort ≥ K``: the ring row at ``(t+1) mod P`` owns the
         whole cohort, and every expiry retires a slot's entire cohort."""
         cache = state["cache"]
-        dev = cache.data.device
+        dev = cache_device(cache)
         js = row_index(batch.clients, dev)
         K = js.shape[0]
         if self.max_cohort < max(K, 2):
@@ -743,7 +828,7 @@ class ACED(Aggregator):
         count = count + ret.sum(dtype=torch.int32)
         inv = _inv_count(count)
         init_sum = state["init_sum"]
-        if _fused_flat_commit(self.fused_commit, (asum, init_sum)):
+        if _fused_flat_commit(self.fused_commit, cache, (asum, init_sum)):
             # basis [asum, init_sum, S_Δ, S_A, S_B, S_G], lane_a = ret,
             # lane_b = was_init:
             #   asum'     = asum − g_fire·init_sum + S_Δ + S_A
@@ -761,14 +846,18 @@ class ACED(Aggregator):
                 backend=self.backend)
             asum, init_sum = out[0], out[1]
         else:
-            cache, delta, old = cache_set_rows_delta(cache, js,
-                                                     batch.payloads, valid)
-            asum = (asum.float() - g_fire * init_sum.float() + delta.sum(0)
-                    + _masked_batch_sum(old, ret)).to(asum.dtype)
-            init_sum = ((1.0 - g_fire) * init_sum.float()
-                        - _masked_batch_sum(old, was_init)
-                        ).to(init_sum.dtype)
-            update = asum.float() * inv
+            cache, delta, old = cache_set_rows_delta(
+                cache, js, batch.payloads, valid, self.backend)
+            asum = tree_map(
+                lambda a, i_, d_, r_: (a.float() - g_fire * i_.float() + d_
+                                       + r_).to(a.dtype),
+                asum, init_sum, _sum_lanes(delta),
+                _masked_batch_sum(old, ret))
+            init_sum = tree_map(
+                lambda i_, w_: ((1.0 - g_fire) * i_.float() - w_
+                                ).to(i_.dtype),
+                init_sum, _masked_batch_sum(old, was_init))
+            update = _scaled(asum, inv)
         init_count = init_count - was_init.sum(dtype=torch.int32)
         init_mask = init_mask.index_copy(0, js, init_mask[js] & ~valid)
         t_start = t_start.index_copy(
@@ -819,21 +908,21 @@ class ACEDDirect(Aggregator):
     cache_init = True
 
     def init_state(self, n, d, init_grads=None, device=None):
-        cache = init_flat_cache(n, d, self.cache_dtype, init_grads, device,
-                                backend=self.backend)
+        cache = _init_cache(n, d, self.cache_dtype, init_grads, device,
+                            self.backend)
         return {"cache": cache,
                 "t_start": torch.ones((n,), dtype=torch.int32,
-                                      device=cache.data.device)}
+                                      device=cache_device(cache))}
 
     def step(self, state, arr):
         cache = state["cache"]
-        dev = cache.data.device
+        dev = cache_device(cache)
         j = row_index(arr.client, dev)
         cache = cache_set_row(cache, j, arr.payload, backend=self.backend)
         t = _int(arr.t, dev)
         t_start = state["t_start"].index_copy(0, j, (t + 1).reshape(1))
         active = (t - t_start) <= self.tau_algo
-        if cache.quantized:
+        if isinstance(cache, FlatCache) and cache.quantized:
             update = kernel_ops.masked_agg(cache.data, cache.scale, active,
                                            backend=self.backend)
         else:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.convert import unravel
+from repro_torch.convert import _rebuild, leaves, unravel
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import (make_classification,
                                         make_text_classification)
@@ -112,8 +112,11 @@ def _pad_clients(xs, ys, parts):
 @dataclasses.dataclass
 class ClientGrad:
     """A batched client gradient with the noise it consumes:
-    ``fn(w (B, d), clients (B,), noise (B, *noise_shape)) -> (loss (B,),
-    grads (B, d))``, noise drawn as uniform on [0, 1) or standard normal."""
+    ``fn(w, clients (B,), noise (B, *noise_shape)) -> (loss (B,), grads)``
+    where `w` is a (B, d) tensor of raveled models (the flat layout) or a
+    parameter structure whose leaves lead with (B,) (the tree layout), and
+    `grads` has `w`'s form; noise drawn as uniform on [0, 1) or standard
+    normal."""
     fn: Callable
     noise_shape: tuple
     noise_dist: str = "uniform"
@@ -157,11 +160,17 @@ def _task(x, y, n_train, n_clients, alpha, seed, init, apply, batch, device,
         ix = torch.minimum(torch.floor(u * n_c.float()).long(), n_c - 1)
         xb = cx[clients.unsqueeze(-1), ix]                     # (B, batch, ...)
         yb = cy[clients.unsqueeze(-1), ix]
+        flat = isinstance(w, torch.Tensor)
         with torch.enable_grad():
-            w = w.detach().requires_grad_(True)
-            loss = _xent(apply(unravel(w, params0), xb), yb)   # (B,)
-            (g,) = torch.autograd.grad(loss.sum(), w)
-        return loss.detach(), g
+            # the raveled (B, d) rows, or the parameter structure itself
+            # (the tree layout): its leaves are the leaves of the gradient
+            xs = [x.detach().requires_grad_(True)
+                  for x in ([w] if flat else leaves(w))]
+            params = (unravel(xs[0], params0) if flat
+                      else _rebuild(w, iter(xs)))
+            loss = _xent(apply(params, xb), yb)                # (B,)
+            gs = torch.autograd.grad(loss.sum(), xs)
+        return loss.detach(), gs[0] if flat else _rebuild(w, iter(gs))
 
     xte_t = torch.as_tensor(xte).to(device)
     if not xte_t.is_floating_point():

@@ -32,6 +32,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.convert import leaves
+
 #: tolerance of the incremental-vs-resync agreement: the incremental path
 #: accumulates one f32 rounding per event, the recompute sums n rows once
 RESYNC_RTOL = 1e-3
@@ -66,8 +68,13 @@ def enabled(override: Optional[bool] = None) -> bool:
         "", "0", "false", "off", "no")
 
 
-def _finite(x: torch.Tensor) -> torch.Tensor:
-    return torch.isfinite(x).all()
+def _finite(x) -> torch.Tensor:
+    """All of a tensor finite, or of every floating leaf of a structure (the
+    tree layout), as JAX's `_finite_pred`."""
+    if isinstance(x, torch.Tensor):
+        return torch.isfinite(x).all()
+    return torch.stack([torch.isfinite(t).all() for t in leaves(x)
+                        if t.is_floating_point()]).all()
 
 
 def check_model_finite(w) -> List[Check]:
@@ -162,11 +169,15 @@ def check_resync_agreement(incremental, resynced, when) -> List[Check]:
     ok = torch.ones((), dtype=torch.bool, device=when.device)
     for k, exact in resynced.items():
         # a resync hands back what it does not recompute (the caches too)
-        if exact is incremental[k] or not exact.is_floating_point():
+        if exact is incremental[k]:
             continue
-        b = exact.float()
-        tol = RESYNC_RTOL * (1.0 + b.abs().max())
-        ok = ok & ((incremental[k].float() - b).abs().max() <= tol)
+        # a tree-layout sum is compared leaf by leaf, as JAX's check does
+        for a, b in zip(leaves(incremental[k]), leaves(exact)):
+            if not b.is_floating_point():
+                continue
+            b = b.float()
+            tol = RESYNC_RTOL * (1.0 + b.abs().max())
+            ok = ok & ((a.float() - b).abs().max() <= tol)
     return [(RESYNC, ~when | ok)]
 
 

@@ -31,11 +31,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.convert import ravel
+from repro_torch.convert import ravel, tree_map
 from repro_torch.core import sanitize
 from repro_torch.core.aggregators import (ALGORITHMS, Aggregator, Arrival,
                                           wants_cache_init)
-from repro_torch.core.cache import FlatCache
+from repro_torch.core.cache import FlatCache, cache_tensors
 from repro_torch.core.delays import ExponentialDelays, build_schedule
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
@@ -66,21 +66,26 @@ class ScanResult:
 
 def _payload_chain(grad_fn: Callable, local_steps: int, local_lr: float):
     """Client payload over a batch of B lanes:
-    ``payload(w (B, d), clients (B,), noise (B, L, ...)) -> (payload (B, d)
-    f32, loss (B,))``, L = `local_steps`. One `grad_fn` call per local step,
-    each on that step's noise slice; with L > 1 the payload is the local
-    displacement ``(w_start − w_L) / (L·local_lr)``, as in the JAX chain."""
+    ``payload(w, clients (B,), noise (B, L, ...)) -> (payload, loss (B,))``,
+    L = `local_steps`, where `w` is a (B, d) tensor (the flat layout) or a
+    parameter structure whose leaves lead with (B,) (the tree layout; JAX's
+    `_tree_payload_chain`: a tensor is a structure of one leaf, so the flat
+    chain is the same ops), the payload in `w`'s form in f32. One
+    `grad_fn` call per local step, each on that step's noise slice; with
+    L > 1 the payload is the local displacement ``(w_start − w_L) /
+    (L·local_lr)`` per leaf, as in the JAX chain."""
     L = local_steps
 
     def payload(w, clients, noise):
         if L == 1:
             loss, g = grad_fn(w, clients, noise[:, 0])
-            return g.float(), loss
+            return tree_map(lambda x: x.float(), g), loss
         w_start = w
         for s in range(L):
             loss, g = grad_fn(w, clients, noise[:, s])
-            w = w - local_lr * g
-        return ((w_start - w) / (L * local_lr)).float(), loss
+            w = tree_map(lambda a, b: a - local_lr * b, w, g)
+        return tree_map(lambda a, b: ((a - b) / (L * local_lr)).float(),
+                        w_start, w), loss
     return payload
 
 
@@ -171,9 +176,12 @@ class _Program:
 
 
 def _tree_clone(x):
-    """A copy of a carry (or of a part of one) sharing no storage with it."""
+    """A copy of a carry (or of a part of one: dicts, lists, caches of
+    either layout, tensors) sharing no storage with it."""
     if isinstance(x, dict):
         return {k: _tree_clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_clone(v) for v in x)
     if isinstance(x, FlatCache):
         return FlatCache(x.data.clone(), x.scale.clone())
     return x.clone()
@@ -187,6 +195,12 @@ def _tree_copy_(dst, src):
                              f"whose carry has {sorted(dst)}")
         for k in dst:
             _tree_copy_(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError(f"a carry list of {len(src)} entries for a "
+                             f"runner whose carry has {len(dst)}")
+        for a, b in zip(dst, src):
+            _tree_copy_(a, b)
     elif isinstance(dst, FlatCache):
         dst.data.copy_(src.data)
         dst.scale.copy_(src.scale)
@@ -196,15 +210,16 @@ def _tree_copy_(dst, src):
 
 def _copy_state_(agg: Aggregator, state, new_state) -> None:
     """A tick's copy-back of the rule's state: every new tensor into the
-    carry's own (a cache was written in place and must come back as the
-    same object; a fresh one would be lost to the next tick)."""
+    carry's own (a cache of either layout was written in place and must
+    come back as the same object; a fresh one would be lost to the next
+    tick)."""
     for k, v in new_state.items():
-        if isinstance(v, FlatCache):
+        if cache_tensors(v):
             if v is not state[k]:
                 raise RuntimeError(f"{type(agg).__name__}.step returned "
                                    f"a new cache for {k!r}")
         else:
-            state[k].copy_(v)
+            _tree_copy_(state[k], v)
 
 
 def _write_outs(outs, e, row) -> None:
@@ -432,7 +447,8 @@ def _scan_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             state, Arrival(aj, payloads[0], t, staleness))
         emit = emit & (t < T)
         eta = lr_of_t(t, xs["lr"]) * lr_scale
-        w = torch.where(emit, carry["w"] - eta * u, carry["w"])
+        # in f32, as JAX's (`_staleness_program`'s `apply_update`)
+        w = torch.where(emit, carry["w"] - eta * u.float(), carry["w"])
         t_new = t + emit.int()
         row = {"loss": losses[0], "emit": emit, "t": t,
                "unorm": torch.linalg.vector_norm(u)}

@@ -1,5 +1,5 @@
-"""Sampled-staleness engine on the flat (n, d) cache — port of the flat
-layout of `repro.core.scan_staleness` (the paper's Fig. 2/3 protocol).
+"""Sampled-staleness engine — port of `repro.core.scan_staleness` (the
+paper's Fig. 2/3 protocol) in both of its layouts.
 
 Per tick: sample the arriving client(s) by Gumbel argmax (K = 1) or
 Gumbel top-k (K > 1) over speed-skewed log-probabilities with the
@@ -63,9 +63,21 @@ package's sanitize checks in the tick as device-side records
 runner after the chunk that violated one. The sweeps build their runners
 with the checks off, as JAX's do.
 
+Layouts. ``layout="flat"`` (the default) carries the raveled (d,) model
+over a `FlatCache`; ``layout="tree"`` carries the parameter structure
+itself (JAX's tree layout): the rules keep tree caches (one stacked cache
+per parameter leaf, `repro_torch.core.cache`), the payloads and running
+sums are shaped like the parameters, the history ring is a tree cache in
+``history_dtype`` (float32, bfloat16 or an int8 ring, tree-only), and the
+tick is captured like the flat one. The fused kernels of the flat layout
+(`commit_batch`, `row_delta`, `cache_row_update`, `masked_agg`) stay
+flat-only, as in JAX; a tree's int8 leaves are quantized and dequantized
+by the `quantize_rows` / `dequantize_rows` kernels. The seed and grid
+sweeps stay flat, as JAX's are.
+
 The host reference of this engine is
-`repro_torch.core.staleness_sim.StalenessSimulator`. Not ported yet: the
-tree layout and the sharded runner.
+`repro_torch.core.staleness_sim.StalenessSimulator` (flat; a tree run is
+held against it through `ravel`). Not ported yet: the sharded runner.
 """
 from __future__ import annotations
 
@@ -75,15 +87,18 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.convert import ravel, unravel
+from repro_torch.convert import leaves, ravel, tree_map, unravel
 from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
-                                          wants_cache_init)
+                                          _gate, wants_cache_init)
 from repro_torch.core import sanitize
-from repro_torch.core.cache import FlatCache
+from repro_torch.core.cache import (DTYPES, broadcast_lanes, cache_tensors,
+                                    init_tree_cache, tree_cache_rows,
+                                    tree_cache_set_row)
 from repro_torch.core.scan_engine import (PayloadNoise, ScanResult, _Program,
                                           _Ticks, _TickRunner, _copy_state_,
                                           _payload_chain, _to_result,
-                                          _tree_clone, _use_graph,
+                                          _tree_clone, _tree_copy_,
+                                          _use_graph,
                                           _write_outs, build_payload_noise,
                                           default_n_events)
 from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
@@ -238,68 +253,65 @@ def build_fault_schedule(seed: int, n_events: int, *, k_batch: int = 1,
                                           dtype=torch.float32, device=device))
 
 
-# ---------------------------------------------------------------------------
-# Ring-buffer model history: the bounded deque, on the device.
-# ---------------------------------------------------------------------------
-
-def ring_read(ring: torch.Tensor, cursor, tau):
-    """``history[-(tau+1)]``: the model τ emitted updates ago (one row for a
-    0-d τ, (K, d) rows for a (K,) τ). `cursor` is the slot holding the
-    newest model; requires τ ≤ min(t, capacity−1)."""
-    slot = torch.remainder(cursor - tau, ring.shape[0]).long()
-    return ring.index_select(0, slot.reshape(-1)).reshape(
-        tuple(slot.shape) + ring.shape[1:])
-
-
-def ring_append(ring: torch.Tensor, cursor, w, emit):
-    """``history.append(w)`` gated on `emit`, in place: advance the cursor
-    and write. When not emitting the cursor stays and `w` (unchanged)
-    rewrites its own slot, so the write is unconditional."""
-    cursor = torch.where(emit, torch.remainder(cursor + 1, ring.shape[0]),
-                         cursor)
-    ring.index_copy_(0, cursor.long().reshape(1), w[None])
-    return ring, cursor
-
-
 def _select_state(proc, new, old, saved, idx):
     """``where(proc, new, old)`` over the aggregator state. The tensors of
     `old` were never written (the rules replace them), so a select is
-    enough; a cache in `saved` was written in place at rows `idx`, so a tick
-    that did not process restores those rows from it. A cache not in
-    `saved` is taken as it stands."""
+    enough; a cache (either layout) in `saved` was written in place at rows
+    `idx`, so a tick that did not process restores those rows from it. A
+    cache not in `saved` is taken as it stands."""
     out = {}
     for k, v in new.items():
-        if isinstance(v, FlatCache) and k not in saved:
-            out[k] = v
-        elif isinstance(v, FlatCache):
-            data, scale = saved[k]
-            v.data.index_copy_(0, idx, torch.where(
-                proc, v.data.index_select(0, idx), data))
-            v.scale.index_copy_(0, idx, torch.where(
-                proc, v.scale.index_select(0, idx), scale))
+        if cache_tensors(v):
+            for t, rows in zip(cache_tensors(v), saved.get(k, ())):
+                t.index_copy_(0, idx, torch.where(
+                    proc, t.index_select(0, idx), rows))
             out[k] = v
         else:
-            out[k] = torch.where(proc, v, old[k])
+            out[k] = _gate(proc, v, old[k])
     return out
 
 
+def _tree_global_norm(tree):
+    """‖tree‖₂ over all leaves (the tree layout's ``unorm``): the leaves'
+    sums of squares added in leaf order, as JAX's."""
+    sq = [x.float().square().sum() for x in leaves(tree)]
+    return sum(sq[1:], sq[0]).sqrt()
+
+
+def _tree_lane_norms(tree):
+    """(K,) per-lane ‖·‖₂ of a structure whose leaves lead with (K,): lane
+    k's `_tree_global_norm`."""
+    sq = [x.float().square().reshape(x.shape[0], -1).sum(1)
+          for x in leaves(tree)]
+    return sum(sq[1:], sq[0]).sqrt()
+
+
 def _guard_payloads(payloads, kind, scale, clip_norm):
-    """The guard pipeline's payload stage over (K, d) lanes: inject each
-    lane's fault (× NaN, × `scale` for EXPLODE, × −1 for BYZANTINE; × 1.0,
-    an identity, when clean), then clip lanes with ‖g‖ > `clip_norm` to it
-    (``clip_norm ≤ 0`` disables; a NaN norm compares False, so a
-    quarantined lane is never also clipped). Returns ``(payloads, finite
-    (K,), do_clip (K,))``."""
+    """The guard pipeline's payload stage over K lanes ((K, d) payloads, or
+    a structure whose leaves lead with (K,)): inject each lane's fault
+    (× NaN, × `scale` for EXPLODE, × −1 for BYZANTINE; × 1.0, an identity,
+    when clean), then clip lanes with ‖g‖ > `clip_norm` to it (``clip_norm
+    ≤ 0`` disables; a NaN norm compares False, so a quarantined lane is
+    never also clipped); the tree's finite check covers every leaf and its
+    norm is the lane's global norm. Returns ``(payloads, finite (K,),
+    do_clip (K,))``."""
     mult = torch.where(kind == FAULT_NAN, float("nan"), 1.0)
     mult = mult * torch.where(kind == FAULT_EXPLODE, scale, 1.0)
     mult = torch.where(kind == FAULT_BYZANTINE, -mult, mult)
-    payloads = payloads * mult[:, None]
-    finite = torch.isfinite(payloads).all(1)
-    gnorm = torch.linalg.vector_norm(payloads, dim=1)
+    if isinstance(payloads, torch.Tensor):
+        payloads = payloads * mult[:, None]
+        finite = torch.isfinite(payloads).all(1)
+        gnorm = torch.linalg.vector_norm(payloads, dim=1)
+    else:
+        payloads = tree_map(lambda p: p * broadcast_lanes(mult, p), payloads)
+        finite = torch.stack([torch.isfinite(x).reshape(x.shape[0], -1)
+                              .all(1) for x in leaves(payloads)]).all(0)
+        gnorm = _tree_lane_norms(payloads)
     do_clip = (clip_norm > 0) & (gnorm > clip_norm)
     cscale = torch.where(do_clip, clip_norm / torch.clamp(gnorm, min=1e-12),
                          1.0)
-    return payloads * cscale[:, None], finite, do_clip
+    return (tree_map(lambda p: p * broadcast_lanes(cscale, p), payloads),
+            finite, do_clip)
 
 
 def _resync_select(do, synced, state):
@@ -308,7 +320,7 @@ def _resync_select(do, synced, state):
     on a device value. A resync only reads the caches and hands the
     tensors it does not recompute back as they were, so only the
     recomputed ones are selected."""
-    return {k: v if v is state[k] else torch.where(do, v, state[k])
+    return {k: v if v is state[k] else _gate(do, v, state[k])
             for k, v in synced.items()}
 
 
@@ -328,20 +340,27 @@ def eval_marks_for(T: int,
 def snapshot_update(snaps, hits, marks, t_new, emit, w):
     """Write `w` into the snapshot row whose mark equals `t_new`, gated on
     `emit` (t lands on a mark only through an emitted update; a freeze's
-    fast-forward jump skips its marks, as the host's modulo cadence does).
-    Returns the new ``(snaps, hits)``."""
+    fast-forward jump skips its marks, as the host's modulo cadence does);
+    a tree model leaf by leaf, into snapshots whose leaves lead with
+    (n_marks,). Returns the new ``(snaps, hits)``."""
     hit = emit & (marks == t_new)                        # (n_marks,) bool
-    return torch.where(hit[:, None], w[None], snaps), hits | hit
+    return (tree_map(lambda sn, x: torch.where(broadcast_lanes(hit, sn),
+                                               x[None], sn), snaps, w),
+            hits | hit)
 
 
 def _apply_evals(snaps, hits, marks, eval_fn, unravel_fn):
     """Run the host `eval_fn` over the marks the run reached, on the
-    parameters `unravel_fn` makes of each snapshot row."""
+    parameters `unravel_fn` makes of each snapshot row; with
+    ``unravel_fn=None`` the snapshots are a parameter structure whose
+    leaves lead with (n_marks,) (the tree layout)."""
     evals, eval_ts = [], []
     reached = hits.cpu().numpy()
     for i, m in enumerate(marks):
         if reached[i]:
-            evals.append(eval_fn(unravel_fn(snaps[i])))
+            evals.append(eval_fn(
+                tree_map(lambda x: x[i], snaps) if unravel_fn is None
+                else unravel_fn(snaps[i])))
             eval_ts.append(int(m))
     return evals, eval_ts
 
@@ -366,6 +385,7 @@ class _StalenessProgram(_Program):
     local_steps: int
     guards: bool
     resync_every: Optional[int]
+    layout: str
 
 
 def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -376,6 +396,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        eval_marks: Optional[Tuple[int, ...]] = None,
                        local_steps: int = 1, local_lr: float = 0.05,
                        init_cache_grads: bool = True, record_w: bool = False,
+                       layout: str = "flat", history_dtype: str = "float32",
                        k_batch: int = 1, guards: bool = False,
                        resync_every: Optional[int] = None,
                        checks: bool = False,
@@ -410,7 +431,32 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     `checks` puts JAX's sanitize checks in the tick where JAX's checkify
     has them (`repro_torch.core.sanitize`): the carry's ``checks`` records
     hold the first event each one failed at, or −1. Off, the tick has no
-    check op."""
+    check op.
+
+    `layout` picks the model's form, as in JAX: "flat" carries the raveled
+    (d,) model, a (tau_max+1, d) ring and (n_marks, d) snapshots; "tree"
+    carries `params0`'s structure (dicts and lists of tensors), hands the
+    rule the parameter template (tree caches, running sums shaped like the
+    parameters) and payloads of that structure, and keeps the ring's rows
+    in `history_dtype` ("float32", "bfloat16" or "int8": the ring's int8
+    leaves go through the quantize_rows and dequantize_rows kernels on the
+    card, or their plain versions for a ``backend="torch"`` rule) and the
+    snapshots per leaf. Either ring is a tree cache (`core.cache`), the
+    flat one of a single (tau_max+1, d) leaf."""
+    if layout == "flat":
+        if history_dtype != "float32":
+            raise ValueError("quantized history ring is tree-layout only")
+    elif layout == "tree":
+        if record_w:
+            raise ValueError("record_w is flat-layout only (a per-event "
+                             "model trajectory buffer does not fit the tree "
+                             "path's real-model sizes)")
+        if history_dtype not in DTYPES:
+            raise ValueError(f"history_dtype={history_dtype!r}: one of "
+                             f"{sorted(DTYPES)}")
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    tree = layout == "tree"
     device = resolve_device(device)
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -434,14 +480,55 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     wants_init = init_cache_grads and wants_cache_init(agg)
     log_probs = torch.as_tensor(np.log(staleness_client_probs(n, speed_skew)),
                                 dtype=torch.float32).to(device)
-    payload_fn = _payload_chain(grad_fn, local_steps, local_lr)
-    w0 = ravel(params0).to(device=device, dtype=torch.float32)
-    d = w0.numel()
     marks = (torch.tensor(eval_marks, dtype=torch.int32, device=device)
              if eval_marks is not None else None)
 
     def i32(x):
         return torch.full((), x, dtype=torch.int32, device=device)
+
+    payload_fn = _payload_chain(grad_fn, local_steps, local_lr)
+    # the two layouts differ only in these (JAX's layout table)
+    if tree:
+        w0 = tree_map(lambda x: torch.as_tensor(x).to(
+            device=device, dtype=torch.float32).clone(), params0)
+        d = sum(x.numel() for x in leaves(w0))
+        d_tpl = w0              # the rules take the parameter template as d
+        unorm = _tree_global_norm
+    else:
+        w0 = ravel(params0).to(device=device, dtype=torch.float32)
+        d = d_tpl = w0.numel()
+        unorm = torch.linalg.vector_norm
+
+    # the model history: a tree cache of S rows like w0 (the flat layout's
+    # is one (S, d) float32 leaf); its int8 leaves quantize through the
+    # rule's `backend`, so a ``backend="torch"`` rule runs no kernel
+    backend = getattr(agg, "backend", None)
+
+    def init_ring():
+        return tree_cache_set_row(init_tree_cache(
+            S, w0, history_dtype, device=device, backend=backend), 0, w0,
+            backend)
+
+    def rd_rings(ring, cursor, taus):
+        # ``history[-(tau+1)]`` for each lane: the model τ emitted updates
+        # ago; requires τ ≤ min(t, S−1)
+        return tree_cache_rows(ring, torch.remainder(cursor - taus, S),
+                               backend)
+
+    def ap_ring(ring, cursor, w, emit):
+        # ``history.append(w)`` gated on `emit`: the cursor advances on an
+        # emitting tick; on any other it stays and the unchanged model
+        # rewrites its own slot (re-quantized, the same codes), so the
+        # write is unconditional
+        cursor = torch.where(emit, torch.remainder(cursor + 1, S), cursor)
+        return tree_cache_set_row(ring, cursor, w, backend), cursor
+
+    def apply_update(w, u, eta, emit):
+        # the update in f32, as JAX's: a bf16 update (a bf16 `state_dtype`
+        # rule's running mean) times the 0-d f32 η would round to bf16 in
+        # PyTorch's promotion; an f32 update's `.float()` is no op
+        return tree_map(lambda wl, ul: torch.where(
+            emit, wl - eta * ul.float(), wl), w, u)
 
     def init(lr, init_noise=None):
         lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
@@ -454,27 +541,31 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # one payload per client at w0 (paper Alg. 1 line 1), and u⁰
             # applied before the loop (lines 4-5)
             init_rows, _ = payload_fn(
-                w0[None].repeat(n, 1), torch.arange(n, device=device),
+                tree_map(lambda x: x[None].repeat((n,) + (1,) * x.dim()),
+                         w0),
+                torch.arange(n, device=device),
                 torch.as_tensor(init_noise).to(device))
-            state = agg.init_state(n, d, init_rows, device)
-            w, t0 = w0 - lr_of_t(i32(0), lr) * init_rows.mean(0), 1
+            state = agg.init_state(n, d_tpl, init_rows, device)
+            eta0 = lr_of_t(i32(0), lr)
+            w = tree_map(lambda wl, r: wl - eta0 * r.mean(0), w0, init_rows)
+            t0 = 1
         else:
-            state = agg.init_state(n, d, None, device)
-            w, t0 = w0.clone(), 0
-        ring = torch.zeros((S, d), dtype=torch.float32, device=device)
-        ring[0] = w0
+            state = agg.init_state(n, d_tpl, None, device)
+            w, t0 = _tree_clone(w0), 0
+        ring = init_ring()
         cursor = i32(0)
         if wants_init:               # history = [w⁰, w¹] after the init update
-            ring, cursor = ring_append(ring, cursor, w,
-                                       torch.ones((), dtype=torch.bool,
-                                                  device=device))
+            ring, cursor = ap_ring(ring, cursor, w,
+                                   torch.ones((), dtype=torch.bool,
+                                              device=device))
         carry = {"w": w, "state": state, "t": i32(t0),
                  # emitted-update count: len(history) − 1 of the host deque;
                  # it falls behind t after a freeze's fast-forward jump
                  "n_upd": i32(t0), "ring": ring, "cursor": cursor,
                  "e": torch.zeros((), dtype=torch.int64, device=device)}
         if marks is not None:
-            carry["snaps"] = torch.zeros((marks.shape[0], d), device=device)
+            carry["snaps"] = tree_map(lambda x: torch.zeros(
+                (marks.shape[0],) + tuple(x.shape), device=device), w0)
             carry["hits"] = torch.zeros((marks.shape[0],), dtype=torch.bool,
                                         device=device)
         if guards:
@@ -514,7 +605,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                                   tau_req.reshape(-1))
         taus = torch.minimum(tau_req.reshape(-1),
                              torch.clamp(n_upd, max=tau_max))
-        w_stale = ring_read(carry["ring"], carry["cursor"], taus)
+        w_stale = rd_rings(carry["ring"], carry["cursor"], taus)
         payloads, losses = payload_fn(w_stale, js,
                                       xs["noise"].index_select(0, e)[0])
         if guards:
@@ -528,13 +619,13 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # a frozen K = 1 tick still writes its row in place: keep the
             # old one to restore (at K > 1 an all-invalid batch writes every
             # row back bit-exactly, so nothing needs saving)
-            saved = {k: (v.data.index_select(0, js),
-                         v.scale.index_select(0, js))
-                     for k, v in state.items() if isinstance(v, FlatCache)}
+            saved = {k: [x.index_select(0, js) for x in cache_tensors(v)]
+                     for k, v in state.items() if cache_tensors(v)}
             # a quarantined or rejected arrival is undone the same way
             proc = any_alive & ok[0] if guards else any_alive
             new_state, u, emit, lr_scale = agg.step(
-                state, Arrival(js, payloads[0], t, taus[0]))
+                state, Arrival(js, tree_map(lambda p: p[0], payloads), t,
+                               taus[0]))
             loss = losses[0]
         else:
             saved = {}
@@ -560,13 +651,14 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                                                              synced, do)
                 new_state = _resync_select(do, synced, new_state)
         eta = lr_of_t(t, xs["lr"]) * lr_scale
-        w = torch.where(emit, carry["w"] - eta * u, carry["w"])
-        _, cursor = ring_append(carry["ring"], carry["cursor"], w, emit)
+        w = apply_update(carry["w"], u, eta, emit)
+        _, cursor = ap_ring(carry["ring"], carry["cursor"], w, emit)
         if checks:
             # at K > 1 only the lanes the batch applied (a quarantined lane
             # carries its NaN)
-            applied = (payloads[0] if K == 1 else
-                       torch.where(valid[:, None], payloads, 0.0))
+            applied = tree_map(
+                lambda p: p[0] if K == 1 else torch.where(
+                    broadcast_lanes(valid, p), p, 0.0), payloads)
             found += (sanitize.check_model_finite(w)
                       + sanitize.check_payload_finite(applied, emit)
                       + sanitize.check_cursor_bounds(cursor, S)
@@ -582,8 +674,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         if marks is not None:
             new["snaps"], new["hits"] = snapshot_update(
                 carry["snaps"], carry["hits"], marks, new["t"], emit, w)
-        row = {"loss": loss, "emit": emit, "t": t,
-               "unorm": torch.linalg.vector_norm(u), "alive": any_alive}
+        row = {"loss": loss, "emit": emit, "t": t, "unorm": unorm(u),
+               "alive": any_alive}
         if record_w:
             row["w"] = w
         if guards:
@@ -602,7 +694,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         # the new carry goes into the carry's own tensors (every value above
         # is a fresh tensor; the caches were written in place)
         for k, v in new.items():
-            carry[k].copy_(v)
+            _tree_copy_(carry[k], v)
         if guards:
             for k, v in flags.items():
                 carry["guards"][k].add_(v)
@@ -617,7 +709,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         init=init, tick=tick, d=d, record_w=record_w, device=device,
         out_dtypes=out_dtypes, checks=checks, marks=eval_marks,
         tau_max=tau_max, k_batch=K, local_steps=local_steps,
-        guards=bool(guards), resync_every=resync_every)
+        guards=bool(guards), resync_every=resync_every, layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -676,11 +768,11 @@ class _Runner(_TickRunner):
                           payload_noise.init)
         carry, extras = ticks.carry, {}
         if self.prog.marks is not None:
-            extras = {"snaps": carry["snaps"].clone(),
+            extras = {"snaps": _tree_clone(carry["snaps"]),
                       "hits": carry["hits"].clone()}
         if self.prog.guards:
             extras["guards"] = _tree_clone(carry["guards"])
-        return (carry["w"].clone(), _tree_clone(carry["state"]),
+        return (_tree_clone(carry["w"]), _tree_clone(carry["state"]),
                 {k: v.clone() for k, v in ticks.outs.items()}, extras)
 
 
@@ -692,14 +784,19 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
                           eval_marks: Optional[Tuple[int, ...]] = None,
                           local_steps: int = 1, local_lr: float = 0.05,
                           init_cache_grads: bool = True,
-                          record_w: bool = False, k_batch: int = 1,
+                          record_w: bool = False, layout: str = "flat",
+                          history_dtype: str = "float32", k_batch: int = 1,
                           guards: bool = False,
                           resync_every: Optional[int] = None,
                           checkify_invariants: Optional[bool] = None,
                           device=None, graph: Optional[bool] = None):
     """Build the runner ``run(randomness, payload_noise, lr, faults=None,
     clip_norm=0.0) -> (w, state, outs, extras)`` once: the counterpart of
-    the JAX package's jitted runner (flat layout).
+    the JAX package's jitted runner. With ``layout="tree"`` the model `w`
+    and the snapshots are parameter structures, the rule's caches tree
+    caches and the history ring a tree cache in `history_dtype`
+    (`_staleness_program`); `grad_fn` then takes and returns the parameter
+    structure.
 
     `lr` is the constant server lr, a number or a 0-d tensor copied into
     the runner's own buffer, so one capture serves every lr (as JAX's traced
@@ -740,8 +837,9 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
         n_clients=n_clients, T=T, beta=beta, server_lr=server_lr,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=eval_marks,
         local_steps=local_steps, local_lr=local_lr,
-        init_cache_grads=init_cache_grads, record_w=record_w,
-        k_batch=k_batch, guards=guards, resync_every=resync_every,
+        init_cache_grads=init_cache_grads, record_w=record_w, layout=layout,
+        history_dtype=history_dtype, k_batch=k_batch, guards=guards,
+        resync_every=resync_every,
         checks=sanitize.enabled(checkify_invariants), device=device)
     return _Runner(prog, _use_graph(graph, prog.device))
 
@@ -772,6 +870,8 @@ class ChunkedStalenessRunner:
     #: the sanitize checks are in the tick (the carry holds their records;
     #: chunk raises at the slice that violated one)
     checkify_invariants: bool = False
+    #: "flat" or "tree" (the carry's model, ring and caches)
+    layout: str = "flat"
 
 
 def make_chunked_staleness_runner(*, capacity: int,
@@ -805,7 +905,7 @@ def make_chunked_staleness_runner(*, capacity: int,
 
     return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
                                   prog.k_batch, prog.guards,
-                                  prog.resync_every, checks)
+                                  prog.resync_every, checks, prog.layout)
 
 
 def _check_faults(faults: FaultSchedule, n_events: Optional[int],
@@ -826,15 +926,18 @@ def _check_faults(faults: FaultSchedule, n_events: Optional[int],
 def _staleness_result(run, T: int, n_init: int, marks, eval_fn,
                       params0) -> ScanResult:
     """The host record of one runner call ``(w, state, outs, extras)``,
-    the eval cadence's `eval_fn` applied to its snapshots."""
+    the eval cadence's `eval_fn` applied to its snapshots. A tree run's
+    model is raveled (`ScanResult.w` is (d,), as JAX's)."""
     w, _, outs, extras = run
+    flat = isinstance(w, torch.Tensor)
     evals, eval_ts = [], []
     if marks is not None and eval_fn is not None:
-        evals, eval_ts = _apply_evals(extras["snaps"], extras["hits"], marks,
-                                      eval_fn, lambda f: unravel(f, params0))
+        evals, eval_ts = _apply_evals(
+            extras["snaps"], extras["hits"], marks, eval_fn,
+            (lambda f: unravel(f, params0)) if flat else None)
     host = {k: v.cpu().numpy() for k, v in outs.items()}
-    return _to_result(w.cpu().numpy(), host, T, n_init, evals=evals,
-                      eval_ts=eval_ts)
+    return _to_result((w if flat else ravel(w)).cpu().numpy(), host, T,
+                      n_init, evals=evals, eval_ts=eval_ts)
 
 
 def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -848,6 +951,7 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        n_events: Optional[int] = None, local_steps: int = 1,
                        local_lr: float = 0.05, init_cache_grads: bool = True,
                        seed: int = 0, record_w: bool = False,
+                       layout: str = "flat", history_dtype: str = "float32",
                        faults: Optional[FaultSchedule] = None,
                        clip_norm: float = 0.0,
                        resync_every: Optional[int] = None,
@@ -857,7 +961,7 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        randomness: Optional[StalenessRandomness] = None,
                        payload_noise: Optional[PayloadNoise] = None
                        ) -> ScanResult:
-    """One run of the sampled-staleness protocol on the flat cache, through
+    """One run of the sampled-staleness protocol, through
     `make_staleness_runner` (a captured CUDA graph on the card).
 
     `grad_fn(w (B, d), clients (B,), noise (B, ...)) -> (loss (B,),
@@ -870,6 +974,13 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     (parameters -> metrics), the model is snapshotted at the marks
     ``eval_marks_for(T, eval_every or T)`` and `eval_fn` runs on the host
     after the run on those the run reached (`ScanResult.evals`/`eval_ts`).
+
+    ``layout="tree"`` carries the model as `params0`'s structure: `grad_fn`
+    takes a structure whose leaves lead with (B,) and returns ``(loss (B,),
+    grads)`` of that structure, the rule keeps tree caches, the history
+    ring is a tree cache in `history_dtype` ("int8" quantizes each ring
+    row per leaf, leaving the exact replay contract by design, as JAX's),
+    and `ScanResult.w` is the raveled final model.
 
     ``faults`` (a `FaultSchedule`) or ``clip_norm > 0`` turn the guard
     pipeline on, as in the JAX package (`ScanResult.faults` holds its
@@ -898,9 +1009,10 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
         beta=beta, server_lr=server_lr if callable(server_lr) else None,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=marks,
         local_steps=local_steps, local_lr=local_lr,
-        init_cache_grads=init_cache_grads, record_w=record_w, k_batch=K,
-        guards=guards, resync_every=resync_every,
-        checkify_invariants=checkify_invariants, device=device)
+        init_cache_grads=init_cache_grads, record_w=record_w, layout=layout,
+        history_dtype=history_dtype, k_batch=K, guards=guards,
+        resync_every=resync_every, checkify_invariants=checkify_invariants,
+        device=device)
     if randomness is not None:
         n_events = randomness.n_events
     elif n_events is None:

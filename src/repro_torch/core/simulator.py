@@ -155,10 +155,11 @@ class _HostRun:
         return state, 1, n
 
     def _apply(self, update, lr_scale: float, t: int):
-        """``w ← w − η·update`` with ``η = f32(lr(t))·f32(lr_scale)``. The
-        model is replaced, never written in place, so a reference to an
-        earlier model (a client's copy, the staleness history) stays it."""
-        self.w = self.w - (self._lr(t) * lr_scale) * update
+        """``w ← w − η·update`` in f32 with ``η = f32(lr(t))·f32(lr_scale)``
+        (a bf16 update too, as JAX's host casts it). The model is replaced,
+        never written in place, so a reference to an earlier model (a
+        client's copy, the staleness history) stays it."""
+        self.w = self.w - (self._lr(t) * lr_scale) * update.float()
 
     def _eval(self, res: SimResult, t: int, T: int):
         if self.eval_fn and (t % self.eval_every == 0 or t == T):

@@ -19,7 +19,9 @@ CUDA graph, bit-identical to the eager tick; faulted and guarded runs and
 one capture serving a sweep included; the event engine and the text task
 at its full width too) with ``-k graph``, the sanitize checks with
 ``-k sanitize``, the host references against the graph runs with
-``-k host``."""
+``-k host``, the tree layout (graph = eager for the nine rules on tree
+caches, an int8 tree cache through the quant kernels against the CPU)
+with ``-k tree``."""
 import numpy as np
 import pytest
 
@@ -1138,3 +1140,101 @@ def test_sanitize_checks_on_the_card(cuda):
     torch.cuda.synchronize()
     rest, _ = cr.chunk(carry, rand.slice(20, E), noise.ticks[20:], 0.2)
     assert torch.isfinite(rest["w"]).all()
+
+
+# --- the tree layout on the card --------------------------------------------
+
+def _same_tree_result(a, b):
+    """Two tree runner results bit for bit: the model and every state
+    tensor leaf by leaf (tree caches' codes and scales included) and every
+    per-event output."""
+    from repro_torch.convert import leaves
+    (w1, s1, o1, _), (w2, s2, o2, _) = a, b
+    assert s1.keys() == s2.keys() and o1.keys() == o2.keys()
+    for x, y in zip(leaves((w1, s1)), leaves((w2, s2))):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert all(torch.equal(o1[k], o2[k]) for k in o1)
+
+
+@pytest.mark.parametrize("name,dtype,K", GRAPH_RULES)
+def test_tree_graph_run_matches_eager(cuda, name, dtype, K):
+    """The nine rules on the tree layout (the vision MLP's six leaves, tree
+    caches; an int8 history ring with an int8 cache): the tick replayed
+    from one captured CUDA graph ends bit for bit where the eager tick
+    ends, and an int8 run launches quantize_rows and dequantize_rows in
+    the replays as often as eagerly."""
+    n = 20
+    task = make_vision_task(n_clients=n, batch=6, dim=8, hidden=(16, 8),
+                            n_train=400, n_test=100, device=cuda)
+    rand, noise = _streams(task.grad_fn, n, K, 30, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=n, T=20,
+              beta=2.0, k_batch=K, layout="tree",
+              history_dtype="int8" if dtype == "int8" else "float32",
+              device=cuda)
+    graph = make_staleness_runner(aggregator=_rule(name, dtype, K),
+                                  graph=True, **kw)
+    eager = make_staleness_runner(aggregator=_rule(name, dtype, K),
+                                  graph=False, **kw)
+    first = graph(rand, noise, 0.2)
+    ops.reset_launch_counts()
+    replayed = graph(rand, noise, 0.2)
+    replay_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    ref = eager(rand, noise, 0.2)
+    assert ops.launch_counts() == replay_counts
+    if dtype == "int8":
+        assert replay_counts["quantize_rows"] > 0
+        assert replay_counts["dequantize_rows"] > 0
+    assert graph.captures == 1
+    _same_tree_result(first, ref)
+    _same_tree_result(replayed, ref)
+    assert isinstance(ref[0], list)
+
+
+def test_tree_int8_leaf_through_the_kernels_matches_the_cpu(cuda):
+    """An int8 tree cache (a dict and a list, leaves of rank 1 and 2) on the
+    card, every write and read through the quantize_rows and
+    dequantize_rows kernels, against the same cache on the CPU (the plain
+    versions): codes, scales, rows and deltas bit for bit; the means (a
+    PyTorch reduction, in another order on each device) within 1e-6."""
+    from repro_torch.convert import leaves, tree_map
+    from repro_torch.core import cache as tc
+    gen = torch.Generator().manual_seed(5)
+    like = {"w": [torch.zeros((3, 40)), torch.zeros(17)],
+            "b": torch.zeros(5)}
+
+    def draw(lead):
+        return tree_map(lambda x: torch.randn(lead + tuple(x.shape),
+                                              generator=gen) * 3.0, like)
+    n = 6
+    init = draw((n,))
+    writes = [(2, draw(())), (0, draw(()))]
+    batch = (torch.tensor([4, 1, 3]), draw((3,)),
+             torch.tensor([True, False, True]))
+    batch[1]["w"][0][1, 0, 0] = float("nan")
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        def on(t):
+            return tree_map(lambda x: x.to(dev), t)
+        ops.reset_launch_counts()
+        cache = tc.init_tree_cache(n, on(like), "int8", on(init), device=dev)
+        got = [tc.cache_rows(cache, torch.arange(n, device=dev))]
+        for i, g in writes:
+            got += list(tc.cache_set_row_delta(cache, i, on(g))[1:])
+        idx, G, valid = batch
+        got += list(tc.cache_set_rows_delta(cache, idx.to(dev), on(G),
+                                            valid.to(dev))[1:])
+        got += [tc.cache_tensors(cache)]
+        out[dev.type] = [x.cpu() for x in leaves(got)]
+        out[dev.type + " mean"] = [x.cpu()
+                                   for x in leaves(tc.cache_mean(cache))]
+        counts = ops.launch_counts()
+        if dev.type == "cuda":
+            assert counts["quantize_rows"] > 0
+            assert counts["dequantize_rows"] > 0
+        else:
+            assert sum(counts.values()) == 0
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.dtype == b.dtype and _same(a, b)
+    for a, b in zip(out["cpu mean"], out["cuda mean"]):
+        _close(b, a)
