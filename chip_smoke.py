@@ -125,6 +125,23 @@ result line):
      traced (both kernels seen in the replays as often as their counters
      count), wall ms and device kernels a tick printed beside phase 4's
      flat runs;
+  4f. the real models: yi-9b at its published widths (d_model 4,096, 32
+     heads, 4 kv heads, d_ff 11,008, vocab 64,000) cut to one layer (11
+     leaves, 435,171,328 numbers), on the LM task at n = 8 clients, batch
+     8, seq 256 through the tree layout with int8 tree caches and an int8
+     history ring (51 rows), 24 ticks at lr 0.1, the launch counts added
+     to the totals: (a) the leaf count and numel, the eval loss at w0
+     within 0.5 of ln 64,000, a prefill of 16 tokens carried into a
+     decode cache and 16 decode steps against the forward pass within
+     3e-3; (d) quantize_rows and dequantize_rows bit for bit with their
+     plain versions at every leaf numel by 1 and 8 rows, and timed at the
+     embedding's row, (1, 262,144,000); (b) ACE int8
+     K = 1 and ACED int8 K = 3, each graph run bit for bit with its eager
+     run, finite, both quant kernels launched, eval losses and peak memory
+     printed; (c) ACE again with the plain versions (no launch, within
+     1e-4); (e) ACE timed eager, graph, graph, eager and one graph run
+     traced (device kernels and busy ms a tick, idle share, the matrix
+     products', the embedding backward's and the quant kernels' share);
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -766,7 +783,7 @@ TRACE_ATTEMPTS = 3
 
 
 def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
-                 per_tick_expected=None, must=()):
+                 per_tick_expected=None, must=(), top=6, groups=None):
     """One traced graph run of `runner(*args)`: device busy ms and device
     kernels a tick, the idle share against the untraced wall clock
     `tick_ms`, the six largest kernels, and each port kernel's launches in
@@ -778,7 +795,10 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     such a trace is taken again, up to `TRACE_ATTEMPTS` traces in all, so
     a difference that every trace shows still fails. Returns (device busy
     ms a tick, device kernels a tick). Each kernel named in `must` has to
-    be seen in the replays."""
+    be seen in the replays. `top` is the number of largest kernels printed;
+    `groups` maps a label to a regular expression over kernel names, and
+    each group's device ms a tick, launches a tick and share of the busy
+    time is printed."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -816,10 +836,17 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     print(f"engine {label}: device busy {busy_ms:.4f} ms per tick of "
           f"{tick_ms:.4f} ms wall, idle share {1 - busy_ms / tick_ms:.3f}, "
           f"{per_tick:.1f} device kernels per tick [{card}]")
-    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top:
+    largest = sorted(device_events,
+                     key=lambda e: -e.self_device_time_total)[:top]
+    for e in largest:
         print(f"  {e.self_device_time_total / 1e3 / E:.4f} ms/tick "
               f"{e.count / E:.1f} launches/tick  {e.key[:90]}")
+    for group, pattern in (groups or {}).items():
+        evs = [e for e in device_events if re.search(pattern, e.key, re.I)]
+        ms = sum(e.self_device_time_total for e in evs) / 1e3 / E
+        print(f"  group {group}: {ms:.4f} ms/tick, "
+              f"{sum(e.count for e in evs) / E:.1f} launches/tick, "
+              f"{ms / busy_ms if busy_ms else 0.0:.3f} of the busy time")
     report = []
     for name, evs in ours.items():
         if evs:
@@ -1743,6 +1770,259 @@ def tree_phase(torch, ops, task, dev, card, totals, flat_w, flat_tick,
               f"[{card}]")
 
 
+# --- phase 4f: the real models -----------------------------------------------
+
+# yi-9b's published widths (arXiv:2403.04652: d_model 4,096, 32 heads, 4 kv
+# heads, head_dim 128, d_ff 11,008, vocab 64,000) cut in depth from 48
+# layers to 1, on the LM task at launch/train.py's defaults (n = 8 clients,
+# batch 8, seq 256, 2^18 tokens; beta = 5, so tau_max = 50 and a ring of 51
+# rows; lr = sqrt_nt_schedule(0.5, 8, 200) = 0.1, the first 24 ticks),
+# with int8 tree caches (yi-9b's AFL sizing) and an int8 history ring
+LM_ARCH = "yi-9b"
+LM_TASK = dict(n_clients=8, batch=8, seq=256, n_tokens=1 << 18, seed=0)
+LM_STEPS, LM_TICKS, LM_LR_SCALE = 200, 24, 0.5
+LM_LEAVES, LM_NUMEL = 11, 435171328
+LM_DECODE = 16                          # prompt and decode steps (a)
+# (rule, K): ACE, and ACED with a cohort ring of 3 (tests/test_k_batch.py)
+LM_RUNS = (("ace", 1), ("aced", 3))
+# kernel groups of the traced tick: cuBLAS's matrix products, the
+# embedding's backward (a sort and segment sums) and the quant kernels
+LM_GROUPS = {"matrix products": r"gemm",
+             "embedding backward": r"embedding|segment|grad_weight|"
+                                   r"sum_and_scatter|radixsort",
+             "quant kernels": r"quantize_rows_kernel|dequantize_rows_kernel"}
+
+
+def lm_config():
+    import dataclasses
+    from repro_torch.configs.base import ATTN
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=1,
+                               stages=(((ATTN,), 1),))
+
+
+def lm_runner(task, rule, K, dev, graph, backend=None):
+    """The tree-layout runner of one LM configuration: int8 tree caches and
+    an int8 history ring."""
+    from repro_torch.core import ACED, ACEIncremental, make_staleness_runner
+    agg = (ACEIncremental(cache_dtype="int8", backend=backend) if rule == "ace"
+           else ACED(tau_algo=5, cache_dtype="int8", max_cohort=K,
+                     backend=backend))
+    return make_staleness_runner(
+        grad_fn=task.grad_fn, params0=task.params0, aggregator=agg,
+        n_clients=task.n_clients, T=LM_STEPS, beta=5.0, k_batch=K,
+        device=dev, graph=graph, layout="tree", history_dtype="int8")
+
+
+def free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_decode_check(torch, task, cfg, dev, card):
+    """Prefill a prompt of `LM_DECODE` tokens, carry its K/V into a decode
+    cache and decode `LM_DECODE` more: the prefill's last logits and every
+    decode step's against the forward pass over all the tokens, within
+    3e-3 of max(1, max|logits|) (tests/test_models.py's tolerance)."""
+    from repro_torch.models import build_model
+    model, P, B = build_model(cfg), LM_DECODE, 2
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, 2 * P), generator=gen,
+                         device=dev, dtype=torch.int32)
+    params = task.params0
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": toks})
+        last, kv = model.prefill(params, {"tokens": toks[:, :P]})
+        cache = model.init_cache(B, 2 * P, device=dev)
+        for stage, filled in zip(cache["layers"], kv):
+            for block, (k, v) in zip(stage, filled):
+                block["k"][:, :, :P] = k
+                block["v"][:, :, :P] = v
+        steps = []
+        for t in range(P, 2 * P):
+            lg, cache = model.decode_step(params, cache, toks[:, t], t)
+            steps.append(lg)
+    scale = max(1.0, float(logits.abs().max()))
+    err = max(float((last - logits[:, P - 1]).abs().max()),
+              float((torch.stack(steps, 1) - logits[:, P:]).abs().max()))
+    check(err <= 3e-3 * scale, f"decode differs from forward by {err}")
+    print(f"lm decode: prefill of {P} tokens then {P} decode steps (B={B}) "
+          f"against the forward pass over {2 * P}: max |diff| {err:.3e} "
+          f"(logits up to {scale:.3f}; tolerance 3e-3) [{card}]")
+
+
+def lm_phase(torch, ops, dev, card, totals):
+    """yi-9b at its published widths, one layer (`lm_config`), on the LM
+    task (`LM_TASK`) through the tree layout: (a) the model's 11 leaves and
+    435,171,328 numbers, the eval loss at w0 near ln 64,000 and decode
+    against forward; (d) quantize_rows and dequantize_rows against their
+    plain versions at every leaf view of the tree by 1 and 8 rows, timed at
+    the embedding's one row; (b) ACE
+    int8 K = 1 and ACED int8 K = 3 (int8 tree caches, an int8 ring, 24
+    ticks), each graph run bit for bit with its eager run (model, caches,
+    outputs), finite, both quant kernels launched, eval losses at w0 and
+    at the end, peak memory; (c) ACE again with the plain versions (no
+    kernel, within 1e-4); (e) ACE timed eager, graph, graph, eager (the
+    graph runner captured before) and one graph run traced. Only the first
+    run's model and caches are kept between compared runs: a runner's
+    carry (the 22 GB int8 ring) is freed before the next one is built."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves, tree_map
+    from repro_torch.core import make_lm_task
+    from repro_torch.optim import sqrt_nt_schedule
+
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    task = make_lm_task(cfg=cfg, device=dev, **LM_TASK)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    shapes = [tuple(x.shape) for x in leaves(task.params0)]
+    numel = sum(x.numel() for x in leaves(task.params0))
+    check(len(shapes) == LM_LEAVES and numel == LM_NUMEL,
+          f"{len(shapes)} leaves, {numel} numbers: expected {LM_LEAVES}, "
+          f"{LM_NUMEL}")
+    loss0 = task.eval_fn(task.params0)["loss"]
+    check(abs(loss0 - math.log(cfg.vocab_size)) < 0.5,
+          f"eval loss at w0 {loss0}, ln vocab {math.log(cfg.vocab_size)}")
+    full = get_config(LM_ARCH).num_layers
+    print(f"lm: {cfg.name} at its published widths, 1 of {full} layers "
+          f"(d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} kv heads, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}); {len(shapes)} leaves "
+          f"{shapes}, {numel} numbers ({4 * numel / 1e9:.3f} GB f32); "
+          f"param_count() {cfg.param_count()} (an untied unembedding it "
+          f"counts is not built, ROADMAP C10); task built in {built:.1f} s; "
+          f"eval loss at w0 {loss0:.4f} (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}) [{card}]")
+    lm_decode_check(torch, task, cfg, dev, card)
+
+    # (d) the quant kernels at every (rows, numel) view the runs give them,
+    # and timed at the largest, the embedding leaf's one row (a cache row
+    # or ring write, a ring read)
+    tree_leaf_kernels(torch, ops, (task,), (1, LM_TASK["n_clients"]), dev,
+                      card)
+    embed = task.params0["embed"]["embedding"].numel()
+    compare_quant(torch, ops, 1, embed, dev, card)
+    compare_dequant(torch, ops, 1, embed, dev, card)
+    free(torch)
+
+    lr = sqrt_nt_schedule(LM_LR_SCALE, LM_TASK["n_clients"], LM_STEPS)(0)
+    E = LM_TICKS
+
+    def one(label, runner, args, count=True):
+        """One runner call, its launches added to the totals -> (out, wall
+        s, counts, (peak GB allocated, peak GB reserved))."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        if count:
+            (out, wall), counts = counted(ops, totals, lambda: run_engine(
+                torch, runner, *args))
+        else:
+            (out, wall), counts = run_engine(torch, runner, *args), {}
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9,
+                torch.cuda.max_memory_reserved(dev) / 1e9)
+        print(f"  {label}: {wall:.2f} s, {1e3 * wall / E:.1f} ms a tick, "
+              f"peak {peak[0]:.2f} GB allocated, {peak[1]:.2f} GB reserved "
+              f"(a graph's pool counts as reserved) [{card}]")
+        return out, wall, counts, peak
+
+    def host(out):
+        """A run's result moved to the host (its device copy freed): the
+        compared runs' results wait there, out of the next run's way."""
+        return tree_map(lambda x: x.cpu(), out)
+
+    def check_out(label, out):
+        check(all(bool(torch.isfinite(x).all()) for x in leaves(out[0])),
+              f"{label}: non-finite model")
+        check(bool(torch.isfinite(out[2]["loss"]).all()),
+              f"{label}: non-finite loss")
+
+    for rule, K in LM_RUNS:
+        label = f"lm {rule} int8 K={K}"
+        args = (*engine_streams(task, K, E, dev), lr)
+        ref, wall_e, counts_e, peak_e = one(f"{label} eager", lm_runner(
+            task, rule, K, dev, False), args)
+        check_out(label, ref)
+        ref = host(ref)
+        for kernel in TREE_KERNELS:
+            check(counts_e[kernel] > 0, f"{label}: {kernel} not launched")
+        free(torch)
+        graph = lm_runner(task, rule, K, dev, None)
+        out, wall_g, counts_g, peak_g = one(f"{label} graph (with its "
+                                            f"capture)", graph, args)
+        check(graph.captures == 1, f"{label}: {graph.captures} captures")
+        if rule != "ace":
+            # only ACE's runner is timed below: free its carry and the
+            # graph's pool (28 GiB at K = 3)
+            del graph
+        out = host(out)
+        free(torch)
+        check(same_run(torch, out, ref), f"{label}: the graph run differs "
+              "from the eager run")
+        for kernel in TREE_KERNELS:
+            check(counts_g[kernel] > 0, f"{label}: {kernel} not launched")
+        del out
+        loss_end = task.eval_fn(tree_map(lambda x: x.to(dev), ref[0]))[
+            "loss"]
+        check(math.isfinite(loss_end), f"{label}: eval loss {loss_end}")
+        print(f"engine {label}: {E} ticks, "
+              f"{int(ref[2]['emit'].sum())} updates, eval loss {loss0:.4f} "
+              f"at w0 -> {loss_end:.4f}; graph and eager bit-identical "
+              f"(model, int8 caches and scales, running sums, outputs): "
+              f"True; launches graph {counts_g}, eager {counts_e}; peak "
+              f"{peak_g[0]:.2f} / {peak_e[0]:.2f} GB allocated, "
+              f"{peak_g[1]:.2f} / {peak_e[1]:.2f} GB reserved (graph / "
+              f"eager; reckoned 45-50) [{card}]")
+        if rule != "ace":
+            del ref
+            free(torch)
+            continue
+        # (e) graph, graph with the captured runner, traced, then eager
+        walls = [wall_e]
+        for _ in range(2):
+            again, wall, _, _ = one(f"{label} graph", graph, args,
+                                    count=False)
+            check(same_run(torch, host(again), ref), f"{label}: a replayed "
+                  "run differs from the eager run")
+            walls.append(wall)
+            del again
+            free(torch)
+        tick_ms = 1e3 * (walls[1] + walls[2]) / 2 / E
+        trace_engine(torch, ops, f"{label} graph", graph, args, E, tick_ms,
+                     card, must=TREE_KERNELS, top=10, groups=LM_GROUPS)
+        del graph
+        free(torch)
+        again, wall, _, _ = one(f"{label} eager", lm_runner(
+            task, rule, K, dev, False), args, count=False)
+        check(same_run(torch, host(again), ref),
+              f"{label}: two eager runs differ")
+        walls.append(wall)
+        del again
+        free(torch)
+        ms = [1e3 * x / E for x in walls]
+        print(f"engine A/B {label}: wall ms per tick eager {ms[0]:.2f}, "
+              f"graph {ms[1]:.2f}, graph {ms[2]:.2f}, eager {ms[3]:.2f}; "
+              f"arrivals/s {', '.join(f'{E * K / x:.2f}' for x in walls)} "
+              f"[{card}]")
+        # (c) the plain versions: no kernel, within 1e-4
+        plain, wall, counts, _ = one(f"{label} plain versions (eager)",
+                                     lm_runner(task, rule, K, dev, False,
+                                               backend="torch"), args)
+        check(sum(counts.values()) == 0,
+              f"{label}: backend='torch' launched a kernel")
+        plain = host(plain)
+        top = max(float(x.abs().max()) for x in leaves(ref[0]))
+        dev_w = max(float((a - b).abs().max()) for a, b in
+                    zip(leaves(plain[0]), leaves(ref[0]))) / max(top, 1e-12)
+        check(dev_w <= 1e-4, f"{label}: plain run deviates {dev_w}")
+        print(f"engine {label} plain versions (eager): {wall:.2f} s, final "
+              f"w within {dev_w:.3e} (relative) of the kernels' run, "
+              f"bit-identical: {same_run(torch, plain, ref)} [{card}]")
+        del plain, ref
+        free(torch)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1940,6 +2220,12 @@ def main() -> int:
     tree_phase(torch, ops, task, dev, card, totals, results, per_tick,
                flat_ms, flat_guards)
     print(f"phase 4e took {time.perf_counter() - start_4e:.1f} s")
+
+    # 4f. the real models: yi-9b's widths at one layer, the LM task
+    start_4f = time.perf_counter()
+    print(f"phase 4f starts at {start_4f - start:.1f} s")
+    lm_phase(torch, ops, dev, card, totals)
+    print(f"phase 4f took {time.perf_counter() - start_4f:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

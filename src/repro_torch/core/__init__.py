@@ -10,7 +10,7 @@ engine (`run_scan`, `run_scan_seeds`, `sweep` over `build_schedule`'s
 delay schedules), the sanitize checks of both (``checkify_invariants``),
 the nine rules of the zoo (ASGD, delay-adaptive ASGD, FedBuff, CA²FL, ACE,
 ACED and the direct CA²FL/ACE/ACED references) over the flat or tree
-gradient cache, and the vision and text tasks — the counterpart of
+gradient cache, and the vision, text and LM tasks — the counterpart of
 `repro.core`'s entry points."""
 from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
                                           ACEDirect, ACEIncremental,
@@ -20,7 +20,8 @@ from repro_torch.core.aggregators import (ACED, ALGORITHMS, CA2FL, ACEDDirect,
 from repro_torch.core.cache import FlatCache
 from repro_torch.core.delays import (ExponentialDelays, Schedule,
                                      arrival_schedule, build_schedule)
-from repro_torch.core.fl_tasks import make_text_task, make_vision_task
+from repro_torch.core.fl_tasks import (make_lm_task, make_text_task,
+                                      make_vision_task)
 from repro_torch.core.scan_engine import (ScanResult, make_scan_runner,
                                           run_scan, run_scan_seeds, sweep)
 from repro_torch.core.simulator import AFLSimulator, SimResult
@@ -40,7 +41,7 @@ __all__ = ["ACED", "ACEDDirect", "ACEDirect", "ACEIncremental", "AFLSimulator",
            "FedBuff", "FlatCache", "ScanResult", "Schedule", "SimResult",
            "StalenessSimulator", "VanillaASGD",
            "arrival_schedule", "build_fault_schedule", "build_schedule",
-           "make_aggregator", "make_chunked_staleness_runner",
+           "make_aggregator", "make_chunked_staleness_runner", "make_lm_task",
            "make_scan_runner", "make_staleness_runner", "make_text_task",
            "make_vision_task", "no_faults", "run_scan", "run_scan_seeds",
            "run_staleness_grid", "run_staleness_scan", "run_staleness_seeds",

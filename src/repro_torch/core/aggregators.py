@@ -613,6 +613,11 @@ class ACEIncremental(Aggregator):
             self.state_dtype)}
 
 
+#: the most bytes of dequantized cache rows one gather of ACED's cohort
+#: sweep forms (a real model's row is gigabytes: one slot at a time)
+SWEEP_BYTES = 1 << 30
+
+
 @dataclasses.dataclass
 class ACED(Aggregator):
     """Paper Algorithm a.1 with an incremental active-set sum — O(d) per
@@ -692,17 +697,31 @@ class ACED(Aggregator):
         ow = torch.clamp(owners, 0, state["t_start"].shape[0] - 1).long()
         visit = (i < dt).reshape((-1,) + (1,) * (owners.dim() - 1))
         gone = visit & (owners >= 0) & (state["t_start"][ow] <= t - tau - 1)
-        rows = cache_rows(cache, ow.reshape(-1), backend=self.backend)
-        slot_gone = gone
-        if owners.dim() == 2:            # a cohort per slot: sum its lanes
-            g = gone.reshape(-1)
-            rows = tree_map(lambda r: torch.where(
-                broadcast_lanes(g, r), r, 0.0).reshape(
-                    owners.shape + r.shape[1:]).sum(1), rows)
-            slot_gone = gone.any(1)
-        for k in range(owners.shape[0]):
-            asum = _where_sub(asum, tree_map(lambda r: r[k], rows),
-                              slot_gone[k])
+        if owners.dim() == 2:
+            # a cohort per slot: its retired lanes summed; the slots' rows
+            # are dequantized as many slots at a time as keep them within
+            # `SWEEP_BYTES` (all at once at the vision and text tasks'
+            # widths, one slot — JAX's loop — at a real model's)
+            C = owners.shape[1]
+            row_bytes = 4 * sum(x.numel() for x in cache_tensors(cache)) \
+                // cache_n(cache)
+            step = max(1, SWEEP_BYTES // (C * row_bytes))
+            for a in range(0, owners.shape[0], step):
+                g = gone[a:a + step]
+                rows = cache_rows(cache, ow[a:a + step].reshape(-1),
+                                  backend=self.backend)
+                rows = tree_map(lambda r: torch.where(
+                    broadcast_lanes(g.reshape(-1), r), r, 0.0).reshape(
+                        g.shape + r.shape[1:]).sum(1), rows)
+                slot_gone = g.any(1)
+                for k in range(g.shape[0]):
+                    asum = _where_sub(asum, tree_map(lambda r: r[k], rows),
+                                      slot_gone[k])
+        else:
+            rows = cache_rows(cache, ow, backend=self.backend)
+            for k in range(owners.shape[0]):
+                asum = _where_sub(asum, tree_map(lambda r: r[k], rows),
+                                  gone[k])
         ring = ring.index_copy(0, s, torch.where(gone, -1, owners))
         return asum, gone.sum(dtype=torch.int32), ring
 

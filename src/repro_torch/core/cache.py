@@ -312,6 +312,16 @@ def init_tree_cache(n: int, grads_like, dtype: str = "float32",
     return tree_map(seeded, init_rows)
 
 
+def tree_cache_reset_(cache):
+    """Set every row of a tree cache back to `init_tree_cache`'s zeros
+    (scales 1) in place; returns the same cache."""
+    for c in leaves(cache, is_leaf=is_tree_cache_leaf):
+        c["q"].zero_()
+        if "scale" in c:
+            c["scale"].fill_(1.0)
+    return cache
+
+
 def tree_cache_rows(cache, idx, backend=None):
     """Dequantized f32 gather of rows ``idx`` (K,): a grads-like structure
     whose leaves lead with (K,)."""

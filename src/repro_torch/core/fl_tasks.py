@@ -1,7 +1,8 @@
 """Ready-made FL tasks binding synthetic data + Dirichlet partition + a small
-model into (grad_fn, eval_fn, params0) — port of the vision and text tasks
-of `repro.core.fl_tasks` (the Fig. 2/3 CIFAR-10 stand-in and the Table a.2
-20 Newsgroups stand-in).
+model into (grad_fn, eval_fn, params0) — port of the vision, text and LM
+tasks of `repro.core.fl_tasks` (the Fig. 2/3 CIFAR-10 stand-in, the Table
+a.2 20 Newsgroups stand-in, and a transformer of `repro_torch.models` on
+the synthetic token stream).
 
 The models keep the JAX layout: ``x @ w + b`` with `w` of shape (in, out),
 and parameters raveled in JAX's order (`repro_torch.convert`: the MLP's
@@ -11,10 +12,10 @@ clients, B noise rows — so the K arrivals of a tick (and the n clients of
 the init batch) are one batched call.
 
 Minibatch sampling reads a per-call uniform vector ``u (batch,)`` as
-``ix = min(floor(u · n_client), n_client − 1)``; the uniforms are the
-payload noise the engine hands to `grad_fn` (drawn by
-``grad_fn.sample_noise``), so a test can feed the JAX reference the same
-draws.
+``ix = min(floor(u · n_client), n_client − 1)`` (the LM task: window
+starts, `make_lm_task`); the uniforms are the payload noise the engine
+hands to `grad_fn` (drawn by ``grad_fn.sample_noise``), so a test can feed
+the JAX reference the same draws.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 from repro_torch.convert import _rebuild, leaves, unravel
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import (make_classification,
-                                        make_text_classification)
+                                        make_text_classification,
+                                        make_token_stream)
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -216,3 +218,80 @@ def make_text_task(*, n_clients=20, alpha=1.0, batch=32, n_classes=20,
     init, apply = tiny_text_classifier(vocab, d, n_classes, seq_len)
     return _task(x, y, n_train, n_clients, alpha, seed, init, apply, batch,
                  device, {"alpha": alpha, "kind": "text"})
+
+
+def make_lm_task(*, cfg, n_clients=8, batch=8, seq=256, n_tokens=1 << 18,
+                 seed=0, device=None) -> FLTask:
+    """Real-model LM task: a transformer of `repro_torch.models` (built from
+    `cfg`) on the synthetic Markov token stream — the port of
+    `repro.core.fl_tasks.make_lm_task`, for the tree layout.
+
+    Client i samples `batch` windows of ``seq + 1`` tokens from its
+    contiguous region of the stream (``per = n_tokens // n_clients``
+    tokens; a distinct local distribution, since the stream's hash state
+    drifts); the stream lives on the device. A lane's noise is ``(batch,)``
+    uniforms, its window starts ``lo + min(floor(u · (per − seq − 1)),
+    per − seq − 2)`` (the port's rule in place of JAX's
+    ``jax.random.randint``, as the vision task's minibatch rule).
+
+    `grad_fn` takes the tree layout (leaves leading with (B,)) or the flat
+    layout ((B, d) rows, `unravel`) and runs its B lanes one after another
+    — `model.loss_fn` on lane b's parameters, its gradient written into
+    preallocated ``(B, *leaf)`` buffers — so only one lane's activations
+    are ever live and no stacked copy of the lanes is made. `eval_fn`
+    reports the LM loss on the fixed batch JAX draws
+    (``np.random.default_rng(seed + 7)``). Weights come from
+    ``model.init`` on a generator seeded with `seed` on the task's device.
+    On the GPU unless ``device="cpu"``."""
+    from repro_torch.models import build_model
+
+    device = resolve_device(device)
+    model = build_model(cfg)
+    params0 = model.init(torch.Generator(device=device).manual_seed(seed))
+    toks = make_token_stream(n_tokens=n_tokens, vocab=cfg.vocab_size,
+                             seed=seed)
+    per = len(toks) // n_clients
+    if per < seq + 2:
+        raise ValueError(f"stream too short: {per} tokens/client < seq+2")
+    toks_t = torch.as_tensor(toks).to(device=device, dtype=torch.int64)
+    offsets = torch.arange(seq + 1, device=device)
+
+    def grad(w, clients, u):
+        lo = clients.long().unsqueeze(-1) * per                 # (B, 1)
+        starts = lo + torch.clamp(
+            torch.floor(u * float(per - seq - 1)).long(), max=per - seq - 2)
+        window = toks_t[starts.unsqueeze(-1) + offsets]     # (B, batch, seq+1)
+        flat = isinstance(w, torch.Tensor)
+        xs = [w] if flat else leaves(w)
+        lanes = xs[0].shape[0]
+        gs = [torch.empty_like(x) for x in xs]
+        loss = torch.empty((lanes,), dtype=torch.float32,
+                           device=xs[0].device)
+        for b in range(lanes):
+            lane = [x[b].detach().requires_grad_(True) for x in xs]
+            params = (unravel(lane[0], params0) if flat
+                      else _rebuild(w, iter(lane)))
+            lane_batch = {"tokens": window[b, :, :-1],
+                          "targets": window[b, :, 1:]}
+            with torch.enable_grad():
+                lb = model.loss_fn(params, lane_batch)
+                for g_out, g in zip(gs, torch.autograd.grad(lb, lane)):
+                    g_out[b].copy_(g)
+            loss[b] = lb.detach()
+        return loss, gs[0] if flat else _rebuild(w, iter(gs))
+
+    erng = np.random.default_rng(seed + 7)
+    estarts = erng.integers(0, len(toks) - seq - 1, size=batch)
+    eval_batch = {
+        "tokens": torch.as_tensor(np.stack(
+            [toks[s:s + seq] for s in estarts])).to(device),
+        "targets": torch.as_tensor(np.stack(
+            [toks[s + 1:s + seq + 1] for s in estarts])).to(device)}
+
+    def eval_fn(params):
+        with torch.no_grad():
+            return {"loss": float(model.loss_fn(params, eval_batch))}
+
+    return FLTask(params0, ClientGrad(grad, (batch,)), eval_fn, n_clients,
+                  {"kind": "lm", "model": cfg.name,
+                   "params": int(cfg.param_count())})

@@ -161,10 +161,13 @@ def _to_result(w, outs, T: int, n_init_comms: int, evals=None,
 
 @dataclasses.dataclass
 class _Program:
-    """One configuration of an engine: ``init(lr, init_noise) -> carry``
-    and ``tick(carry, xs, outs)``, which advances the carry by one event in
-    place, reading row ``carry["e"]`` of the streams in `xs` and writing
-    row ``e`` of `outs`."""
+    """One configuration of an engine: ``init(lr, init_noise, reuse=None)
+    -> carry`` and ``tick(carry, xs, outs)``, which advances the carry by
+    one event in place, reading row ``carry["e"]`` of the streams in `xs`
+    and writing row ``e`` of `outs`. `reuse` is the carry the new one will
+    be copied into (a runner's own, on its second and later calls): the
+    program may build the new carry's largest buffers in its storage
+    instead of allocating them again."""
     init: Callable
     tick: Callable
     d: int
@@ -187,8 +190,27 @@ def _tree_clone(x):
     return x.clone()
 
 
+def _own(x, seen=None):
+    """A fresh carry as a runner's own: its tensors kept, but a clone of
+    any whose storage an earlier one of them shares (so that no two of its
+    tensors alias each other)."""
+    seen = set() if seen is None else seen
+    if isinstance(x, dict):
+        return {k: _own(v, seen) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_own(v, seen) for v in x)
+    if isinstance(x, FlatCache):
+        return FlatCache(_own(x.data, seen), _own(x.scale, seen))
+    ptr = x.untyped_storage().data_ptr()
+    if ptr in seen:
+        return x.clone()
+    seen.add(ptr)
+    return x
+
+
 def _tree_copy_(dst, src):
-    """Copy carry `src` into carry `dst`, tensor by tensor."""
+    """Copy carry `src` into carry `dst`, tensor by tensor (a tensor onto
+    itself is no copy)."""
     if isinstance(dst, dict):
         if dst.keys() != src.keys():
             raise ValueError(f"a carry with keys {sorted(src)} for a runner "
@@ -237,6 +259,18 @@ def _use_graph(graph: Optional[bool], device: torch.device) -> bool:
         raise ValueError("graph=True captures a CUDA graph: it needs a CUDA "
                          f"device, not {device}")
     return bool(graph)
+
+
+_warmup_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device):
+    """One side stream per device for every capture's warm-up tick: cuBLAS
+    keeps a workspace for each stream it has run on, so a new stream per
+    capture would hold one more workspace per capture for good."""
+    if device not in _warmup_streams:
+        _warmup_streams[device] = torch.cuda.Stream(device)
+    return _warmup_streams[device]
 
 
 class _Ticks:
@@ -288,11 +322,14 @@ class _Ticks:
             self.xs[k].copy_(v)
         return L
 
-    def load(self, carry) -> None:
-        """Copy `carry` into the carry the tick steps (the first one is
-        cloned, so the tick's carry shares storage with nothing)."""
+    def load(self, carry, fresh: bool = False) -> None:
+        """Copy `carry` into the carry the tick steps. The first one is
+        cloned, so the tick's carry shares storage with nothing; a `fresh`
+        one (a program's init, which nothing else holds) is taken as it is,
+        only its aliased tensors cloned (`_own`), so that a full-width carry
+        is never held twice."""
         if self.carry is None:
-            self.carry = _tree_clone(carry)
+            self.carry = _own(carry) if fresh else _tree_clone(carry)
         else:
             _tree_copy_(self.carry, carry)
 
@@ -302,25 +339,25 @@ class _Ticks:
             for _ in range(n):
                 self.prog.tick(self.carry, self.xs, self.outs)
             return
-        if self._graph is None:
-            self._capture()
+        if n > 0 and self._graph is None:
+            self._capture()            # the first tick runs, the rest replay
+            n -= 1
         for _ in range(n):
             self._graph.replay()
         kernel_ops.add_launch_counts(self._per_tick, n)
 
     def _capture(self) -> None:
+        """Run the first tick eagerly on a side stream, as PyTorch asks of a
+        capture that takes autograd (it also builds and loads the kernel
+        libraries, cuBLAS's workspace and the rules' constants), then
+        record the tick that follows it: a capture runs nothing, so the
+        carry holds the first tick's result and no copy of it is kept."""
         dev = self.prog.device
-        start = _tree_clone(self.carry)
-        # one tick on a side stream first, as PyTorch asks of a capture that
-        # takes autograd: it also builds and loads the kernel libraries,
-        # cuBLAS's workspace and the rules' constants
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.prog.tick(self.carry, self.xs, self.outs)
         torch.cuda.current_stream(dev).wait_stream(side)
-        # that tick ran: back to the carry it started from
-        _tree_copy_(self.carry, start)
         graph = torch.cuda.CUDAGraph()
         before = kernel_ops.launch_counts()
         try:
@@ -364,7 +401,8 @@ class _TickRunner:
             self._retired = self.captures
             ticks = self._ticks = _Ticks(self.prog, n_events, self.use_graph)
         ticks.feed(streams, inputs)
-        ticks.load(self.prog.init(ticks.xs["lr"], init_noise))
+        ticks.load(self.prog.init(ticks.xs["lr"], init_noise,
+                                  reuse=ticks.carry), fresh=True)
         ticks.run(n_events)
         if self.prog.checks:
             sanitize.raise_first(ticks.carry["checks"])
@@ -406,7 +444,8 @@ def _scan_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     def i32(x):
         return torch.full((), x, dtype=torch.int32, device=device)
 
-    def init(lr, init_noise=None):
+    def init(lr, init_noise=None, reuse=None):
+        # (`reuse`: nothing here is large enough to build in place)
         lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
         if wants_init:
             if init_noise is None:
@@ -525,8 +564,9 @@ def make_scan_runner(*, grad_fn: Callable, params0, aggregator: Aggregator,
     `record_w`), on the device.
 
     On a CUDA device the runner copies the schedule and the noise into
-    static buffers, captures one tick as a CUDA graph (after a warm-up tick
-    on a side stream) and replays it once per event; ``graph=None``
+    static buffers, captures one tick as a CUDA graph (after the first
+    tick, run eagerly on a side stream as PyTorch's warm-up) and replays it
+    for every later event; ``graph=None``
     captures on CUDA and runs the same tick eagerly on the CPU,
     ``graph=False`` runs it eagerly on the card too, ``graph=True`` on the
     CPU raises, and a capture that fails raises. A call with another event

@@ -92,8 +92,8 @@ from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
                                           _gate, wants_cache_init)
 from repro_torch.core import sanitize
 from repro_torch.core.cache import (DTYPES, broadcast_lanes, cache_tensors,
-                                    init_tree_cache, tree_cache_rows,
-                                    tree_cache_set_row)
+                                    init_tree_cache, tree_cache_reset_,
+                                    tree_cache_rows, tree_cache_set_row)
 from repro_torch.core.scan_engine import (PayloadNoise, ScanResult, _Program,
                                           _Ticks, _TickRunner, _copy_state_,
                                           _payload_chain, _to_result,
@@ -403,10 +403,12 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        device=None) -> _StalenessProgram:
     """The engine as the JAX package's `_staleness_program` builds it.
 
-    ``init(lr, init_noise=None) -> carry``: the init batch (one payload per
-    client at w⁰ from the noise rows `init_noise`, for the cache-init
-    rules), u⁰ applied with `lr`, the ring holding w⁰ (and w¹), ``e = 0``
-    (and the zeroed ``guards`` counters with `guards`).
+    ``init(lr, init_noise=None, reuse=None) -> carry``: the init batch (one
+    payload per client at w⁰ from the noise rows `init_noise`, for the
+    cache-init rules), u⁰ applied with `lr`, the ring holding w⁰ (and w¹),
+    ``e = 0`` (and the zeroed ``guards`` counters with `guards`); with
+    `reuse`, a carry of this program, the ring is that carry's, reset in
+    place.
 
     ``tick(carry, xs, outs)``: one tick, in place. ``xs`` holds the
     pre-drawn streams (``gumbels (E, n)``, ``tau_raw (E,)`` or ``(E, K)``,
@@ -504,10 +506,16 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     # rule's `backend`, so a ``backend="torch"`` rule runs no kernel
     backend = getattr(agg, "backend", None)
 
-    def init_ring():
-        return tree_cache_set_row(init_tree_cache(
-            S, w0, history_dtype, device=device, backend=backend), 0, w0,
-            backend)
+    def init_ring(reuse=None):
+        # a runner's later calls reset the ring they will be copied into
+        # (at a real model's width a second ring would not fit beside it)
+        if reuse is None:
+            ring = init_tree_cache(S, w0, history_dtype, device=device,
+                                   backend=backend)
+        else:
+            ring = reuse
+            tree_cache_reset_(ring)
+        return tree_cache_set_row(ring, 0, w0, backend)
 
     def rd_rings(ring, cursor, taus):
         # ``history[-(tau+1)]`` for each lane: the model τ emitted updates
@@ -530,7 +538,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         return tree_map(lambda wl, ul: torch.where(
             emit, wl - eta * ul.float(), wl), w, u)
 
-    def init(lr, init_noise=None):
+    def init(lr, init_noise=None, reuse=None):
         lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
         if wants_init:
             if init_noise is None:
@@ -539,20 +547,22 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                     "per client: pass the init batch's noise "
                     "(PayloadNoise.init)")
             # one payload per client at w0 (paper Alg. 1 line 1), and u⁰
-            # applied before the loop (lines 4-5)
+            # applied before the loop (lines 4-5); the n lanes are views of
+            # w0, not n copies
             init_rows, _ = payload_fn(
-                tree_map(lambda x: x[None].repeat((n,) + (1,) * x.dim()),
+                tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
                          w0),
                 torch.arange(n, device=device),
                 torch.as_tensor(init_noise).to(device))
             state = agg.init_state(n, d_tpl, init_rows, device)
             eta0 = lr_of_t(i32(0), lr)
             w = tree_map(lambda wl, r: wl - eta0 * r.mean(0), w0, init_rows)
+            del init_rows                 # before the ring is allocated
             t0 = 1
         else:
             state = agg.init_state(n, d_tpl, None, device)
             w, t0 = _tree_clone(w0), 0
-        ring = init_ring()
+        ring = init_ring(None if reuse is None else reuse["ring"])
         cursor = i32(0)
         if wants_init:               # history = [w⁰, w¹] after the init update
             ring, cursor = ap_ring(ring, cursor, w,
@@ -605,9 +615,9 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                                   tau_req.reshape(-1))
         taus = torch.minimum(tau_req.reshape(-1),
                              torch.clamp(n_upd, max=tau_max))
-        w_stale = rd_rings(carry["ring"], carry["cursor"], taus)
-        payloads, losses = payload_fn(w_stale, js,
-                                      xs["noise"].index_select(0, e)[0])
+        payloads, losses = payload_fn(
+            rd_rings(carry["ring"], carry["cursor"], taus), js,
+            xs["noise"].index_select(0, e)[0])
         if guards:
             payloads, finite, do_clip = _guard_payloads(
                 payloads, f_kind,
@@ -822,16 +832,16 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
     the call raises `RuntimeError` with the first violation's message and
     event after the run. Off, the tick has no check op.
 
-    On a CUDA device the runner copies the streams into static buffers,
-    runs one warm-up tick on a side stream, resets the carry, captures one
-    tick as a CUDA graph and replays it once per event, the host doing
-    nothing else in between (a call with another event count captures
-    anew). ``graph=None`` captures on CUDA and runs the same tick eagerly
+    On a CUDA device the runner copies the streams into static buffers;
+    its first call runs the first tick eagerly on a side stream (PyTorch's
+    warm-up), captures the tick as a CUDA graph and replays it for every
+    later event, the host doing nothing else in between (a call with
+    another event count captures anew). ``graph=None`` captures on CUDA and runs the same tick eagerly
     on the CPU; ``graph=False`` runs it eagerly on the card too;
     ``graph=True`` on the CPU raises. A capture that fails raises: there is
     no eager fallback. The kernels' launch counters
     (`kernels.ops.launch_counts`) count the replayed launches and the
-    warm-up tick's, not the capture's."""
+    first tick's, not the capture's."""
     prog = _staleness_program(
         grad_fn=grad_fn, params0=params0, aggregator=aggregator,
         n_clients=n_clients, T=T, beta=beta, server_lr=server_lr,

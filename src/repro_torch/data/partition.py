@@ -1,6 +1,6 @@
 """Dirichlet non-IID partitioning (paper §5: Dir(α) label-distribution
-shift). A copy of `repro.data.partition.dirichlet_partition` (plain numpy,
-same split from the same seed)."""
+shift). Copies of `repro.data.partition`'s functions (plain numpy, the
+same split and histograms from the same seed)."""
 from __future__ import annotations
 
 from typing import List
@@ -29,3 +29,13 @@ def dirichlet_partition(labels: np.ndarray, n_clients: int, alpha: float,
             break
         alpha *= 1.5  # re-draw with slightly smoother split if degenerate
     return [np.asarray(sorted(ix), np.int64) for ix in idx_per_client]
+
+
+def label_histograms(labels: np.ndarray, parts: List[np.ndarray]) -> np.ndarray:
+    """(clients, classes) counts of each client's labels."""
+    n_classes = int(labels.max()) + 1
+    out = np.zeros((len(parts), n_classes))
+    for i, ix in enumerate(parts):
+        for c, cnt in zip(*np.unique(labels[ix], return_counts=True)):
+            out[i, c] = cnt
+    return out

@@ -21,7 +21,9 @@ at its full width too) with ``-k graph``, the sanitize checks with
 ``-k sanitize``, the host references against the graph runs with
 ``-k host``, the tree layout (graph = eager for the nine rules on tree
 caches, an int8 tree cache through the quant kernels against the CPU)
-with ``-k tree``."""
+with ``-k tree``, the real models (the reduced LM task's tree graph run
+against its eager run, decode against forward, the quant kernels at
+yi-9b's full-width leaf views) with ``-k lm``."""
 import numpy as np
 import pytest
 
@@ -639,9 +641,9 @@ def test_engine_runs_through_the_kernels(cuda, name, dtype, K, kernel):
     r_kernel = run(None)
     assert ops.launch_counts()[kernel] > 0
     if kernel == "cache_row_update":
-        # the whole step: one a replayed tick, and one in the tick that
-        # warms the graph up before its capture
-        assert ops.launch_counts()[kernel] == len(r_kernel.emit) + 1
+        # the whole step: one launch a tick, the first tick (which warms
+        # the graph up before its capture) and the replayed ones
+        assert ops.launch_counts()[kernel] == len(r_kernel.emit)
     ops.reset_launch_counts()
     r_plain = run("torch")
     assert sum(ops.launch_counts().values()) == 0
@@ -1238,3 +1240,91 @@ def test_tree_int8_leaf_through_the_kernels_matches_the_cpu(cuda):
         assert a.dtype == b.dtype and _same(a, b)
     for a, b in zip(out["cpu mean"], out["cuda mean"]):
         _close(b, a)
+
+
+# --- the real models (the LM task on the tree layout) -----------------------
+
+def _lm_task(device, n=4):
+    """The reduced yi-9b LM task of tests/test_torch_lm_task.py on the
+    card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fl_tasks import make_lm_task
+    cfg = get_config("yi-9b").reduced(layers=2, d_model=64, vocab=128)
+    return make_lm_task(cfg=cfg, n_clients=n, batch=2, seq=32,
+                        n_tokens=1 << 14, seed=0, device=device)
+
+
+@pytest.mark.parametrize("name,K", [("ace", 1), ("aced", 3)])
+def test_lm_tree_graph_run_matches_eager(cuda, name, K):
+    """The reduced LM task on the tree layout with an int8 cache and an
+    int8 history ring: the captured tick (each lane's forward and backward
+    inside it) replays bit for bit like the eager tick, both quant kernels
+    launched in the replays as often as eagerly."""
+    task = _lm_task(cuda)
+    rand, noise = _streams(task.grad_fn, 4, K, 16, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=4,
+              T=16, beta=2.0, k_batch=K, layout="tree", history_dtype="int8",
+              device=cuda)
+    rule = (lambda: tagg.ACEIncremental(cache_dtype="int8")) if name == "ace" \
+        else (lambda: tagg.ACED(tau_algo=5, cache_dtype="int8", max_cohort=K))
+    graph = make_staleness_runner(aggregator=rule(), graph=True, **kw)
+    eager = make_staleness_runner(aggregator=rule(), graph=False, **kw)
+    first = graph(rand, noise, 0.05)
+    ops.reset_launch_counts()
+    replayed = graph(rand, noise, 0.05)
+    replay_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    ref = eager(rand, noise, 0.05)
+    assert ops.launch_counts() == replay_counts
+    assert replay_counts["quantize_rows"] > 0
+    assert replay_counts["dequantize_rows"] > 0
+    assert graph.captures == 1
+    _same_tree_result(first, ref)
+    _same_tree_result(replayed, ref)
+    from repro_torch.convert import leaves
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(ref[0]))
+
+
+def test_lm_decode_matches_forward(cuda):
+    """Prefill's last logits and 16 decode steps from an empty cache on the
+    card against the forward pass's logits, within 3e-3 (the JAX test's
+    tolerance); the lane gradient finite and the eval loss near ln vocab at
+    w⁰."""
+    task = _lm_task(cuda)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("yi-9b").reduced(layers=2, d_model=64,
+                                                    vocab=128))
+    params = task.params0
+    toks = torch.randint(0, 128, (2, 16), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda, dtype=torch.int32)
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": toks})
+        last, _ = model.prefill(params, {"tokens": toks})
+        cache = model.init_cache(2, 16, device=cuda)
+        steps = []
+        for t in range(16):
+            lg, cache = model.decode_step(params, cache, toks[:, t], t)
+            steps.append(lg)
+    _close(last, logits[:, -1], tol=3e-3)
+    _close(torch.stack(steps, 1), logits, tol=3e-3)
+    assert abs(task.eval_fn(params)["loss"] - float(np.log(128))) < 0.5
+
+
+@pytest.mark.parametrize("n,d", [(1, 262144000), (8, 45088768)])
+def test_lm_leaf_quant_kernels_match_plain(cuda, n, d):
+    """quantize_rows and dequantize_rows at yi-9b's full-width leaf views —
+    the 64,000 × 4,096 embedding as one row, and an MLP leaf (4,096 ×
+    11,008) by the 8 rows of the int8 cache — bit for bit with their plain
+    versions."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, d, generator=g, device=cuda) * 0.02
+    q1, s1 = ops.quantize_rows(x)
+    q2, s2 = ops.quantize_rows(x, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q2) and torch.equal(s1, s2)
+    del x, q2
+    x1 = ops.dequantize_rows(q1, s1)
+    x2 = ops.dequantize_rows(q1, s1, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2)
