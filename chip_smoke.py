@@ -142,6 +142,21 @@ result line):
      1e-4); (e) ACE timed eager, graph, graph, eager and one graph run
      traced (device kernels and busy ms a tick, idle share, the matrix
      products', the embedding backward's and the quant kernels' share);
+  4g. the rest of the real models: zamba2-1.2b at its published widths
+     (d_model 2,048, 32 heads and kv heads of 64, d_ff 8,192, ssm_state 64,
+     d_inner 4,096, conv 4, chunk 256, window 4,096, vocab 32,000) cut from
+     38 layers to 7 — one (mamba ×5, shared_attn) unit and one (mamba,)
+     stage, the shared block at model level: 65 leaves, 286,169,984
+     numbers — on the LM task at 4f's settings, with 4f's gates (a)-(e)
+     (decode from init_cache: an SSM's prefill keeps no state), and
+     ssd_chunked's forward and backward timed at a lane's shapes against
+     the traced tick; then at the published widths, one model at a time:
+     mamba2-780m (all 48 layers) decode against forward over 32 tokens and
+     ssd_chunked at its head shapes (H 48, P 64, N 128) over two chunks
+     against the step recurrence, qwen3-moe-235b-a22b at one layer (two
+     gradients of one batch bit for bit; decode against forward at
+     capacity factor 16, that comparison only) and seamless-m4t-medium at
+     full depth (forward, loss and three decode steps finite);
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -1772,16 +1787,24 @@ def tree_phase(torch, ops, task, dev, card, totals, flat_w, flat_tick,
 
 # --- phase 4f: the real models -----------------------------------------------
 
-# yi-9b's published widths (arXiv:2403.04652: d_model 4,096, 32 heads, 4 kv
-# heads, head_dim 128, d_ff 11,008, vocab 64,000) cut in depth from 48
-# layers to 1, on the LM task at launch/train.py's defaults (n = 8 clients,
-# batch 8, seq 256, 2^18 tokens; beta = 5, so tau_max = 50 and a ring of 51
-# rows; lr = sqrt_nt_schedule(0.5, 8, 200) = 0.1, the first 24 ticks),
-# with int8 tree caches (yi-9b's AFL sizing) and an int8 history ring
-LM_ARCH = "yi-9b"
+# 4f: yi-9b's published widths (arXiv:2403.04652: d_model 4,096, 32 heads, 4
+# kv heads, head_dim 128, d_ff 11,008, vocab 64,000) cut in depth from 48
+# layers to 1; 4g: zamba2-1.2b's (arXiv:2411.15242: d_model 2,048, 32 heads,
+# 32 kv heads, head_dim 64, d_ff 8,192, ssm_state 64, d_inner 4,096 as 64
+# SSM heads of 64, conv 4, chunk 256, window 4,096, vocab 32,000) cut from 38
+# layers to 7: one repeat of its (mamba ×5, shared_attn) unit and one of its
+# (mamba,) stage, so two stages and the model-level shared block. Both on
+# the LM task at launch/train.py's defaults (n = 8 clients, batch 8, seq 256
+# — one SSD chunk —, 2^18 tokens; beta = 5, so tau_max = 50 and a ring of 51
+# rows; lr = sqrt_nt_schedule(0.5, 8, 200) = 0.1, the first 24 ticks), with
+# int8 tree caches and an int8 history ring
 LM_TASK = dict(n_clients=8, batch=8, seq=256, n_tokens=1 << 18, seed=0)
 LM_STEPS, LM_TICKS, LM_LR_SCALE = 200, 24, 0.5
-LM_LEAVES, LM_NUMEL = 11, 435171328
+# phase: (arch, leaves, numbers, reckoned peak GB allocated, decode from a
+# prefill's K/V — an SSM keeps no prefill state, so 4g decodes from the
+# start)
+LM_CUTS = {"4f": ("yi-9b", 11, 435171328, "45-50", True),
+           "4g": ("zamba2-1.2b", 65, 286169984, "25-40", False)}
 LM_DECODE = 16                          # prompt and decode steps (a)
 # (rule, K): ACE, and ACED with a cohort ring of 3 (tests/test_k_batch.py)
 LM_RUNS = (("ace", 1), ("aced", 3))
@@ -1793,12 +1816,17 @@ LM_GROUPS = {"matrix products": r"gemm",
              "quant kernels": r"quantize_rows_kernel|dequantize_rows_kernel"}
 
 
-def lm_config():
+def lm_config(phase):
+    """The configuration a phase runs: its arch at its published widths,
+    cut in depth (`LM_CUTS`)."""
     import dataclasses
-    from repro_torch.configs.base import ATTN
+    from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config(LM_ARCH), num_layers=1,
-                               stages=(((ATTN,), 1),))
+    stages = {"4f": (((ATTN,), 1),),
+              "4g": (((MAMBA,) * 5 + (SHARED_ATTN,), 1), ((MAMBA,), 1))}
+    return dataclasses.replace(
+        get_config(LM_CUTS[phase][0]), stages=stages[phase],
+        num_layers=sum(len(p) * r for p, r in stages[phase]))
 
 
 def lm_runner(task, rule, K, dev, graph, backend=None):
@@ -1820,83 +1848,103 @@ def free(torch):
     torch.cuda.empty_cache()
 
 
-def lm_decode_check(torch, task, cfg, dev, card):
-    """Prefill a prompt of `LM_DECODE` tokens, carry its K/V into a decode
-    cache and decode `LM_DECODE` more: the prefill's last logits and every
-    decode step's against the forward pass over all the tokens, within
-    3e-3 of max(1, max|logits|) (tests/test_models.py's tolerance)."""
+def lm_decode_check(torch, params, cfg, dev, card, prefill=True, P=None,
+                    label="lm"):
+    """With `prefill`, prefill a prompt of P = `LM_DECODE` tokens, carry its
+    K/V into a decode cache and decode P more; else decode all 2P from
+    `init_cache` (an SSM's prefill returns no state): the prefill's last
+    logits and every decode step's against the forward pass over all the
+    tokens, within 3e-3 of max(1, max|logits|) (tests/test_models.py's
+    tolerance)."""
     from repro_torch.models import build_model
-    model, P, B = build_model(cfg), LM_DECODE, 2
+    model, P, B = build_model(cfg), P or LM_DECODE, 2
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (B, 2 * P), generator=gen,
                          device=dev, dtype=torch.int32)
-    params = task.params0
+    start = P if prefill else 0
     with torch.no_grad():
         logits, _ = model.forward(params, {"tokens": toks})
-        last, kv = model.prefill(params, {"tokens": toks[:, :P]})
         cache = model.init_cache(B, 2 * P, device=dev)
-        for stage, filled in zip(cache["layers"], kv):
-            for block, (k, v) in zip(stage, filled):
-                block["k"][:, :, :P] = k
-                block["v"][:, :, :P] = v
+        err = 0.0
+        if prefill:
+            last, kv = model.prefill(params, {"tokens": toks[:, :P]})
+            err = float((last - logits[:, P - 1]).abs().max())
+            for stage, filled in zip(cache["layers"], kv):
+                for block, (k, v) in zip(stage, filled):
+                    block["k"][:, :, :P] = k
+                    block["v"][:, :, :P] = v
         steps = []
-        for t in range(P, 2 * P):
+        for t in range(start, 2 * P):
             lg, cache = model.decode_step(params, cache, toks[:, t], t)
             steps.append(lg)
     scale = max(1.0, float(logits.abs().max()))
-    err = max(float((last - logits[:, P - 1]).abs().max()),
-              float((torch.stack(steps, 1) - logits[:, P:]).abs().max()))
-    check(err <= 3e-3 * scale, f"decode differs from forward by {err}")
-    print(f"lm decode: prefill of {P} tokens then {P} decode steps (B={B}) "
-          f"against the forward pass over {2 * P}: max |diff| {err:.3e} "
-          f"(logits up to {scale:.3f}; tolerance 3e-3) [{card}]")
+    err = max(err, float((torch.stack(steps, 1)
+                          - logits[:, start:]).abs().max()))
+    check(err <= 3e-3 * scale, f"{label}: decode differs from forward by "
+          f"{err}")
+    how = (f"prefill of {P} tokens then {P} decode steps" if prefill
+           else f"{2 * P} decode steps from init_cache")
+    print(f"{label} decode: {how} (B={B}) against the forward pass over "
+          f"{2 * P}: max |diff| {err:.3e} (logits up to {scale:.3f}; "
+          f"tolerance 3e-3) [{card}]")
 
 
-def lm_phase(torch, ops, dev, card, totals):
-    """yi-9b at its published widths, one layer (`lm_config`), on the LM
-    task (`LM_TASK`) through the tree layout: (a) the model's 11 leaves and
-    435,171,328 numbers, the eval loss at w0 near ln 64,000 and decode
-    against forward; (d) quantize_rows and dequantize_rows against their
-    plain versions at every leaf view of the tree by 1 and 8 rows, timed at
-    the embedding's one row; (b) ACE
-    int8 K = 1 and ACED int8 K = 3 (int8 tree caches, an int8 ring, 24
-    ticks), each graph run bit for bit with its eager run (model, caches,
-    outputs), finite, both quant kernels launched, eval losses at w0 and
-    at the end, peak memory; (c) ACE again with the plain versions (no
-    kernel, within 1e-4); (e) ACE timed eager, graph, graph, eager (the
-    graph runner captured before) and one graph run traced. Only the first
-    run's model and caches are kept between compared runs: a runner's
-    carry (the 22 GB int8 ring) is freed before the next one is built."""
+def lm_phase(torch, ops, dev, card, totals, phase="4f"):
+    """The phase's model at its published widths, cut in depth
+    (`lm_config`: 4f yi-9b at one layer, 4g zamba2-1.2b at 7), on the LM
+    task (`LM_TASK`) through the tree layout: (a) the model's leaves and
+    numbers (`LM_CUTS`), the eval loss at w0 within 0.5 of ln vocab and
+    decode against forward; (d) quantize_rows and dequantize_rows against
+    their plain versions at every leaf view of the tree by 1 and 8 rows,
+    timed at the embedding's one row; (b) ACE int8 K = 1 and ACED int8
+    K = 3 (int8 tree caches, an int8 ring, 24 ticks), each graph run bit
+    for bit with its eager run (model, caches, outputs), finite, both
+    quant kernels launched, eval losses at w0 and at the end, peak memory;
+    (c) ACE again with the plain versions (no kernel, within 1e-4); (e)
+    ACE timed eager, graph, graph, eager (the graph runner captured
+    before) and one graph run traced. Only the first run's model and
+    caches are kept between compared runs: a runner's carry (4f: the 22 GB
+    int8 ring) is freed before the next one is built. Returns (the task,
+    the traced ACE tick's device busy ms)."""
     import math
     from repro_torch.configs.registry import get_config
     from repro_torch.convert import leaves, tree_map
     from repro_torch.core import make_lm_task
     from repro_torch.optim import sqrt_nt_schedule
 
-    cfg = lm_config()
+    arch, n_leaves, n_numel, reckoned, prefill = LM_CUTS[phase]
+    cfg = lm_config(phase)
     t0 = time.perf_counter()
     task = make_lm_task(cfg=cfg, device=dev, **LM_TASK)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     shapes = [tuple(x.shape) for x in leaves(task.params0)]
     numel = sum(x.numel() for x in leaves(task.params0))
-    check(len(shapes) == LM_LEAVES and numel == LM_NUMEL,
-          f"{len(shapes)} leaves, {numel} numbers: expected {LM_LEAVES}, "
-          f"{LM_NUMEL}")
+    check(len(shapes) == n_leaves and numel == n_numel,
+          f"{len(shapes)} leaves, {numel} numbers: expected {n_leaves}, "
+          f"{n_numel}")
     loss0 = task.eval_fn(task.params0)["loss"]
     check(abs(loss0 - math.log(cfg.vocab_size)) < 0.5,
           f"eval loss at w0 {loss0}, ln vocab {math.log(cfg.vocab_size)}")
-    full = get_config(LM_ARCH).num_layers
-    print(f"lm: {cfg.name} at its published widths, 1 of {full} layers "
-          f"(d_model {cfg.d_model}, {cfg.num_heads} heads, "
-          f"{cfg.num_kv_heads} kv heads, head_dim {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}); {len(shapes)} leaves "
-          f"{shapes}, {numel} numbers ({4 * numel / 1e9:.3f} GB f32); "
+    widths = (f"d_model {cfg.d_model}, {cfg.num_heads} heads, "
+              f"{cfg.num_kv_heads} kv heads, head_dim {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}")
+    if cfg.ssm_state:
+        widths += (f", ssm_state {cfg.ssm_state}, d_inner {cfg.d_inner} "
+                   f"({cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}), "
+                   f"conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, window "
+                   f"{cfg.window_size}")
+    largest = max(x.numel() for x in leaves(task.params0))
+    print(f"lm {phase}: {cfg.name} at its published widths, "
+          f"{cfg.num_layers} of {get_config(arch).num_layers} layers, stages "
+          f"{cfg.stages} ({widths}); {len(shapes)} leaves, {numel} numbers "
+          f"({4 * numel / 1e9:.3f} GB f32), the largest {largest}; "
           f"param_count() {cfg.param_count()} (an untied unembedding it "
           f"counts is not built, ROADMAP C10); task built in {built:.1f} s; "
           f"eval loss at w0 {loss0:.4f} (ln vocab "
           f"{math.log(cfg.vocab_size):.4f}) [{card}]")
-    lm_decode_check(torch, task, cfg, dev, card)
+    lm_decode_check(torch, task.params0, cfg, dev, card, prefill=prefill,
+                    label=f"lm {phase}")
 
     # (d) the quant kernels at every (rows, numel) view the runs give them,
     # and timed at the largest, the embedding leaf's one row (a cache row
@@ -1938,8 +1986,9 @@ def lm_phase(torch, ops, dev, card, totals):
         check(bool(torch.isfinite(out[2]["loss"]).all()),
               f"{label}: non-finite loss")
 
+    busy_ms = None
     for rule, K in LM_RUNS:
-        label = f"lm {rule} int8 K={K}"
+        label = f"lm {phase} {rule} int8 K={K}"
         args = (*engine_streams(task, K, E, dev), lr)
         ref, wall_e, counts_e, peak_e = one(f"{label} eager", lm_runner(
             task, rule, K, dev, False), args)
@@ -1973,7 +2022,7 @@ def lm_phase(torch, ops, dev, card, totals):
               f"True; launches graph {counts_g}, eager {counts_e}; peak "
               f"{peak_g[0]:.2f} / {peak_e[0]:.2f} GB allocated, "
               f"{peak_g[1]:.2f} / {peak_e[1]:.2f} GB reserved (graph / "
-              f"eager; reckoned 45-50) [{card}]")
+              f"eager; reckoned {reckoned}) [{card}]")
         if rule != "ace":
             del ref
             free(torch)
@@ -1989,8 +2038,9 @@ def lm_phase(torch, ops, dev, card, totals):
             del again
             free(torch)
         tick_ms = 1e3 * (walls[1] + walls[2]) / 2 / E
-        trace_engine(torch, ops, f"{label} graph", graph, args, E, tick_ms,
-                     card, must=TREE_KERNELS, top=10, groups=LM_GROUPS)
+        busy_ms, _ = trace_engine(torch, ops, f"{label} graph", graph, args,
+                                  E, tick_ms, card, must=TREE_KERNELS,
+                                  top=10, groups=LM_GROUPS)
         del graph
         free(torch)
         again, wall, _, _ = one(f"{label} eager", lm_runner(
@@ -2021,6 +2071,204 @@ def lm_phase(torch, ops, dev, card, totals):
               f"bit-identical: {same_run(torch, plain, ref)} [{card}]")
         del plain, ref
         free(torch)
+    return task, busy_ms
+
+
+# --- phase 4g: the rest of the real models ------------------------------------
+
+# (e) one forward each at the published widths: mamba2-780m at all 48 layers
+# (arXiv:2405.21060), qwen3-moe-235b-a22b at one of 94 layers (128 experts,
+# top-8), seamless-m4t-medium at full depth (12 + 12 layers)
+WIDE_NUMEL = {"mamba2-780m": 780148992, "qwen3-moe-235b-a22b": 3110088960,
+              "seamless-m4t-medium": 715403264}
+# the SSD scan at mamba2's head shapes: (H, P, N, G), two chunks of 256
+SSD_SHAPES, SSD_L = (48, 64, 128, 1), 512
+# the capacity factor of the MoE's decode-against-forward comparison only:
+# no token drops in either grouping (C >= L in the forward, C >= B in
+# decode); at the published 1.25 the forward (G = B) and decode (G = 1)
+# drop different tokens, in JAX too
+MOE_DECODE_CAPACITY = 16.0
+
+
+def ssd_share(torch, cfg, dev, card, busy_ms):
+    """`ssd_chunked` forward and backward at one lane's shapes (batch 8,
+    seq 256, zamba2's 64 heads of 64, state 64), CUDA-event ms a call,
+    times the cut's mamba layers, against the traced ACE tick's device
+    busy ms (one lane a tick): the SSD's share of the tick. The trace
+    cannot tell its batched products from the projections' (both are
+    cuBLAS gemm kernels, replayed from one graph), so it is timed alone."""
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.models.ssm import ssd_chunked
+    B, L = LM_TASK["batch"], LM_TASK["seq"]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_groups
+    g = torch.Generator(device=dev).manual_seed(5)
+    xs = [torch.randn(s, generator=g, device=dev) * 0.1 for s in
+          ((B, L, H, P), (B, L, H), (B, L, G, N), (B, L, G, N))]
+    xs[1] = -xs[1].abs()
+    xs = [x.requires_grad_(True) for x in xs]
+
+    def call():
+        y, final = ssd_chunked(*xs, cfg)
+        torch.autograd.grad(y.sum() + final.sum(), xs)
+    _, ms, _ = measure(torch, call, 20)
+    layers = sum(p.count(MAMBA) * r for p, r in cfg.stages)
+    share = layers * ms / busy_ms if busy_ms else float("nan")
+    print(f"lm 4g ssd_chunked forward and backward at a lane's shapes (B={B}, "
+          f"L={L}, H={H}, P={P}, N={N}, G={G}): {ms:.4f} ms (CUDA events) × "
+          f"{layers} mamba layers = {layers * ms:.3f} ms, {share:.3f} of the "
+          f"traced ACE tick's {busy_ms:.3f} ms device busy time [{card}]")
+
+
+def _ssd_recurrence(torch, x, a, Bm, Cm):
+    """tests/test_ssm.py's step recurrence (`naive_ssd`) in float64 on the
+    card -> (y, final state)."""
+    Bsz, L, H, P = x.shape
+    Hg = H // Bm.shape[2]
+    x, a, Bm, Cm = (t.double() for t in (x, a, Bm, Cm))
+    h = torch.zeros((Bsz, H, P, Bm.shape[3]), dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        h = h * torch.exp(a[:, t])[:, :, None, None]
+        bb = Bm[:, t].repeat_interleave(Hg, dim=1)
+        cc = Cm[:, t].repeat_interleave(Hg, dim=1)
+        h = h + x[:, t][..., None] * bb[:, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cc))
+    return torch.stack(ys, 1), h
+
+
+def _numel_check(torch, label, params, expected, card):
+    from repro_torch.convert import leaves
+    numel = sum(x.numel() for x in leaves(params))
+    check(numel == expected, f"{label}: {numel} numbers, expected "
+          f"{expected}")
+    print(f"{label}: {len(leaves(params))} leaves, {numel} numbers "
+          f"({4 * numel / 1e9:.2f} GB f32) [{card}]")
+
+
+def wide_phase(torch, dev, card):
+    """(e) At the published widths, one model at a time (memory freed
+    between them): mamba2-780m at all 48 layers, decode from `init_cache`
+    against forward over 32 tokens, and `ssd_chunked` at its head shapes
+    over two chunks against the step recurrence; qwen3-moe-235b-a22b at
+    one layer, loss and gradient at B = 2, L = 16 (finite, two gradients
+    of one batch bit for bit: the MoE sums in no order the card picks),
+    then decode against forward at capacity factor `MOE_DECODE_CAPACITY`;
+    seamless-m4t-medium at full depth, forward and loss on source frames
+    (finite) and three decode steps (finite)."""
+    import dataclasses
+    import math
+    from repro_torch.configs.base import ATTN
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import _rebuild, leaves
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import ssd_chunked
+
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    _numel_check(torch, f"wide {cfg.name} ({cfg.num_layers} layers)", params,
+                 WIDE_NUMEL[cfg.name], card)
+    lm_decode_check(torch, params, cfg, dev, card, prefill=False,
+                    label=f"wide {cfg.name}")
+    del params
+    free(torch)
+    H, P, N, G = SSD_SHAPES
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, SSD_L, H, P), generator=g, device=dev) * 0.5
+    a = -torch.randn((2, SSD_L, H), generator=g, device=dev).abs() * 0.3
+    Bm, Cm = (torch.randn((2, SSD_L, G, N), generator=g, device=dev) * 0.5
+              for _ in range(2))
+    ssd_cfg = dataclasses.replace(cfg, ssm_chunk=SSD_L // 2)
+    with torch.no_grad():
+        y, final = ssd_chunked(x, a, Bm, Cm, ssd_cfg)
+    ref_y, ref_h = _ssd_recurrence(torch, x, a, Bm, Cm)
+    err = max(float((y.double() - ref_y).abs().max()),
+              float((final.double() - ref_h).abs().max()))
+    scale = max(1.0, float(ref_y.abs().max()), float(ref_h.abs().max()))
+    check(err <= 1e-4 * scale, f"ssd_chunked differs from the recurrence "
+          f"by {err}")
+    print(f"wide ssd_chunked at mamba2's heads (H={H}, P={P}, N={N}, G={G}), "
+          f"L={SSD_L} in 2 chunks: y and the final state against the step "
+          f"recurrence (float64) within {err:.3e} (values up to "
+          f"{scale:.3f}; tolerance 1e-4) [{card}]")
+    del x, a, Bm, Cm, y, final, ref_y, ref_h
+    free(torch)
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), num_layers=1,
+                              stages=(((ATTN,), 1),))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _numel_check(torch, f"wide {cfg.name} (1 of 94 layers)", params,
+                 WIDE_NUMEL[cfg.name], card)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def grads():
+        xs = [x.detach().requires_grad_(True) for x in leaves(params)]
+        loss = model.loss_fn(_rebuild(params, iter(xs)), batch)
+        return loss.detach(), torch.autograd.grad(loss, xs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss1, g1 = grads()
+    check(bool(torch.isfinite(loss1)) and all(
+        bool(torch.isfinite(x).all()) for x in g1),
+        f"{cfg.name}: non-finite loss or gradient")
+    loss2, g2 = grads()
+    same = bool(torch.equal(loss1, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(g1, g2))
+    check(same, f"{cfg.name}: two gradients of one batch differ")
+    print(f"wide {cfg.name}: loss {float(loss1):.4f} (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}) and its gradient at B=2, L=16 "
+          f"finite; two gradients bit-identical: True; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB allocated "
+          f"[{card}]")
+    del g1, g2
+    free(torch)
+    wide = dataclasses.replace(cfg, capacity_factor=MOE_DECODE_CAPACITY)
+    print(f"wide {cfg.name}: capacity_factor {cfg.capacity_factor} -> "
+          f"{MOE_DECODE_CAPACITY} for the decode comparison only")
+    lm_decode_check(torch, params, wide, dev, card, prefill=False, P=8,
+                    label=f"wide {cfg.name}")
+    del params, model
+    free(torch)
+
+    cfg = get_config("seamless-m4t-medium")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _numel_check(torch, f"wide {cfg.name} ({cfg.num_layers} + "
+                 f"{cfg.num_encoder_layers} layers)", params,
+                 WIDE_NUMEL[cfg.name], card)
+    B, L = 2, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, L + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "audio_embeds": torch.randn(
+                 (B, L // cfg.encoder_frames_ratio, cfg.d_model),
+                 generator=gen, device=dev) * 0.1}
+    with torch.no_grad():
+        logits, _ = model.forward(params, batch)
+        loss = model.loss_fn(params, batch)
+        cache = model.init_cache(B, L, device=dev)
+        steps = []
+        for t in range(3):
+            lg, cache = model.decode_step(params, cache, toks[:, t], t)
+            steps.append(lg)
+    check(tuple(logits.shape) == (B, L, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(loss)), f"{cfg.name}: forward")
+    check(all(bool(torch.isfinite(x).all()) for x in steps),
+          f"{cfg.name}: decode")
+    print(f"wide {cfg.name}: forward on {L // cfg.encoder_frames_ratio} "
+          f"source frames and {L} tokens finite, loss {float(loss):.4f} "
+          f"(ln vocab {math.log(cfg.vocab_size):.4f}); 3 decode steps finite "
+          f"(decode reads the zero cross cache, ROADMAP C13) [{card}]")
+    del params, model, logits, cache, steps
+    free(torch)
+    print(f"wide models took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2224,8 +2472,19 @@ def main() -> int:
     # 4f. the real models: yi-9b's widths at one layer, the LM task
     start_4f = time.perf_counter()
     print(f"phase 4f starts at {start_4f - start:.1f} s")
-    lm_phase(torch, ops, dev, card, totals)
+    lm_phase(torch, ops, dev, card, totals, "4f")
     print(f"phase 4f took {time.perf_counter() - start_4f:.1f} s")
+
+    # 4g. the rest of the real models: zamba2-1.2b's widths at 7 layers on
+    # the LM task, then mamba2, the MoE and the encoder-decoder at theirs
+    start_4g = time.perf_counter()
+    print(f"phase 4g starts at {start_4g - start:.1f} s")
+    hybrid, busy_ms = lm_phase(torch, ops, dev, card, totals, "4g")
+    del hybrid
+    free(torch)
+    ssd_share(torch, lm_config("4g"), dev, card, busy_ms)
+    wide_phase(torch, dev, card)
+    print(f"phase 4g took {time.perf_counter() - start_4g:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

@@ -1,5 +1,4 @@
-"""Config-driven transformer stack — a port of `repro.models.transformer`
-for the attention-only decoders (the dense and vlm families).
+"""Config-driven transformer stack — a port of `repro.models.transformer`.
 
 A model is a sequence of *stages*; each stage is (pattern, repeats) where
 the pattern is a tuple of layer kinds. A stage's parameters are JAX's: a
@@ -10,11 +9,12 @@ leaf order is JAX's. Where JAX scans over the repeats, the port loops over
 them in Python, indexing ``leaf[r]`` (``cfg.scan_layers`` changes
 nothing).
 
-Supported kinds here: attn and attn_local (sliding window), with MLA or
-GQA chosen from the config. The mamba and shared_attn kinds, the MoE FFN
-(``cfg.is_moe``, ``dense_residual``) and the encoder-decoder's
-cross-attention raise `NotImplementedError` (ROADMAP A9b-2). The JAX
-package's sharding constraints are not ported (multi-GPU is ROADMAP
+Supported kinds: attn, attn_local (sliding window), mamba (SSD) and
+shared_attn (Zamba2-style: one attention+MLP unit whose parameters live at
+model level, windowed; its entry in a stage is ``{}``). Dense FFN / MoE
+FFN (with arctic's parallel dense residual) and MLA vs GQA are chosen from
+the config. Encoder-decoder adds per-decoder-layer cross-attention. The
+JAX package's sharding constraints are not ported (multi-GPU is ROADMAP
 A10)."""
 from __future__ import annotations
 
@@ -27,20 +27,9 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ATTN_LOCAL, MAMBA, SHARED_ATTN, ModelConfig
 from repro_torch.convert import leaves, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
-
-PENDING = "ROADMAP A9b-2"
-
-
-def pending(what: str):
-    """The error of a branch this slice of the port does not carry."""
-    return NotImplementedError(f"{what} is not ported yet ({PENDING})")
-
-
-def check_kind(kind: str):
-    """Raise for a layer kind this slice does not carry."""
-    if kind in (MAMBA, SHARED_ATTN):
-        raise pending(f"the {kind!r} layer kind")
 
 
 # ---------------------------------------------------------------------------
@@ -49,10 +38,6 @@ def check_kind(kind: str):
 
 def _attn_block_init(generator, cfg: ModelConfig, dtype, *, cross: bool,
                      device=None):
-    if cfg.is_moe:
-        raise pending("the MoE FFN")
-    if cross:
-        raise pending("cross-attention (encoder-decoder)")
     dev = device or generator.device
     p: Dict[str, Any] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
@@ -61,30 +46,54 @@ def _attn_block_init(generator, cfg: ModelConfig, dtype, *, cross: bool,
         p["attn"] = attn_lib.mla_init(generator, cfg, dtype, device)
     else:
         p["attn"] = attn_lib.attn_init(generator, cfg, dtype, device)
-    p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    if cfg.is_moe:
+        p["ffn"] = moe_lib.moe_init(generator, cfg, dtype, device)
+        if cfg.dense_residual:
+            p["dense_ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                      dtype, device)
+    else:
+        p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    if cross:
+        p["ln_c"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
+        p["cross"] = attn_lib.attn_init(generator, cfg, dtype, device)
     return p
 
 
 def block_init(generator, kind: str, cfg: ModelConfig, dtype, *,
                cross: bool = False, device=None):
-    check_kind(kind)
+    if kind == MAMBA:
+        dev = device or generator.device
+        return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+                "mamba": ssm_lib.mamba_init(generator, cfg, dtype, device)}
+    if kind == SHARED_ATTN:
+        return {}            # parameters live at model level (shared)
     return _attn_block_init(generator, cfg, dtype, cross=cross,
                             device=device)
 
 
 def _ffn_apply(params, x, cfg):
     if cfg.is_moe:
-        raise pending("the MoE FFN")
+        y, aux = moe_lib.moe_apply(params["ffn"], x, cfg)
+        if cfg.dense_residual:
+            y = y + mlp_apply(params["dense_ffn"], x)
+        return y, aux
     return mlp_apply(params["ffn"], x), 0.0
+
+
+def _window(kind, cfg):
+    return cfg.window_size if kind in (ATTN_LOCAL, SHARED_ATTN) else 0
 
 
 def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
                 shared=None, return_cache=False):
     """Full-sequence (train / prefill) block. Returns (x, aux, cache|None)."""
-    check_kind(kind)
-    if enc_out is not None:
-        raise pending("cross-attention (encoder-decoder)")
-    window = cfg.window_size if kind == ATTN_LOCAL else 0
+    if kind == MAMBA:
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y = ssm_lib.mamba_apply(params["mamba"], h, cfg)
+        return x + y, 0.0, None
+    if kind == SHARED_ATTN:
+        params = shared
+    window = _window(kind, cfg)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     cache = None
     if cfg.use_mla:
@@ -98,6 +107,11 @@ def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
         y = attn_lib.attn_apply(params["attn"], h, cos, sin, cfg,
                                 causal=causal, window=window)
     x = x + y
+    if enc_out is not None:
+        h = rms_norm(x, params["ln_c"], cfg.norm_eps)
+        y = attn_lib.attn_apply(params["cross"], h, None, None, cfg,
+                                causal=False, kv_x=enc_out)
+        x = x + y
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     y, aux = _ffn_apply(params, h, cfg)
     return x + y, aux, cache
@@ -106,10 +120,13 @@ def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
 def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
                  cross_cache=None):
     """Single-token decode. x (B,1,d). Returns (x, new_cache)."""
-    check_kind(kind)
-    if cross_cache is not None:
-        raise pending("cross-attention (encoder-decoder)")
-    window = cfg.window_size if kind == ATTN_LOCAL else 0
+    if kind == MAMBA:
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, new_cache = ssm_lib.mamba_decode(params["mamba"], h, cache, cfg)
+        return x + y, new_cache
+    if kind == SHARED_ATTN:
+        params = shared
+    window = _window(kind, cfg)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         y, new_cache = attn_lib.mla_decode(params["attn"], h, cos, sin, cache,
@@ -118,6 +135,18 @@ def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
         y, new_cache = attn_lib.attn_decode(params["attn"], h, cos, sin,
                                             cache, pos, cfg, window=window)
     x = x + y
+    if cross_cache is not None:
+        # the encoder's K/V as the cache holds them (JAX's: zeros, never
+        # filled — ROADMAP C13)
+        h = rms_norm(x, params["ln_c"], cfg.norm_eps)
+        B = x.shape[0]
+        q = (h @ params["cross"]["wq"]).reshape(B, 1, cfg.num_heads,
+                                                cfg.head_dim)
+        valid = torch.ones((B, cross_cache["k"].shape[1]), dtype=torch.bool,
+                           device=x.device)
+        y = attn_lib.decode_attention(q[:, 0], cross_cache["k"],
+                                      cross_cache["v"], valid)
+        x = x + y.reshape(B, 1, -1) @ params["cross"]["wo"]
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     y, _ = _ffn_apply(params, h, cfg)
     return x + y, new_cache
@@ -125,9 +154,10 @@ def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
 
 def block_cache_init(kind, cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device=None):
-    check_kind(kind)
+    if kind == MAMBA:
+        return ssm_lib.mamba_init_cache(cfg, batch, dtype, device)
     S = max_len
-    if kind == ATTN_LOCAL and cfg.window_size:
+    if kind in (ATTN_LOCAL, SHARED_ATTN) and cfg.window_size:
         S = min(cfg.window_size, max_len)
     if cfg.use_mla:
         return {"latent": torch.zeros((batch, S, cfg.kv_lora_rank),
@@ -217,16 +247,20 @@ def stage_apply(stage_params, pattern, x, cos, sin, cfg, *, causal=True,
 
 def stage_decode(stage_params, pattern, x, cos, sin, stage_cache, pos, cfg,
                  *, shared=None, cross_caches=None):
-    if cross_caches is not None:
-        raise pending("cross-attention (encoder-decoder)")
+    """One token through the stage's repeats. `cross_caches` (the
+    encoder-decoder's) is per pattern kind, leaves leading with the
+    repeats, like `stage_cache`; it is read, not returned."""
     new_units = []
     for r in range(stage_params_len(stage_params)):
         unit_params = _unit(r)(stage_params)
         unit_cache = _unit(r)(stage_cache)
+        unit_cross = (_unit(r)(cross_caches) if cross_caches is not None
+                      else (None,) * len(pattern))
         new = []
         for i, (bp, kind) in enumerate(zip(unit_params, pattern)):
             x, nc = block_decode(bp, kind, x, cos, sin, unit_cache[i], pos,
-                                 cfg, shared=shared)
+                                 cfg, shared=shared,
+                                 cross_cache=unit_cross[i])
             new.append(nc)
         new_units.append(tuple(new))
     return x, _stack(new_units)

@@ -2,9 +2,8 @@
 package's: all ten architectures and their ``reduced()`` variants field by
 field, the analytic parameter counts, the registry's lookups and sizing,
 the input specs (meta-device stand-ins against ``ShapeDtypeStruct``s) and
-the materialized batches; then every buildable architecture's reduced
-model run forward and decoded, and the builds this slice does not carry
-raising `NotImplementedError` that names ROADMAP A9b-2."""
+the materialized batches; then every architecture's reduced model run forward
+and decoded, and a JAX init of each carried across and run."""
 import dataclasses
 
 import numpy as np
@@ -27,18 +26,13 @@ from repro_torch.models import build_model  # noqa: E402
 torch.set_num_threads(1)
 
 ARCHS = list(jreg.ARCHS)
-# the attention-only decoders this slice builds; the rest wait for A9b-2
-BUILDABLE = ["yi-9b", "gemma2-2b", "qwen2-vl-7b", "minicpm3-4b",
-             "llama3-405b"]
-PENDING = {"qwen3-moe-235b-a22b": "MoE", "arctic-480b": "MoE",
-           "mamba2-780m": "mamba", "zamba2-1.2b": "mamba",
-           "seamless-m4t-medium": "encoder-decoder"}
+# every architecture builds in the port
+BUILDABLE = ARCHS
 SMOKE = tbase.InputShape("smoke", 64, 2, "train")
 
 
 def test_the_registry_lists_the_same_archs():
     assert list(treg.ARCHS) == ARCHS
-    assert sorted(BUILDABLE + list(PENDING)) == sorted(ARCHS)
     assert treg.LONG_CONTEXT_OK == jreg.LONG_CONTEXT_OK
     assert treg.AFL_SIZING == jreg.AFL_SIZING
 
@@ -106,16 +100,13 @@ def _spec_leaves(specs, meta):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_input_specs_match(arch):
     """Shapes and dtypes of every input, leaf for leaf, on the meta device
-    (no storage); a decode spec builds the cache, which raises for the
-    archs this slice does not build."""
+    (no storage); a decode spec builds the model's cache (the mamba
+    layers' conv and state, the shared block's window, the
+    encoder-decoder's cross K/V)."""
     for shape in jbase.INPUT_SHAPES.values():
         if not jreg.supports_shape(arch, shape.name):
             continue
         cfg = treg.get_config(arch, shape=shape.name)
-        if shape.mode == "decode" and arch in PENDING:
-            with pytest.raises(NotImplementedError, match="A9b-2"):
-                treg.input_specs(cfg, shape)
-            continue
         t = treg.input_specs(cfg, shape)
         assert all(x.device.type == "meta" for x in convert.leaves(t))
         j = jreg.input_specs(jreg.get_config(arch, shape=shape.name), shape)
@@ -156,6 +147,12 @@ def _smoke_batch(cfg, L=64, seed=0):
                 np.float32))
         batch["positions3"] = torch.arange(L, dtype=torch.int32)[
             None, None].expand(Bs, 3, L)
+    elif cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.as_tensor(
+            (rng.normal(size=(Bs, L // cfg.encoder_frames_ratio,
+                              cfg.d_model)) * 0.1).astype(np.float32))
+        batch["tokens"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (Bs, L)).astype(np.int32))
     else:
         batch["tokens"] = torch.as_tensor(
             rng.integers(0, cfg.vocab_size, (Bs, L)).astype(np.int32))
@@ -187,16 +184,6 @@ def test_reduced_forward_and_decode(arch):
             assert logits.shape == (Bs, cfg.vocab_size)
             assert bool(torch.isfinite(logits).all()), arch
             tok = torch.argmax(logits, -1).int()
-
-
-@pytest.mark.parametrize("arch", sorted(PENDING))
-def test_pending_archs_raise_naming_a9b2(arch):
-    """MoE, SSM, hybrid and encoder-decoder builds raise, naming the
-    ROADMAP item that ports them; nothing runs a silent substitute."""
-    for cfg in (treg.ARCHS[arch], treg.ARCHS[arch].reduced()):
-        with pytest.raises(NotImplementedError, match="A9b-2") as err:
-            build_model(cfg)
-        assert PENDING[arch] in str(err.value)
 
 
 def test_built_tree_is_tied_whatever_the_config_says():

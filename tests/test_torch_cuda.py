@@ -23,7 +23,10 @@ at its full width too) with ``-k graph``, the sanitize checks with
 caches, an int8 tree cache through the quant kernels against the CPU)
 with ``-k tree``, the real models (the reduced LM task's tree graph run
 against its eager run, decode against forward, the quant kernels at
-yi-9b's full-width leaf views) with ``-k lm``."""
+yi-9b's full-width leaf views) with ``-k lm``, the rest of them (the
+reduced MoE, Mamba-2, hybrid and encoder-decoder archs against their CPU
+runs, MoE gradients bit for bit, the reduced zamba2 LM task's graph run
+against eager) with ``-k "ssm or moe"``."""
 import numpy as np
 import pytest
 
@@ -1328,3 +1331,125 @@ def test_lm_leaf_quant_kernels_match_plain(cuda, n, d):
     x2 = ops.dequantize_rows(q1, s1, backend="torch")
     torch.cuda.synchronize()
     assert torch.equal(x1, x2)
+
+
+# --- the rest of the real models: SSM, hybrid, MoE, encoder-decoder ---------
+
+SSM_MOE_ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b", "mamba2-780m",
+                 "zamba2-1.2b", "seamless-m4t-medium"]
+
+
+def _reduced_batch(cfg, device, B=2, L=64, seed=0):
+    """tests/test_configs_smoke.py's batch (tokens and targets; source
+    frames for the encoder-decoder)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, L)),
+             "targets": rng.integers(0, cfg.vocab_size, (B, L))}
+    batch = {k: torch.as_tensor(v.astype(np.int32), device=device)
+             for k, v in batch.items()}
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.as_tensor(
+            (rng.normal(size=(B, L // cfg.encoder_frames_ratio, cfg.d_model))
+             * 0.1).astype(np.float32), device=device)
+    return batch
+
+
+def _forward_and_decode(model, params, batch, device, steps=8):
+    """(logits, loss, [decode logits]) with `steps` decode steps from
+    `init_cache`, each fed the batch's next token."""
+    with torch.no_grad():
+        logits, _ = model.forward(params, batch)
+        loss = model.loss_fn(params, batch)
+        B = batch["tokens"].shape[0]
+        cache = model.init_cache(B, 64, device=device)
+        outs = []
+        for t in range(steps):
+            lg, cache = model.decode_step(params, cache,
+                                          batch["tokens"][:, t], t)
+            outs.append(lg)
+    return logits, loss, outs
+
+
+@pytest.mark.parametrize("arch", SSM_MOE_ARCHS)
+def test_ssm_moe_reduced_archs_match_cpu(cuda, arch):
+    """The five archs of the second half of the real models (MoE, arctic's
+    dense residual, Mamba-2, the zamba2 hybrid, the encoder-decoder) at
+    their `reduced()` widths: forward logits, loss and 8 decode steps on
+    the card within 1e-4 of the same model's CPU run (the weights drawn
+    on the CPU and copied), all finite."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    cpu = _forward_and_decode(model, params, _reduced_batch(cfg, "cpu"),
+                              "cpu")
+    card = _forward_and_decode(model, tree_map(lambda x: x.to(cuda), params),
+                               _reduced_batch(cfg, cuda), cuda)
+    assert bool(torch.isfinite(card[0]).all())
+    _close(card[0], cpu[0], tol=1e-4)
+    _close(card[1], cpu[1], tol=1e-4)
+    for a, b in zip(card[2], cpu[2]):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, tol=1e-4)
+
+
+def test_moe_gradients_bit_for_bit(cuda):
+    """The reduced qwen3-moe's loss gradient (the router's aux term in it)
+    twice on one batch: every leaf equal bit for bit — the MoE dispatch
+    and combine sum nothing in an order the card picks (no atomics) —
+    and at capacity factor 1.0, where tokens are dropped, too."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import _rebuild, leaves
+    from repro_torch.models import build_model
+    base = get_config("qwen3-moe-235b-a22b").reduced()
+    for cf in (base.capacity_factor, 1.0):
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        batch = _reduced_batch(cfg, cuda)
+
+        def grads():
+            xs = [x.detach().requires_grad_(True) for x in leaves(params)]
+            loss = model.loss_fn(_rebuild(params, iter(xs)), batch)
+            return loss.detach(), torch.autograd.grad(loss, xs)
+        l1, g1 = grads()
+        l2, g2 = grads()
+        assert torch.equal(l1, l2) and bool(torch.isfinite(l1))
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("name,K", [("ace", 1), ("aced", 3)])
+def test_ssm_hybrid_lm_tree_graph_run_matches_eager(cuda, name, K):
+    """The reduced zamba2 (mamba ×5 and the shared attention block) on the
+    LM task, tree layout, int8 cache and int8 history ring: the captured
+    tick replays bit for bit like the eager tick, both quant kernels
+    launched in the replays as often as eagerly."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fl_tasks import make_lm_task
+    from repro_torch.convert import leaves
+    cfg = get_config("zamba2-1.2b").reduced(layers=6, d_model=64, vocab=128)
+    task = make_lm_task(cfg=cfg, n_clients=4, batch=2, seq=32,
+                        n_tokens=1 << 14, seed=0, device=cuda)
+    rand, noise = _streams(task.grad_fn, 4, K, 16, cuda)
+    kw = dict(grad_fn=task.grad_fn, params0=task.params0, n_clients=4,
+              T=16, beta=2.0, k_batch=K, layout="tree", history_dtype="int8",
+              device=cuda)
+    rule = (lambda: tagg.ACEIncremental(cache_dtype="int8")) if name == "ace" \
+        else (lambda: tagg.ACED(tau_algo=5, cache_dtype="int8", max_cohort=K))
+    graph = make_staleness_runner(aggregator=rule(), graph=True, **kw)
+    eager = make_staleness_runner(aggregator=rule(), graph=False, **kw)
+    graph(rand, noise, 0.05)
+    ops.reset_launch_counts()
+    replayed = graph(rand, noise, 0.05)
+    replay_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    ref = eager(rand, noise, 0.05)
+    assert ops.launch_counts() == replay_counts
+    assert replay_counts["quantize_rows"] > 0
+    assert replay_counts["dequantize_rows"] > 0
+    assert graph.captures == 1
+    _same_tree_result(replayed, ref)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(ref[0]))

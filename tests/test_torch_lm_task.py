@@ -59,28 +59,29 @@ TASK = dict(n_clients=4, batch=2, seq=32, n_tokens=1 << 14, seed=0)
 N, T, BETA, LR, SEED = 4, 12, 3.0, 0.05, 0
 
 
-@functools.lru_cache(maxsize=1)
-def tasks():
-    """(JAX task, the port's task, JAX's params0 as the port's)."""
-    jtask = jtasks.make_lm_task(cfg=CFG, **TASK)
-    tcfg = tbase.ModelConfig(**dataclasses.asdict(CFG))
+@functools.lru_cache(maxsize=None)
+def tasks(cfg=CFG):
+    """(JAX task, the port's task, JAX's params0 as the port's) of the LM
+    task on `cfg` (the JAX package's configuration)."""
+    jtask = jtasks.make_lm_task(cfg=cfg, **TASK)
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(cfg))
     ttask = ttasks.make_lm_task(cfg=tcfg, device="cpu", **TASK)
     params0 = convert.params_from_jax(jax.tree.map(np.asarray,
                                                    jtask.params0))
     return jtask, ttask, params0
 
 
-def jax_lm_grad():
+def jax_lm_grad(cfg=CFG):
     """JAX's LM gradient built from the JAX package's pieces, drawing each
     call's window uniforms from its key and starting window i at ``lo +
     min(floor(u_i · (per − seq − 1)), per − seq − 2)`` — the port's rule —
     so that both packages read the same windows. -> (grad_fn, noise_of)."""
     seq, batch = TASK["seq"], TASK["batch"]
     toks = jnp.asarray(make_token_stream(n_tokens=TASK["n_tokens"],
-                                         vocab=CFG.vocab_size,
+                                         vocab=cfg.vocab_size,
                                          seed=TASK["seed"]), jnp.int32)
     per = TASK["n_tokens"] // TASK["n_clients"]
-    model = jbuild(CFG)
+    model = jbuild(cfg)
 
     def grad_fn(params, client, key):
         u = jax.random.uniform(key, (batch,))
@@ -174,12 +175,12 @@ def port_grad_in_jax(ttask):
 
 
 @functools.lru_cache(maxsize=None)
-def both_runs(name, dtype, K):
+def both_runs(name, dtype, K, cfg=CFG):
     """JAX's tree runner and the port's on JAX's streams -> (JAX's (w,
     state, outs) as numpy, the port's (w, state, outs)). An int8 run gives
     JAX the port's gradient."""
-    jtask, ttask, params0 = tasks()
-    jgrad, noise_of = jax_lm_grad()
+    jtask, ttask, params0 = tasks(cfg)
+    jgrad, noise_of = jax_lm_grad(cfg)
     if dtype == "int8":
         jgrad = port_grad_in_jax(ttask)
     j_agg = make_rule("jax", name, dtype, K)
@@ -203,10 +204,11 @@ def both_runs(name, dtype, K):
             trun(rand, noise, LR)[:3], (rand, noise))
 
 
-@pytest.mark.parametrize("name,K", [("aced", 3), ("ace", 1)])
-def test_tree_engine_matches_jax_tree(name, K):
-    (jw, js, jouts), (tw, ts, touts), _ = both_runs(name, "float32", K)
-    assert len(convert.leaves(tw)) == 11
+def check_tree_run(jax_run, port_run):
+    """The port's tree run against JAX's, both `both_runs` results: the
+    model, the ticks, losses and update norms, and every state tensor
+    within 1e-5."""
+    (jw, js, jouts), (tw, ts, touts) = jax_run, port_run
     close(tw, jw)
     assert np.array_equal(touts["emit"].numpy(), jouts["emit"])
     assert np.array_equal(touts["t"].numpy(), jouts["t"])
@@ -220,6 +222,13 @@ def test_tree_engine_matches_jax_tree(name, K):
             close(tcache.cache_tensors(ts[k]), js[k])
         else:
             close(ts[k], js[k])
+
+
+@pytest.mark.parametrize("name,K", [("aced", 3), ("ace", 1)])
+def test_tree_engine_matches_jax_tree(name, K):
+    jax_run, port_run, _ = both_runs(name, "float32", K)
+    assert len(convert.leaves(port_run[0])) == 11
+    check_tree_run(jax_run, port_run)
 
 
 def test_int8_tree_mean_is_jaxs_eager_mean_bit_for_bit():
