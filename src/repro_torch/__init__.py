@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of the AFL server (`repro`), module for module: the
-staleness and event engines (`repro_torch.core`), their hand-written Hopper
-kernels (`repro_torch.kernels`), the datasets (`repro_torch.data`), and the
-real models — configurations (`repro_torch.configs`), the transformer of
-the attention-only decoders (`repro_torch.models`) and the optimizers
-(`repro_torch.optim`). Entry points run on the GPU unless the caller
-passes ``device="cpu"``."""
+staleness and event engines and the AFL train step (`repro_torch.core`),
+their hand-written Hopper kernels (`repro_torch.kernels`), the datasets
+(`repro_torch.data`), the real models — configurations
+(`repro_torch.configs`), the transformers (`repro_torch.models`) and the
+optimizers (`repro_torch.optim`) — crash-safe checkpoints
+(`repro_torch.checkpoint`) and the train and serve drivers with the
+analytic FLOP counts (`repro_torch.launch`). Entry points run on the GPU
+unless the caller passes ``device="cpu"``."""

@@ -26,7 +26,9 @@ against its eager run, decode against forward, the quant kernels at
 yi-9b's full-width leaf views) with ``-k lm``, the rest of them (the
 reduced MoE, Mamba-2, hybrid and encoder-decoder archs against their CPU
 runs, MoE gradients bit for bit, the reduced zamba2 LM task's graph run
-against eager) with ``-k "ssm or moe"``."""
+against eager) with ``-k "ssm or moe"``, the train stack (the AFL train
+step on the card against the CPU, checkpoints restored onto CUDA tensors,
+the train driver resumed bit for bit) with ``-k train``."""
 import numpy as np
 import pytest
 
@@ -1453,3 +1455,120 @@ def test_ssm_hybrid_lm_tree_graph_run_matches_eager(cuda, name, K):
     assert graph.captures == 1
     _same_tree_result(replayed, ref)
     assert all(bool(torch.isfinite(x).all()) for x in leaves(ref[0]))
+
+
+# --- the train stack (the AFL train step, checkpoints, the train driver) ---
+
+def _train_steps(device, cache_dtype, algo="ace", backend=None, steps=4):
+    """`steps` AFL train steps of the reduced yi LM loss on `device` from
+    the same CPU-drawn weights and batches -> (params, rule state, launch
+    counts)."""
+    from repro_torch.configs.base import AFLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.core.distributed import make_afl_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    model = build_model(get_config("yi-9b").reduced(layers=2, d_model=64,
+                                                    vocab=128))
+    params = tree_map(lambda x: x.to(device), model.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    cfg = AFLConfig(algorithm=algo, n_clients=4, tau_algo=3,
+                    cache_dtype=cache_dtype)
+    init_fn, step_fn = make_afl_train_step(model.loss_fn, cfg, sgd(0.1),
+                                           backend=backend)
+    state = init_fn(params)
+    toks = torch.randint(0, 128, (steps, 2, 33), generator=torch.Generator(
+        ).manual_seed(1), dtype=torch.int32).to(device)
+    ops.reset_launch_counts()
+    for s in range(steps):
+        batch = {"tokens": toks[s, :, :-1], "targets": toks[s, :, 1:]}
+        state, metrics = step_fn(state, batch, s % 4, s % 3)
+        assert bool(torch.isfinite(metrics["loss"]))
+    return state.params, state.afl, ops.launch_counts()
+
+
+@pytest.mark.parametrize("algo,cache_dtype", [("ace", "int8"),
+                                              ("aced", "float32")])
+def test_train_step_on_the_card_matches_the_cpu(cuda, algo, cache_dtype):
+    """The train step on the card against the same steps on the CPU (the
+    plain versions there): parameters within 1e-4 of their scale, int8
+    codes within one step; an int8 cache launches both quant kernels, and
+    ``backend="torch"`` none."""
+    from repro_torch.convert import leaves
+    from repro_torch.core.cache import cache_tensors
+    p_cpu, s_cpu, _ = _train_steps("cpu", cache_dtype, algo)
+    p_gpu, s_gpu, counts = _train_steps(cuda, cache_dtype, algo)
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        _close(a, b, tol=1e-4)
+    for a, b in zip(cache_tensors(s_gpu["cache"]),
+                    cache_tensors(s_cpu["cache"])):
+        if a.dtype == torch.int8:
+            assert int((a.cpu().int() - b.int()).abs().max()) <= 1
+        else:
+            _close(a, b, tol=1e-4)
+    if cache_dtype == "int8":
+        assert counts["quantize_rows"] > 0 and counts["dequantize_rows"] > 0
+        _, _, plain = _train_steps(cuda, cache_dtype, algo, backend="torch")
+        assert sum(plain.values()) == 0
+
+
+def test_train_checkpoint_restores_onto_cuda_tensors(cuda, tmp_path):
+    """A chunked tree carry on the card (int8 cache and ring) saved and
+    restored onto a fresh carry: every leaf on the card, of its dtype, bit
+    for bit; a bf16 leaf too."""
+    from repro_torch.checkpoint import (restore_checkpoint,
+                                        restore_train_checkpoint,
+                                        save_checkpoint,
+                                        save_train_checkpoint)
+    from repro_torch.checkpoint.checkpoint import _paths
+    task = _lm_task(cuda)
+    rand, noise = _streams(task.grad_fn, 4, 1, 12, cuda)
+    runner = make_chunked_staleness_runner(
+        capacity=12, grad_fn=task.grad_fn, params0=task.params0,
+        aggregator=tagg.ACEIncremental(cache_dtype="int8"), n_clients=4,
+        T=12, beta=2.0, layout="tree", history_dtype="int8", device=cuda)
+    carry, _ = runner.chunk(runner.init(0.05, noise.init), rand, noise.ticks,
+                            0.05)
+    save_train_checkpoint(str(tmp_path), 12, carry)
+    back, e = restore_train_checkpoint(str(tmp_path),
+                                       runner.init(0.05, noise.init))
+    assert e == 12 == int(back["e"])
+    pairs = list(zip(_paths(back), _paths(carry)))
+    assert len(pairs) > 30
+    for (ka, a), (kb, b) in pairs:
+        assert ka == kb and a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b), ka
+    h = torch.randn(5, 7, device=cuda).to(torch.bfloat16)
+    save_checkpoint(str(tmp_path), 0, {"h": h}, prefix="bf")
+    got = restore_checkpoint(str(tmp_path), 0, {"h": torch.zeros_like(h)},
+                             prefix="bf")["h"]
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), h.view(torch.int16))
+
+
+def test_train_driver_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """The train driver on the card (graph runner, int8 cache): a run
+    resumed from its first checkpoint writes the straight run's final
+    checkpoint bit for bit."""
+    import os
+    import shutil
+    from repro_torch.launch.train import main as train_main
+    args = ["--arch", "yi-9b", "--reduced", "--d-model", "64", "--layers",
+            "2", "--vocab", "128", "--seq", "32", "--batch", "2",
+            "--n-clients", "4", "--steps", "24", "--chunk-events", "8",
+            "--ckpt-every", "8", "--cache-dtype", "int8", "--log-every",
+            "50"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    train_main(args + ["--ckpt-dir", a])
+    shutil.copytree(a, b)
+    names = sorted(f for f in os.listdir(b) if f.endswith(".npz"))
+    for f in names[1:]:
+        os.remove(os.path.join(b, f))
+        os.remove(os.path.join(b, f + ".sha256"))
+    train_main(args + ["--ckpt-dir", b])
+    with np.load(os.path.join(a, names[-1])) as x, \
+            np.load(os.path.join(b, names[-1])) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            assert np.array_equal(x[k], y[k]), k

@@ -6,12 +6,15 @@
   * each `examples/torch_*.py` runs through its ``main(device="cpu")`` and
     prints its JAX twin's lines — the quickstart with exactly 319 and 300
     client uploads, the counts of `examples/quickstart.py`, since both
-    packages draw the protocol from ``np.random.default_rng(seed)``.
+    packages draw the protocol from ``np.random.default_rng(seed)``; the
+    serving example serves its three reduced archs, and the train example
+    runs the train driver (a few steps here).
 """
 import ast
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -91,3 +94,26 @@ def test_aced_dropout_prints_its_table(capsys):
     assert sum("tau_algo=" in line for line in out) == 4
     assert len(accs) == 10
     assert all(0.1 < a <= 1.0 for a in accs.values())
+
+
+def test_serve_batch_serves_three_archs(capsys):
+    out = _main("torch_serve_batch")(device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    archs = ("gemma2-2b", "minicpm3-4b", "mamba2-780m")
+    assert [line for line in lines if line.startswith("===")] == \
+        [f"=== {a} (reduced) ===" for a in archs]
+    assert sum(line.startswith("sample token ids:") for line in lines) == 3
+    assert list(out) == list(archs)
+    for gen in out.values():
+        assert gen.shape == (2, 16) and (gen >= 0).all()
+
+
+def test_train_lm_runs_the_train_driver(capsys):
+    """A short run of the example's reduced yi model (its default is 300
+    steps, minutes on the CPU): the driver's lines, a finite loss below
+    ln(512) + 0.5."""
+    final = _main("torch_train_lm")(device="cpu", steps=6)
+    out = capsys.readouterr().out
+    assert out.startswith("model=yi-9b-reduced")
+    assert "final loss (mean last 20)" in out
+    assert np.isfinite(final) and final < np.log(512) + 0.5
