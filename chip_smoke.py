@@ -186,6 +186,17 @@ result line):
      0.05, the clip at 1.0, resync every 10) and its guard counters;
      examples/torch_train_lm.py runs its 300 steps (its exit code is its
      loss bound's, as its JAX twin's: ROADMAP §C, C15);
+  4i. the sharded runner (`make_sharded_staleness_runner`) over an NCCL
+     group of one rank initialised in-process, on `make_host_mesh()`'s
+     (1, 1) mesh: every block collective still runs on its group and is
+     captured in the tick's graph. ACE, ACED and ACED-direct int8 K = 1,
+     CA²FL int8 K = 16 and ACE f32 K = 1 at phase 4's widths and streams:
+     each final model within 1e-5 of phase 4's unsharded graph run (max
+     |diff| printed, and whether bit for bit), a capture each, each rule's
+     kernel launched and all six over the phase; graph ms a tick sharded
+     against unsharded in turns, and a traced sharded run of int8 ACE
+     K = 1 and CA²FL K = 16 (device kernels a tick, the NCCL kernels'
+     ms a tick); at most 60 s;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -2686,6 +2697,112 @@ def driver_phase(torch, ops, dev, card, totals):
           f"[{card}]")
 
 
+# --- phase 4i: the sharded runner ---------------------------------------------
+
+# (rule, cache dtype, K, the kernel whose path it takes) at phase 4's widths;
+# ACED's K = 1 tick also dequantizes its expired row, the int8 inits quantize
+SHARDED_RUNS = (("ace", "int8", 1, "cache_row_update"),
+                ("aced", "int8", 1, "row_delta"),
+                ("ca2fl", "int8", K_SLICE, "commit_batch"),
+                ("aced_direct", "int8", 1, "masked_agg"),
+                ("ace", "float32", 1, None))
+# the runs traced (a trace of 300 ticks takes ~8 s of the budget)
+SHARDED_TRACED = (("ace", "int8", 1), ("ca2fl", "int8", K_SLICE))
+SHARDED_BUDGET_S = 60.0
+
+
+def sharded_phase(torch, ops, task, dev, card, totals, flat_w):
+    """The sharded runner (`make_sharded_staleness_runner`) over an NCCL
+    group of one rank, initialised here in-process (a file:// rendezvous in
+    a temporary directory), on the (1, 1) mesh of `make_host_mesh`: each
+    block holds the whole cache, every block collective (the owners'
+    all-reduce over ``data``, the feature all-gather over ``model``) still
+    runs on its group and is captured in the tick's CUDA graph. For each of
+    `SHARDED_RUNS` at phase 4's widths and streams: the final model within
+    1e-5 of phase 4's unsharded graph run (`flat_w`) and of this phase's
+    own, max |diff| printed and whether it is bit for bit, the captures
+    counted, the kernel launched; graph ms a tick sharded against
+    unsharded in turns (unsharded, sharded, sharded, unsharded) and, for
+    `SHARDED_TRACED`, one traced sharded graph run (device kernels a tick,
+    the NCCL kernels' share). All six kernels must launch under the
+    sharded runner; the group is destroyed at the end, and the phase must
+    take at most `SHARDED_BUDGET_S`."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import make_sharded_staleness_runner
+    from repro_torch.launch import make_host_mesh
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    seen = dict.fromkeys(KERNELS, 0)
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1), f"mesh {tuple(mesh.shape)}")
+        print(f"sharded: NCCL group of {dist.get_world_size()} rank, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{mesh.device_type}")
+        for rule, dtype, K, kernel in SHARDED_RUNS:
+            label = f"sharded {rule} {dtype} K={K}"
+            T, E = _depth(rule, K)
+            args = (*engine_streams(task, K, E, dev), engine_lr(task, T))
+            plain = engine_runner(task, rule, dtype, K, T, dev)
+            sharded = make_sharded_staleness_runner(
+                mesh=mesh, grad_fn=task.grad_fn, params0=task.params0,
+                aggregator=make_rule(rule, dtype, K),
+                n_clients=task.n_clients, T=T, beta=5.0, k_batch=K,
+                device=dev)
+            (out, _), counts = counted(
+                ops, totals, lambda: run_engine(torch, sharded, *args))
+            for k, v in counts.items():
+                seen[k] += v
+            check(sharded.captures >= 1, f"{label}: no capture")
+            if kernel is not None:
+                check(counts[kernel] > 0, f"{label}: {kernel} not launched")
+            mine, _ = run_engine(torch, plain, *args)
+            w = out[0].cpu().numpy()
+            diff = float(abs(w - flat_w[rule, dtype, K]).max())
+            own = float(abs(w - mine[0].cpu().numpy()).max())
+            check(diff <= 1e-5 and own <= 1e-5, f"{label}: final model "
+                  f"{diff} from phase 4's, {own} from this phase's "
+                  "unsharded run")
+            walls = [run_engine(torch, r, *args)[1]
+                     for r in (plain, sharded, sharded, plain)]
+            ms = [1e3 * x / E for x in walls]
+            print(f"{label}: {E} ticks, captures {sharded.captures}, final "
+                  f"model max |diff| {diff:.3e} from phase 4's graph run "
+                  f"(bit for bit: {diff == 0.0}), {own:.3e} from the "
+                  f"unsharded run here; launches {counts}; graph wall ms "
+                  f"per tick unsharded {ms[0]:.4f}, sharded {ms[1]:.4f}, "
+                  f"sharded {ms[2]:.4f}, unsharded {ms[3]:.4f} [{card}]")
+            if (rule, dtype, K) in SHARDED_TRACED:
+                # where the sharded tick's time goes, its NCCL kernels. A
+                # measurement, not a gate: the launches are the counters'
+                # and the model is held against phase 4's above, so traces
+                # the profiler lost events from are reported, not fatal
+                try:
+                    trace_engine(torch, ops, label + " graph", sharded, args,
+                                 E, (ms[1] + ms[2]) / 2, card, top=3,
+                                 must=(kernel,), groups={"nccl": r"nccl"})
+                except SmokeFailure as e:
+                    print(f"{label}: no trace: {e} [{card}]")
+            del plain, sharded, out, mine
+        for name, n in seen.items():
+            check(n > 0, f"sharded: {name} was not launched under the "
+                  "sharded runner")
+    finally:
+        dist.destroy_process_group()
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    took = time.perf_counter() - t_start
+    check(took <= SHARDED_BUDGET_S, f"phase 4i took {took:.1f} s")
+    print(f"sharded: launches under the sharded runner {seen}")
+    return took
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2911,6 +3028,11 @@ def main() -> int:
     driver_phase(torch, ops, dev, card, totals)
     print(f"phase 4h took {time.perf_counter() - start_4h:.1f} s; its "
           f"launches {({k: totals[k] - before[k] for k in totals})}")
+
+    # 4i. the sharded runner over a one-rank NCCL group
+    print(f"phase 4i starts at {time.perf_counter() - start:.1f} s")
+    took = sharded_phase(torch, ops, task, dev, card, totals, results)
+    print(f"phase 4i took {took:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

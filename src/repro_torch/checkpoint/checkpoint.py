@@ -42,7 +42,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.cache import FlatCache
+from repro_torch.core.cache import BlockedFlatCache, FlatCache
 
 
 def _is_namedtuple(x) -> bool:
@@ -56,6 +56,11 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
         return []
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if isinstance(node, BlockedFlatCache):
+        raise NotImplementedError(
+            "a BlockedFlatCache holds one rank's block of a sharded flat "
+            "cache: checkpoint a tree-layout carry (launch/train.py's), or "
+            "run the flat layout unsharded")
     if isinstance(node, FlatCache):
         return [(".data", node.data), (".scale", node.scale)]
     if _is_namedtuple(node):

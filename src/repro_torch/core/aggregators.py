@@ -39,10 +39,12 @@ can keep the previous state and select between the two. The fused kernels
 (`commit_batch`, the K = 1 `cache_row_update` and `row_delta` swaps,
 `masked_agg`) serve the flat layout only, as in the JAX package; a tree
 cache takes the op chain, its int8 leaves through the quantize and
-dequantize kernels. The server applies
-``w ← w − η · lr_scale · update``. The host simulators call the rules
-through `on_arrival` / `on_batch`, which read ``emit`` on the host; the
-engines' ticks never do.
+dequantize kernels. Under a ``("data", "model")`` mesh the flat cache is a
+`BlockedFlatCache` (one rank's block), and the rules reach it only
+through the cache's methods, so they run on it unchanged. The server
+applies ``w ← w − η · lr_scale · update``. The host simulators call the
+rules through `on_arrival` / `on_batch`, which read ``emit`` on the host;
+the engines' ticks never do.
 
 ``state_dtype`` ("float32" | "bfloat16") is the dtype the running vectors
 (FedBuff's and CA²FL's buffers, ACE's u, ACED's sums) are stored in; they
@@ -572,9 +574,8 @@ class ACEIncremental(Aggregator):
         if isinstance(cache, FlatCache) and cache.quantized:
             # one launch: the new scale, the row swap in place and a fresh
             # u' (added in f32, stored in the state dtype); u is not written
-            u = kernel_ops.cache_row_update(cache.data, cache.scale, j,
-                                            arr.payload, u, 1.0 / cache.n,
-                                            backend=self.backend)
+            u = cache.set_row_ace(j, arr.payload, u, 1.0 / cache.n,
+                                  backend=self.backend)
             return {"cache": cache, "u": u}, u, true, 1.0
         n = cache_n(cache)
         old = cache_row(cache, j, self.backend)
@@ -942,8 +943,7 @@ class ACEDDirect(Aggregator):
         t_start = state["t_start"].index_copy(0, j, (t + 1).reshape(1))
         active = (t - t_start) <= self.tau_algo
         if isinstance(cache, FlatCache) and cache.quantized:
-            update = kernel_ops.masked_agg(cache.data, cache.scale, active,
-                                           backend=self.backend)
+            update = cache.masked_agg(active, backend=self.backend)
         else:
             update = cache_mean(cache, active, backend=self.backend)
         return ({"cache": cache, "t_start": t_start}, update, active.any(),

@@ -11,6 +11,11 @@ all-client aggregation possible (paper §3.4, Table a.3), with the paper's
     `quantize_rows` / `dequantize_rows` on the leaf's ``(rows, numel)``
     view, the same quantizer as the flat cache's.
 
+Under a ``("data", "model")`` mesh the flat cache is a `BlockedFlatCache`:
+this rank's block (client rows over ``data``, features over ``model``, as
+`repro.core.scan_sharded` lays JAX's out), behind `FlatCache`'s methods, so
+the rules run on it unchanged. A tree cache stays whole on every rank.
+
 The layout-generic dispatchers at the bottom (`cache_row`,
 `cache_set_row_delta`, `cache_mean`, ...) let one rule serve both layouts.
 
@@ -125,6 +130,34 @@ class FlatCache:
         new = g.to(self.data.dtype).float()
         return self, new - old, old
 
+    def set_row_ace(self, i, g, u, inv_n, backend=None):
+        """The int8 ACE step on row i (paper Alg. a.5): the row becomes
+        ``q(g)`` in place and ``u' = u + (dq(row') − dq(row))·inv_n`` comes
+        back in u's dtype — one `cache_row_update` launch; u is not
+        written."""
+        return kernel_ops.cache_row_update(
+            self.data, self.scale, row_index(i, self.data.device), g, u,
+            inv_n, backend=backend)
+
+    def masked_agg(self, mask, backend=None):
+        """``Σ_i m_i·s_i·C[i] / max(Σm, 1)`` over an int8 cache: the
+        `masked_agg` kernel (ACED-direct's aggregation)."""
+        return kernel_ops.masked_agg(self.data, self.scale, mask,
+                                     backend=backend)
+
+    def gather_raw(self, idx):
+        """The stored rows ``idx`` (K,) as they are (int8 codes or floats)
+        and, for an int8 cache, their scales (else None)."""
+        return (self.data.index_select(0, idx),
+                self.scale.index_select(0, idx) if self.quantized else None)
+
+    def scatter_raw(self, idx, rows, scales=None):
+        """Store rows ``idx`` (K,) ← `rows` (K, d) in the cache's dtype (and
+        their `scales`) in place."""
+        self.data.index_copy_(0, idx, rows)
+        if scales is not None:
+            self.scale.index_copy_(0, idx, scales)
+
     def set_rows_delta(self, idx, G, valid=None):
         """Batched `set_row_delta`: write rows ``idx[k] ← G[k]`` in place for
         the lanes where ``valid[k]`` (all lanes when `valid` is None);
@@ -137,24 +170,21 @@ class FlatCache:
         if valid is None:
             valid = torch.ones((K,), dtype=torch.bool, device=idx.device)
         vcol = valid[:, None]
+        old_raw, old_s = self.gather_raw(idx)
         if self.quantized:
-            old_q = self.data.index_select(0, idx)
-            old_s = self.scale.index_select(0, idx)
-            old = old_q.float() * old_s[:, None]
+            old = old_raw.float() * old_s[:, None]
             new_s = kernel_ref.row_scale(G)
             new_q = torch.clamp(torch.round(G / new_s[:, None]), -INT8_MAX,
                                 INT8_MAX).to(torch.int8)
             dq_new = new_q.float() * new_s[:, None]
             delta = torch.where(vcol, dq_new - old, 0.0)
-            self.data.index_copy_(0, idx, torch.where(vcol, new_q, old_q))
-            self.scale.index_copy_(0, idx,
-                                   torch.where(valid, new_s.float(), old_s))
+            self.scatter_raw(idx, torch.where(vcol, new_q, old_raw),
+                             torch.where(valid, new_s.float(), old_s))
             return self, delta, old
-        old_raw = self.data.index_select(0, idx)
         old = old_raw.float()
         new_raw = G.to(self.data.dtype)
         delta = torch.where(vcol, new_raw.float() - old, 0.0)
-        self.data.index_copy_(0, idx, torch.where(vcol, new_raw, old_raw))
+        self.scatter_raw(idx, torch.where(vcol, new_raw, old_raw))
         return self, delta, old
 
     def dequant(self, backend=None):
@@ -171,6 +201,22 @@ class FlatCache:
         m = mask.float()
         return (rows * m[:, None]).sum(0) / torch.clamp(m.sum(), min=1.0)
 
+    def sum(self, mask=None, backend=None):
+        """Σ over the dequantized rows (optionally ``mask``-gated)."""
+        rows = self.dequant(backend)
+        if mask is None:
+            return rows.sum(0)
+        return (rows * mask.float()[:, None]).sum(0)
+
+    def slots(self, idx):
+        """The storage rows of `cache_tensors` that rows ``idx`` (K,) live
+        in: the rows themselves."""
+        return idx
+
+    def map_tensors(self, fn):
+        """A cache of the same kind over ``fn(t)`` of each of its tensors."""
+        return FlatCache(fn(self.data), fn(self.scale))
+
     def nbytes(self) -> int:
         return (self.data.numel() * self.data.element_size()
                 + self.scale.numel() * self.scale.element_size())
@@ -180,15 +226,346 @@ class FlatCache:
 torch.serialization.add_safe_globals([FlatCache])
 
 
+# ---------------------------------------------------------------------------
+# The blocked flat cache: one rank's block of an (n, d) buffer over a
+# ("data", "model") mesh.
+# ---------------------------------------------------------------------------
+
+def _all_gather(out, x, group):
+    """`x` of every rank of `group` concatenated along dim 0 into `out`
+    (`all_gather_single` where the installed torch has it; older ones call
+    it `all_gather_into_tensor`)."""
+    import torch.distributed as dist
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+class MeshBlock:
+    """Where this rank's block of an (n, d) buffer lies on a ``("data",
+    "model")`` mesh, and the collectives that make full rows of blocks.
+
+    The split is ``guarded_spec((n, d), axes, mesh)``: the rows go over the
+    spec's first axis and the features over its second, each a whole when
+    the guard (or the rules) leave it unsplit. A split axis — even one of
+    size 1 — has its process group (``mesh.get_group(axis)``), so the same
+    collectives run at every size. A row is owned by the ranks whose row
+    range holds it (every rank when the rows are whole)."""
+
+    def __init__(self, mesh, n: int, d: int, axes=("cache_clients",
+                                                   "cache_d")):
+        from repro_torch.sharding.rules import guarded_spec
+        self.n, self.d = int(n), int(d)
+        self.spec = guarded_spec((self.n, self.d), axes, mesh)
+        self.row_group, (self.r0, self.r1) = self._split(mesh, self.spec[0],
+                                                         self.n)
+        self.feat_group, (self.f0, self.f1) = self._split(mesh, self.spec[1],
+                                                          self.d)
+        self.feat_size = (1 if self.feat_group is None
+                          else mesh.size(mesh.mesh_dim_names.index(
+                              self.spec[1])))
+
+    @staticmethod
+    def _split(mesh, axis, size):
+        if axis is None:
+            return None, (0, size)
+        if not isinstance(axis, str):
+            raise ValueError(f"a block splits over one mesh axis, not {axis}")
+        parts = mesh.size(mesh.mesh_dim_names.index(axis))
+        k = mesh.get_local_rank(axis)
+        step = size // parts
+        return mesh.get_group(axis), (k * step, (k + 1) * step)
+
+    @property
+    def rows(self) -> int:
+        """Rows this rank holds (its storage has one more, the spare)."""
+        return self.r1 - self.r0
+
+    @property
+    def whole_rows(self) -> bool:
+        """Each stored row holds all d features."""
+        return self.f1 - self.f0 == self.d
+
+    def local(self, idx):
+        """Global rows ``idx`` (K,) -> ``(slots (K,), owned (K,) bool or
+        None)``: the storage row of each owned row, the spare row (index
+        `rows`) for the others, so every rank launches the same ops; owned
+        is None when every rank holds every row."""
+        if self.row_group is None:
+            return idx, None
+        owned = (idx >= self.r0) & (idx < self.r1)
+        return torch.where(owned, idx - self.r0, self.rows), owned
+
+    def from_owners(self, x, owned):
+        """The owners' `x` on every rank: the others put exact zeros in
+        (``where(owned, x, 0)``) and the rows' group sums it, so each rank
+        gets the owner's bits. `owned` (K,) leads `x`'s dims; None (rows
+        whole) leaves `x` as it is."""
+        if owned is None:
+            return x
+        import torch.distributed as dist
+        x = torch.where(owned.reshape(owned.shape + (1,) * (x.dim()
+                                                            - owned.dim())),
+                        x, 0.0).contiguous()
+        dist.all_reduce(x, group=self.row_group)
+        return x
+
+    def sum_over_rows(self, x):
+        """This rank's partial sum over its rows, summed over the rows'
+        group (as it is when the rows are whole)."""
+        if self.row_group is None:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.row_group)
+        return x
+
+    def full_features(self, x):
+        """``(..., f1 − f0)`` blocks of every feature rank -> ``(..., d)``
+        (all-gathered over the features' group; as it is when they are
+        whole)."""
+        if self.feat_group is None:
+            return x
+        lead, f = x.shape[:-1], x.shape[-1]
+        x = x.reshape(-1, f).contiguous()
+        out = torch.empty((self.feat_size * x.shape[0], f), dtype=x.dtype,
+                          device=x.device)
+        _all_gather(out, x, self.feat_group)
+        return (out.reshape(self.feat_size, x.shape[0], f).transpose(0, 1)
+                .reshape(lead + (self.d,)))
+
+    def features(self, x):
+        """This rank's feature slice of a full ``(..., d)`` tensor."""
+        return x[..., self.f0:self.f1]
+
+
+class BlockedFlatCache(FlatCache):
+    """This rank's block of an (n, d) `FlatCache` over a ``("data",
+    "model")`` mesh (`MeshBlock`): storage ``(rows + 1, f1 − f0)`` and
+    ``(rows + 1,)`` scales, the last row a spare that non-owners write so
+    every rank launches the same kernels. ``data`` / ``scale`` are views of
+    the block's own rows.
+
+    The methods are `FlatCache`'s, with its signatures: global row indices
+    as device tensors, replicated full-width arguments and results. Only
+    O(K·d) numbers move a call; the block never does.
+
+      * reads gather the owners' rows (`MeshBlock.from_owners`, an
+        all-reduce over ``data``) and their features (an all-gather over
+        ``model``);
+      * writes quantize the replicated payload once on every rank (the
+        scale needs the whole row) and each owner stores its slice; with
+        whole rows a rank's block takes the int8 row kernels as the flat
+        cache does (`row_delta`, `cache_row_update`), on the spare row
+        where it does not own the row, and the owner's result is handed to
+        every rank;
+      * sums over clients add this rank's rows, all-reduce over ``data``
+        and gather over ``model``; `masked_agg` runs per block."""
+
+    def __init__(self, store: torch.Tensor, store_scale: torch.Tensor,
+                 block: MeshBlock):
+        self.store, self.store_scale, self.block = store, store_scale, block
+        super().__init__(store[:block.rows], store_scale[:block.rows])
+
+    @property
+    def n(self) -> int:
+        return self.block.n
+
+    def _local_rows(self, idx, backend=None):
+        """f32 rows of the storage rows `slots` (dequantized)."""
+        r = self.store.index_select(0, idx)
+        if self.quantized:
+            return dequantize_rows(r, self.store_scale.index_select(0, idx),
+                                   backend)
+        return r.float()
+
+    def rows(self, idx, backend=None):
+        b = self.block
+        slots, owned = b.local(row_index(idx, self.store.device))
+        return b.full_features(b.from_owners(
+            self._local_rows(slots, backend), owned))
+
+    def _store_row(self, slots, q, s=None):
+        """Store this rank's feature slice of the full row `q` (d,) (and
+        its scale) at `slots` (1,)."""
+        self.store.index_copy_(0, slots, self.block.features(q)[None])
+        if s is not None:
+            self.store_scale.index_copy_(0, slots, s.reshape(1))
+
+    def set_row(self, i, g, backend=None):
+        slots, _ = self.block.local(row_index(i, self.store.device))
+        if self.quantized:
+            self._store_row(slots, *quantize_rows(g, backend))
+        else:
+            self._store_row(slots, g.to(self.data.dtype))
+        return self
+
+    def _swap_split(self, i, g, backend):
+        """An int8 row swap with the features split: the old row gathered,
+        the replicated payload quantized whole, the slices stored ->
+        ``(old, dq(new))``, both (d,)."""
+        old = self.rows(i, backend)[0]
+        q, s = quantize_rows(g, backend)
+        self._store_row(self.block.local(row_index(i, self.store.device))[0],
+                        q, s)
+        return old, dequantize_rows(q[None], s.reshape(1), backend)[0]
+
+    def set_row_delta(self, i, g, backend=None):
+        if not self.quantized:
+            return super().set_row_delta(i, g, backend)
+        b = self.block
+        if b.whole_rows:
+            slots, owned = b.local(row_index(i, self.store.device))
+            delta, old = kernel_ops.row_delta(self.store, self.store_scale,
+                                              slots, g, backend=backend)
+            both = b.from_owners(torch.stack([delta, old])[None], owned)[0]
+            return self, both[0], both[1]
+        old, new = self._swap_split(i, g, backend)
+        return self, new - old, old
+
+    def set_row_ace(self, i, g, u, inv_n, backend=None):
+        b = self.block
+        if b.whole_rows:
+            slots, owned = b.local(row_index(i, self.store.device))
+            u_new = kernel_ops.cache_row_update(
+                self.store, self.store_scale, slots, g, u, inv_n,
+                backend=backend)
+            return b.from_owners(u_new.float()[None], owned)[0].to(u.dtype)
+        old, new = self._swap_split(i, g, backend)
+        return (u.float() + (new - old) * inv_n).to(u.dtype)
+
+    def masked_agg(self, mask, backend=None):
+        b = self.block
+        m = mask[b.r0:b.r1]
+        part = kernel_ops.masked_agg(self.data, self.scale, m,
+                                     backend=backend)
+        if b.rows < b.n:
+            # the block's kernel divides by its own count: rescale to the
+            # count over every client before the partial sums are added
+            part = part * (torch.clamp(m.float().sum(), min=1.0)
+                           / torch.clamp(mask.float().sum(), min=1.0))
+        return b.full_features(b.sum_over_rows(part))
+
+    def gather_raw(self, idx):
+        b = self.block
+        slots, owned = b.local(idx)
+        raw = self.store.index_select(0, slots)
+        s = self.store_scale.index_select(0, slots) if self.quantized \
+            else None
+        if owned is not None:
+            # one all-reduce carries the codes (exact in f32) and scales
+            flat = raw.float() if s is None else torch.cat(
+                [raw.float(), s[:, None]], 1)
+            flat = b.from_owners(flat, owned)
+            raw = flat[:, :raw.shape[1]].to(raw.dtype)
+            s = None if s is None else flat[:, -1].contiguous()
+        if b.feat_group is not None:
+            raw = b.full_features(raw.float()).to(self.store.dtype)
+        return raw, s
+
+    def scatter_raw(self, idx, rows, scales=None):
+        slots, _ = self.block.local(idx)
+        self.store.index_copy_(0, slots, self.block.features(rows))
+        if scales is not None:
+            self.store_scale.index_copy_(0, slots, scales)
+
+    def _reduce(self, rows, mask, mean: bool):
+        """Sum (or mean) over the clients of the block's dequantized
+        `rows`, every rank's full-width result. A block of every row uses
+        the flat cache's own formulas."""
+        b = self.block
+        m = None if mask is None else mask[b.r0:b.r1].float()
+        if b.rows == b.n:
+            if m is None:
+                part = rows.mean(0) if mean else rows.sum(0)
+            else:
+                part = (rows * m[:, None]).sum(0)
+                if mean:
+                    part = part / torch.clamp(m.sum(), min=1.0)
+            return b.full_features(b.sum_over_rows(part))
+        part = rows.sum(0) if m is None else (rows * m[:, None]).sum(0)
+        total = b.sum_over_rows(part)
+        if mean:
+            total = total / (torch.clamp(mask.float().sum(), min=1.0)
+                             if mask is not None else float(b.n))
+        return b.full_features(total)
+
+    def mean(self, mask=None, backend=None):
+        return self._reduce(super().dequant(backend), mask, mean=True)
+
+    def sum(self, mask=None, backend=None):
+        return self._reduce(super().dequant(backend), mask, mean=False)
+
+    def dequant(self, backend=None):
+        """The whole (n, d) f32 cache on every rank (`gather_full`)."""
+        return self.gather_full(backend)
+
+    def gather_full(self, backend=None):
+        """The whole (n, d) f32 cache on every rank (the tests' view of the
+        blocks)."""
+        b = self.block
+        rows = super().dequant(backend)
+        if b.row_group is not None:
+            full = torch.zeros((b.n, rows.shape[1]), dtype=torch.float32,
+                               device=rows.device)
+            full[b.r0:b.r1] = rows
+            rows = b.sum_over_rows(full)
+        return b.full_features(rows)
+
+    def reset_(self):
+        """Every row back to zero (scales 1) in place; returns self."""
+        self.store.zero_()
+        self.store_scale.fill_(1.0)
+        return self
+
+    def slots(self, idx):
+        return self.block.local(idx)[0]
+
+    def map_tensors(self, fn):
+        return BlockedFlatCache(fn(self.store), fn(self.store_scale),
+                                self.block)
+
+
+def init_blocked_cache(n: int, d: int, dtype: str, mesh, init_rows=None,
+                       device=None, backend=None,
+                       axes=("cache_clients", "cache_d")) -> BlockedFlatCache:
+    """This rank's block of `init_flat_cache`'s (n, d) cache over `mesh`,
+    split as `axes` say under the active rules (`MeshBlock`): zero, or the
+    block of the replicated `init_rows` (an int8 cache quantizes the whole
+    rows once, so every block holds the codes the flat cache would)."""
+    block = MeshBlock(mesh, n, d, axes)
+    dt = DTYPES[dtype]
+    rows, f = block.rows, block.f1 - block.f0
+    store = torch.zeros((rows + 1, f), dtype=dt, device=device)
+    scale = torch.ones((rows + 1,), dtype=torch.float32, device=device)
+    if init_rows is not None:
+        init_rows = init_rows.to(device)[block.r0:block.r1]
+        if dt == torch.int8:
+            q, s = quantize_rows(init_rows, backend)
+            store[:rows] = block.features(q)
+            scale[:rows] = s
+        else:
+            store[:rows] = block.features(init_rows.to(dt))
+    return BlockedFlatCache(store, scale, block)
+
+
 def init_flat_cache(n: int, d: int, dtype: str = "float32", init_rows=None,
-                    device=None, backend=None) -> FlatCache:
+                    device=None, backend=None, mesh=None) -> FlatCache:
     """An (n, d) cache of `dtype`, zero or seeded with `init_rows` (on their
     device unless `device` is given). With neither, it goes on the card, or
-    raises without one (`resolve_device`)."""
+    raises without one (`resolve_device`). Under a mesh (`mesh`, else the
+    one of an active `use_rules`) it is this rank's block
+    (`init_blocked_cache`)."""
     dt = DTYPES[dtype]
     if init_rows is not None and device is None:
         device = init_rows.device
     device = resolve_device(device)
+    if mesh is None:
+        from repro_torch.sharding.rules import active_mesh
+        mesh = active_mesh()
+    if mesh is not None:
+        return init_blocked_cache(n, d, dtype, mesh, init_rows, device,
+                                  backend)
     if init_rows is not None:
         init_rows = init_rows.to(device)
         if dt == torch.int8:
@@ -206,7 +583,9 @@ def flat_commit_batch(cache: FlatCache, idx, G, valid, vecs, coef, upd_w,
     sums into the stacked running-sum vectors ``vecs (R, d)`` via the
     ``coef (R, R+4)`` recombination and emit the ``upd_w``-weighted model
     update — `kernels.ops.commit_batch` (the CUDA kernel on the card, the
-    plain version on the CPU).
+    plain version on the CPU). A `BlockedFlatCache` gathers the K rows
+    whole onto every rank, the kernel runs on them replicated, and each
+    owner stores its slices.
 
     Returns ``(cache, vecs' (R, d) f32, update (d,) f32)``. The written rows
     are bit-identical to `FlatCache.set_rows_delta` (valid lanes requantized
@@ -215,9 +594,9 @@ def flat_commit_batch(cache: FlatCache, idx, G, valid, vecs, coef, upd_w,
     weights must be zero on invalid lanes."""
     idx = row_index(idx, cache.data.device)
     G = G.float()
-    old_rows = cache.data.index_select(0, idx)
+    old_rows, old_s = cache.gather_raw(idx)
+    new_scale = None
     if cache.quantized:
-        old_s = cache.scale.index_select(0, idx)
         # scale the *sanitized* payloads: an invalid lane's NaN must not
         # poison new_s (its q/scale are never written, but NaN·0 would
         # taint the kernel's products); valid lanes match set_rows_delta's
@@ -226,12 +605,12 @@ def flat_commit_batch(cache: FlatCache, idx, G, valid, vecs, coef, upd_w,
         new_rows, vecs_out, update = kernel_ops.commit_batch(
             G, old_rows, old_s, new_s, valid, vecs, coef, upd_w,
             lane_a=lane_a, lane_b=lane_b, lane_g=lane_g, backend=backend)
-        cache.scale.index_copy_(0, idx, torch.where(valid, new_s, old_s))
+        new_scale = torch.where(valid, new_s, old_s)
     else:
         new_rows, vecs_out, update = kernel_ops.commit_batch(
             G, old_rows, None, None, valid, vecs, coef, upd_w,
             lane_a=lane_a, lane_b=lane_b, lane_g=lane_g, backend=backend)
-    cache.data.index_copy_(0, idx, new_rows)
+    cache.scatter_raw(idx, new_rows, new_scale)
     return cache, vecs_out, update
 
 
@@ -462,6 +841,8 @@ def cache_tensors(cache) -> list:
     `FlatCache`'s codes and scales, or each tree-cache leaf's ``q`` then
     its ``scale`` (where it has one) in leaf order; [] for anything that is
     not a cache."""
+    if isinstance(cache, BlockedFlatCache):
+        return [cache.store, cache.store_scale]
     if isinstance(cache, FlatCache):
         return [cache.data, cache.scale]
     if not is_tree_cache(cache):
@@ -520,9 +901,15 @@ def cache_sum(cache, mask=None, backend=None):
     """Σ over dequantized client rows (optionally ``mask``-gated) — the
     one-time O(n·d) seed of the incremental rules' running sums and the
     `Aggregator.resync` exact recompute; never on a per-event hot path."""
-    if not isinstance(cache, FlatCache):
-        return tree_cache_sum(cache, mask, backend)
-    rows = cache.dequant(backend)
-    if mask is None:
-        return rows.sum(0)
-    return (rows * mask.float()[:, None]).sum(0)
+    if isinstance(cache, FlatCache):
+        return cache.sum(mask, backend)
+    return tree_cache_sum(cache, mask, backend)
+
+
+def cache_row_slots(cache, idx):
+    """The rows of `cache_tensors(cache)` that client rows ``idx`` (K,)
+    are stored in: the rows themselves, or a `BlockedFlatCache`'s local
+    rows (its spare row where this rank does not own one)."""
+    if isinstance(cache, FlatCache):
+        return cache.slots(idx)
+    return idx

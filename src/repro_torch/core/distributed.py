@@ -1,6 +1,7 @@
 """The AFL server step over a model's parameter structure — the port of
-`repro.core.distributed` (one device; the JAX package's pjit layout waits
-for the sharded runner, ROADMAP A10).
+`repro.core.distributed` (one device: the step holds the whole parameter
+structure, as the tree layout does on every rank of the sharded runner,
+`repro_torch.core.scan_sharded`).
 
 One step is one server iteration of Algorithm 1 / a.1:
   1. the arriving client's gradient of ``loss_fn`` at the current

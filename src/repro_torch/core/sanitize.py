@@ -22,6 +22,10 @@ the records after the run (the chunked runner after each chunk), and
 `raise_first` raises `RuntimeError` with the message and the event. Off
 means off: no record and no op, so the tick is the unchecked one.
 
+Under a mesh (`repro_torch.core.scan_sharded`) the engine ANDs each
+predicate over the ranks (`agree`) before recording it, so every rank
+holds the same records.
+
 `enabled` resolves the switch: an explicit argument wins, else the JAX
 package's ``REPRO_CHECKIFY`` environment variable (default off).
 """
@@ -179,6 +183,19 @@ def check_resync_agreement(incremental, resynced, when) -> List[Check]:
             tol = RESYNC_RTOL * (1.0 + b.abs().max())
             ok = ok & ((a.float() - b).abs().max() <= tol)
     return [(RESYNC, ~when | ok)]
+
+
+def agree(checks: List[Check], mesh) -> List[Check]:
+    """`checks` with each predicate ANDed over every rank of `mesh` (a MIN
+    all-reduce over each of its dim groups): a check holds on every rank or
+    on none, so each rank's records are the unsharded run's."""
+    if not checks:
+        return checks
+    import torch.distributed as dist
+    ok = torch.stack([p.reshape(()) for _, p in checks]).int()
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.get_group(name))
+    return [(m, ok[i] > 0) for i, (m, _) in enumerate(checks)]
 
 
 def records(messages: Iterable[str], device) -> Dict[str, torch.Tensor]:

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from repro_torch.core.cache import FlatCache, cache_tensors
 from repro_torch.core.delays import ExponentialDelays, build_schedule
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.sharding.rules import warm_up_groups
 
 
 @dataclasses.dataclass
@@ -176,6 +177,11 @@ class _Program:
     out_dtypes: Dict[str, torch.dtype]   # the per-event outputs
     #: the sanitize checks are in the tick (the carry holds their records)
     checks: bool
+    #: the ("data", "model") mesh whose collectives the tick issues (None:
+    #: one device); a capture first runs one collective on each of its
+    #: groups and records the tick in thread-local capture mode, so the
+    #: process group's own threads may touch the card meanwhile
+    mesh: Any = dataclasses.field(default=None, kw_only=True)
 
 
 def _tree_clone(x):
@@ -186,7 +192,7 @@ def _tree_clone(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_tree_clone(v) for v in x)
     if isinstance(x, FlatCache):
-        return FlatCache(x.data.clone(), x.scale.clone())
+        return x.map_tensors(torch.Tensor.clone)
     return x.clone()
 
 
@@ -200,7 +206,7 @@ def _own(x, seen=None):
     if isinstance(x, (list, tuple)):
         return type(x)(_own(v, seen) for v in x)
     if isinstance(x, FlatCache):
-        return FlatCache(_own(x.data, seen), _own(x.scale, seen))
+        return x.map_tensors(lambda t: _own(t, seen))
     ptr = x.untyped_storage().data_ptr()
     if ptr in seen:
         return x.clone()
@@ -224,8 +230,8 @@ def _tree_copy_(dst, src):
         for a, b in zip(dst, src):
             _tree_copy_(a, b)
     elif isinstance(dst, FlatCache):
-        dst.data.copy_(src.data)
-        dst.scale.copy_(src.scale)
+        for a, b in zip(cache_tensors(dst), cache_tensors(src)):
+            a.copy_(b)
     else:
         dst.copy_(src)
 
@@ -353,6 +359,8 @@ class _Ticks:
         record the tick that follows it: a capture runs nothing, so the
         carry holds the first tick's result and no copy of it is kept."""
         dev = self.prog.device
+        if self.prog.mesh is not None:
+            warm_up_groups(self.prog.mesh, dev)
         side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -361,7 +369,8 @@ class _Ticks:
         graph = torch.cuda.CUDAGraph()
         before = kernel_ops.launch_counts()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=(
+                    "global" if self.prog.mesh is None else "thread_local")):
                 self.prog.tick(self.carry, self.xs, self.outs)
         finally:
             # the wrappers counted launches the capture only recorded

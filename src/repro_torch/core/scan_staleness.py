@@ -77,7 +77,9 @@ sweeps stay flat, as JAX's are.
 
 The host reference of this engine is
 `repro_torch.core.staleness_sim.StalenessSimulator` (flat; a tree run is
-held against it through `ravel`). Not ported yet: the sharded runner.
+held against it through `ravel`). The sharded runner
+(`repro_torch.core.scan_sharded`) is this program over a ``("data",
+"model")`` mesh (``mesh=``).
 """
 from __future__ import annotations
 
@@ -91,9 +93,11 @@ from repro_torch.convert import leaves, ravel, tree_map, unravel
 from repro_torch.core.aggregators import (Aggregator, Arrival, ArrivalBatch,
                                           _gate, wants_cache_init)
 from repro_torch.core import sanitize
-from repro_torch.core.cache import (DTYPES, broadcast_lanes, cache_tensors,
-                                    init_tree_cache, tree_cache_reset_,
-                                    tree_cache_rows, tree_cache_set_row)
+from repro_torch.core.cache import (DTYPES, MeshBlock, broadcast_lanes,
+                                    cache_row_slots, cache_tensors,
+                                    init_blocked_cache, init_tree_cache,
+                                    tree_cache_reset_, tree_cache_rows,
+                                    tree_cache_set_row)
 from repro_torch.core.scan_engine import (PayloadNoise, ScanResult, _Program,
                                           _Ticks, _TickRunner, _copy_state_,
                                           _payload_chain, _to_result,
@@ -107,6 +111,7 @@ from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
                                             _window_slack, default_tau_max,
                                             staleness_client_probs)
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.sharding.rules import active_mesh, use_rules
 
 
 @dataclasses.dataclass
@@ -253,18 +258,33 @@ def build_fault_schedule(seed: int, n_events: int, *, k_batch: int = 1,
                                           dtype=torch.float32, device=device))
 
 
-def _select_state(proc, new, old, saved, idx):
+def _save_rows(state, idx):
+    """``{key: (slots, rows)}``: each cache's storage rows holding client
+    rows `idx` (`cache_row_slots`) and their contents, for `_select_state`
+    to restore."""
+    out = {}
+    for k, v in state.items():
+        if cache_tensors(v):
+            slots = cache_row_slots(v, idx)
+            out[k] = (slots, [x.index_select(0, slots)
+                              for x in cache_tensors(v)])
+    return out
+
+
+def _select_state(proc, new, old, saved):
     """``where(proc, new, old)`` over the aggregator state. The tensors of
     `old` were never written (the rules replace them), so a select is
-    enough; a cache (either layout) in `saved` was written in place at rows
-    `idx`, so a tick that did not process restores those rows from it. A
-    cache not in `saved` is taken as it stands."""
+    enough; a cache (either layout) in `saved` (`_save_rows`) was written
+    in place at its saved storage rows, so a tick that did not process
+    restores those rows from it. A cache not in `saved` is taken as it
+    stands."""
     out = {}
     for k, v in new.items():
         if cache_tensors(v):
-            for t, rows in zip(cache_tensors(v), saved.get(k, ())):
-                t.index_copy_(0, idx, torch.where(
-                    proc, t.index_select(0, idx), rows))
+            slots, kept = saved.get(k, (None, ()))
+            for t, rows in zip(cache_tensors(v), kept):
+                t.index_copy_(0, slots, torch.where(
+                    proc, t.index_select(0, slots), rows))
             out[k] = v
         else:
             out[k] = _gate(proc, v, old[k])
@@ -386,6 +406,8 @@ class _StalenessProgram(_Program):
     guards: bool
     resync_every: Optional[int]
     layout: str
+    #: the carry's snapshots -> the whole (n_marks, ...) snapshots
+    full_snaps: Callable
 
 
 def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -399,7 +421,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        layout: str = "flat", history_dtype: str = "float32",
                        k_batch: int = 1, guards: bool = False,
                        resync_every: Optional[int] = None,
-                       checks: bool = False,
+                       checks: bool = False, mesh=None,
                        device=None) -> _StalenessProgram:
     """The engine as the JAX package's `_staleness_program` builds it.
 
@@ -444,7 +466,18 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     leaves go through the quantize_rows and dequantize_rows kernels on the
     card, or their plain versions for a ``backend="torch"`` rule) and the
     snapshots per leaf. Either ring is a tree cache (`core.cache`), the
-    flat one of a single (tau_max+1, d) leaf."""
+    flat one of a single (tau_max+1, d) leaf.
+
+    `mesh` (a ``("data", "model")`` `DeviceMesh`; default: the one of an
+    active `use_rules`, else None) lays the flat layout's server state over
+    the mesh as `repro.core.scan_sharded` lays JAX's: the rule's caches are
+    `BlockedFlatCache` blocks (client rows over ``data``, features over
+    ``model``), the ring a block of (tau_max+1, d/model) rows and the
+    snapshots (n_marks, d/model); the model, the running sums, the
+    payloads and every O(n) tensor stay replicated, and each rank runs the
+    same tick on the same streams. The tree layout's state stays whole on
+    every rank. With `checks`, each check holds on every rank or on
+    none."""
     if layout == "flat":
         if history_dtype != "float32":
             raise ValueError("quantized history ring is tree-layout only")
@@ -460,6 +493,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         raise ValueError(f"unknown layout {layout!r}")
     tree = layout == "tree"
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else active_mesh()
+    blocked = mesh is not None and not tree
     # the client gradients are compared with the JAX package's in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -506,9 +541,16 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     # rule's `backend`, so a ``backend="torch"`` rule runs no kernel
     backend = getattr(agg, "backend", None)
 
+    # under a mesh (flat layout) the ring is a block of (S, d/model) rows:
+    # a read gathers its rows' features, a write stores this rank's slice
     def init_ring(reuse=None):
         # a runner's later calls reset the ring they will be copied into
         # (at a real model's width a second ring would not fit beside it)
+        if blocked:
+            ring = (init_blocked_cache(S, d, "float32", mesh, device=device,
+                                       axes=(None, "cache_d"))
+                    if reuse is None else reuse.reset_())
+            return ring.set_row(0, w0)
         if reuse is None:
             ring = init_tree_cache(S, w0, history_dtype, device=device,
                                    backend=backend)
@@ -520,8 +562,10 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
     def rd_rings(ring, cursor, taus):
         # ``history[-(tau+1)]`` for each lane: the model τ emitted updates
         # ago; requires τ ≤ min(t, S−1)
-        return tree_cache_rows(ring, torch.remainder(cursor - taus, S),
-                               backend)
+        slots = torch.remainder(cursor - taus, S)
+        if blocked:
+            return ring.rows(slots)
+        return tree_cache_rows(ring, slots, backend)
 
     def ap_ring(ring, cursor, w, emit):
         # ``history.append(w)`` gated on `emit`: the cursor advances on an
@@ -529,7 +573,14 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         # rewrites its own slot (re-quantized, the same codes), so the
         # write is unconditional
         cursor = torch.where(emit, torch.remainder(cursor + 1, S), cursor)
+        if blocked:
+            return ring.set_row(cursor, w), cursor
         return tree_cache_set_row(ring, cursor, w, backend), cursor
+
+    # the snapshots: (n_marks, d/model) blocks under a mesh (flat layout)
+    snap_block = (MeshBlock(mesh, len(eval_marks), d, (None, "cache_d"))
+                  if blocked and eval_marks is not None else None)
+    snap_part = snap_block.features if snap_block else (lambda w: w)
 
     def apply_update(w, u, eta, emit):
         # the update in f32, as JAX's: a bf16 update (a bf16 `state_dtype`
@@ -539,6 +590,13 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             emit, wl - eta * ul.float(), wl), w, u)
 
     def init(lr, init_noise=None, reuse=None):
+        # the rule builds its caches under the program's mesh
+        if mesh is None or active_mesh() is mesh:
+            return _init(lr, init_noise, reuse)
+        with use_rules(mesh):
+            return _init(lr, init_noise, reuse)
+
+    def _init(lr, init_noise, reuse):
         lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
         if wants_init:
             if init_noise is None:
@@ -575,7 +633,8 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                  "e": torch.zeros((), dtype=torch.int64, device=device)}
         if marks is not None:
             carry["snaps"] = tree_map(lambda x: torch.zeros(
-                (marks.shape[0],) + tuple(x.shape), device=device), w0)
+                (marks.shape[0],) + tuple(snap_part(x).shape),
+                device=device), w0)
             carry["hits"] = torch.zeros((marks.shape[0],), dtype=torch.bool,
                                         device=device)
         if guards:
@@ -629,8 +688,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # a frozen K = 1 tick still writes its row in place: keep the
             # old one to restore (at K > 1 an all-invalid batch writes every
             # row back bit-exactly, so nothing needs saving)
-            saved = {k: [x.index_select(0, js) for x in cache_tensors(v)]
-                     for k, v in state.items() if cache_tensors(v)}
+            saved = _save_rows(state, js)
             # a quarantined or rejected arrival is undone the same way
             proc = any_alive & ok[0] if guards else any_alive
             new_state, u, emit, lr_scale = agg.step(
@@ -649,7 +707,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                     / torch.clamp(valid.sum(), min=1))
         emit = emit & (t < T) & proc
         # frozen ticks perform no aggregator transition
-        new_state = _select_state(proc, new_state, state, saved, js)
+        new_state = _select_state(proc, new_state, state, saved)
         n_upd_new = n_upd + emit.int()
         found = []                          # the sanitize checks' results
         if resync_every:
@@ -678,12 +736,15 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
                                                         tau_max)
                           + sanitize.check_commit_batch(u, new_state, state,
                                                         valid))
+            if mesh is not None:
+                found = sanitize.agree(found, mesh)
             sanitize.record(carry["checks"], found, carry["e"])
         new = {"w": w, "n_upd": n_upd_new, "cursor": cursor,
                "t": torch.where(any_alive, t + emit.int(), thaw_t)}
         if marks is not None:
             new["snaps"], new["hits"] = snapshot_update(
-                carry["snaps"], carry["hits"], marks, new["t"], emit, w)
+                carry["snaps"], carry["hits"], marks, new["t"], emit,
+                snap_part(w))
         row = {"loss": loss, "emit": emit, "t": t, "unorm": unorm(u),
                "alive": any_alive}
         if record_w:
@@ -719,7 +780,9 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         init=init, tick=tick, d=d, record_w=record_w, device=device,
         out_dtypes=out_dtypes, checks=checks, marks=eval_marks,
         tau_max=tau_max, k_batch=K, local_steps=local_steps,
-        guards=bool(guards), resync_every=resync_every, layout=layout)
+        guards=bool(guards), resync_every=resync_every, layout=layout,
+        full_snaps=(snap_block.full_features if snap_block else _tree_clone),
+        mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -778,7 +841,7 @@ class _Runner(_TickRunner):
                           payload_noise.init)
         carry, extras = ticks.carry, {}
         if self.prog.marks is not None:
-            extras = {"snaps": _tree_clone(carry["snaps"]),
+            extras = {"snaps": self.prog.full_snaps(carry["snaps"]),
                       "hits": carry["hits"].clone()}
         if self.prog.guards:
             extras["guards"] = _tree_clone(carry["guards"])
@@ -799,7 +862,8 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
                           guards: bool = False,
                           resync_every: Optional[int] = None,
                           checkify_invariants: Optional[bool] = None,
-                          device=None, graph: Optional[bool] = None):
+                          mesh=None, device=None,
+                          graph: Optional[bool] = None):
     """Build the runner ``run(randomness, payload_noise, lr, faults=None,
     clip_norm=0.0) -> (w, state, outs, extras)`` once: the counterpart of
     the JAX package's jitted runner. With ``layout="tree"`` the model `w`
@@ -841,7 +905,12 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
     ``graph=True`` on the CPU raises. A capture that fails raises: there is
     no eager fallback. The kernels' launch counters
     (`kernels.ops.launch_counts`) count the replayed launches and the
-    first tick's, not the capture's."""
+    first tick's, not the capture's.
+
+    `mesh` runs the program over a ``("data", "model")`` mesh, one process
+    a rank, each calling the runner with the same streams
+    (`_staleness_program`; `repro_torch.core.scan_sharded`): the call's
+    results are replicated, the carry's server state in blocks."""
     prog = _staleness_program(
         grad_fn=grad_fn, params0=params0, aggregator=aggregator,
         n_clients=n_clients, T=T, beta=beta, server_lr=server_lr,
@@ -850,7 +919,8 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
         init_cache_grads=init_cache_grads, record_w=record_w, layout=layout,
         history_dtype=history_dtype, k_batch=k_batch, guards=guards,
         resync_every=resync_every,
-        checks=sanitize.enabled(checkify_invariants), device=device)
+        checks=sanitize.enabled(checkify_invariants), mesh=mesh,
+        device=device)
     return _Runner(prog, _use_graph(graph, prog.device))
 
 
@@ -882,6 +952,8 @@ class ChunkedStalenessRunner:
     checkify_invariants: bool = False
     #: "flat" or "tree" (the carry's model, ring and caches)
     layout: str = "flat"
+    #: the ("data", "model") mesh the program runs over (None: one device)
+    mesh: object = None
 
 
 def make_chunked_staleness_runner(*, capacity: int,
@@ -894,7 +966,9 @@ def make_chunked_staleness_runner(*, capacity: int,
     runs it eagerly, as `graph` says) and returns a copy of the carry.
     With ``checkify_invariants`` (default: ``REPRO_CHECKIFY``) a chunk
     whose slice violated a sanitize check raises `RuntimeError` with the
-    check's message and the event (counted from the run's start)."""
+    check's message and the event (counted from the run's start). A
+    ``mesh=`` keyword runs it over that mesh, as `make_staleness_runner`
+    does."""
     checks = sanitize.enabled(kwargs.pop("checkify_invariants", None))
     prog = _staleness_program(checks=checks, **kwargs)
     ticks = _Ticks(prog, capacity, _use_graph(graph, prog.device))
@@ -915,7 +989,8 @@ def make_chunked_staleness_runner(*, capacity: int,
 
     return ChunkedStalenessRunner(prog.init, chunk, prog.marks, prog.tau_max,
                                   prog.k_batch, prog.guards,
-                                  prog.resync_every, checks, prog.layout)
+                                  prog.resync_every, checks, prog.layout,
+                                  prog.mesh)
 
 
 def _check_faults(faults: FaultSchedule, n_events: Optional[int],
@@ -931,6 +1006,15 @@ def _check_faults(faults: FaultSchedule, n_events: Optional[int],
             f"faults built for k_batch={lanes} but the engine runs "
             f"k_batch={k_batch}: rebuild the schedule with "
             "build_fault_schedule(..., k_batch=k_batch)")
+
+
+def _make_runner(mesh, **kwargs):
+    """The runner for `mesh`: `make_staleness_runner` without one, the
+    sharded runner with one (`repro_torch.core.scan_sharded`)."""
+    if mesh is None:
+        return make_staleness_runner(**kwargs)
+    from repro_torch.core.scan_sharded import make_sharded_staleness_runner
+    return make_sharded_staleness_runner(mesh=mesh, **kwargs)
 
 
 def _staleness_result(run, T: int, n_init: int, marks, eval_fn,
@@ -967,7 +1051,7 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        resync_every: Optional[int] = None,
                        k_batch: int = 1,
                        checkify_invariants: Optional[bool] = None,
-                       device=None,
+                       mesh=None, device=None,
                        randomness: Optional[StalenessRandomness] = None,
                        payload_noise: Optional[PayloadNoise] = None
                        ) -> ScanResult:
@@ -1005,7 +1089,9 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
     streams drawn from `seed` (the event count is then theirs).
     ``k_batch > 1`` consumes K arrivals per tick through `step_batch` (the
     direct rules have none and raise `NotImplementedError`, as in the JAX
-    package)."""
+    package). With `mesh` (a ``("data", "model")`` `DeviceMesh`; every
+    rank calls with the same arguments) the run is the sharded runner's
+    (`repro_torch.core.scan_sharded`)."""
     device = resolve_device(device)
     n, K, agg = n_clients, int(k_batch), aggregator
     guards = faults is not None or clip_norm > 0
@@ -1014,9 +1100,9 @@ def run_staleness_scan(*, grad_fn: Callable, params0, aggregator: Aggregator,
         n_events = faults.n_events
     marks = (eval_marks_for(T, eval_every or T) if eval_fn is not None
              else None)
-    runner = make_staleness_runner(
-        grad_fn=grad_fn, params0=params0, aggregator=agg, n_clients=n, T=T,
-        beta=beta, server_lr=server_lr if callable(server_lr) else None,
+    runner = _make_runner(
+        mesh, grad_fn=grad_fn, params0=params0, aggregator=agg, n_clients=n,
+        T=T, beta=beta, server_lr=server_lr if callable(server_lr) else None,
         tau_max=tau_max, speed_skew=speed_skew, eval_marks=marks,
         local_steps=local_steps, local_lr=local_lr,
         init_cache_grads=init_cache_grads, record_w=record_w, layout=layout,
@@ -1050,8 +1136,8 @@ def _staleness_sweep(*, grad_fn: Callable, params0, aggregator: Aggregator,
                      rejoin_at, windows, eval_fn, eval_every, n_events,
                      local_steps, local_lr, init_cache_grads, runner,
                      fault_rates, clip_norm, resync_every, k_batch, device,
-                     randomness, payload_noise,
-                     faults) -> List[List[ScanResult]]:
+                     randomness, payload_noise, faults,
+                     mesh) -> List[List[ScanResult]]:
     """``results[i_lr][i_seed]`` of one runner called once per (lr, seed)
     cell, seed-outer: each seed's streams (and fault schedule) are drawn
     once and serve every lr, as JAX's nested vmap broadcasts them. Every
@@ -1075,9 +1161,9 @@ def _staleness_sweep(*, grad_fn: Callable, params0, aggregator: Aggregator,
     marks = (eval_marks_for(T, eval_every or T) if eval_fn is not None
              else None)
     if runner is None:
-        runner = make_staleness_runner(
-            grad_fn=grad_fn, params0=params0, aggregator=agg, n_clients=n,
-            T=T, beta=beta, server_lr=server_lr, tau_max=tau_max,
+        runner = _make_runner(
+            mesh, grad_fn=grad_fn, params0=params0, aggregator=agg,
+            n_clients=n, T=T, beta=beta, server_lr=server_lr, tau_max=tau_max,
             speed_skew=speed_skew, eval_marks=marks, local_steps=local_steps,
             local_lr=local_lr, init_cache_grads=init_cache_grads, k_batch=K,
             guards=guards, resync_every=resync_every,
@@ -1136,8 +1222,8 @@ def run_staleness_seeds(*, grad_fn: Callable, params0,
                         randomness: Optional[Sequence[StalenessRandomness]]
                         = None,
                         payload_noise: Optional[Sequence[PayloadNoise]] = None,
-                        faults: Optional[Sequence[FaultSchedule]] = None
-                        ) -> List[ScanResult]:
+                        faults: Optional[Sequence[FaultSchedule]] = None,
+                        mesh=None) -> List[ScanResult]:
     """One `ScanResult` per seed, each seed's run equal bit for bit to
     `run_staleness_scan` with that seed: one runner called once per seed,
     so one capture serves the sweep. Pass `runner` (a
@@ -1160,7 +1246,8 @@ def run_staleness_seeds(*, grad_fn: Callable, params0,
         init_cache_grads=init_cache_grads, runner=runner,
         fault_rates=fault_rates, clip_norm=clip_norm,
         resync_every=resync_every, k_batch=k_batch, device=device,
-        randomness=randomness, payload_noise=payload_noise, faults=faults)[0]
+        randomness=randomness, payload_noise=payload_noise, faults=faults,
+        mesh=mesh)[0]
 
 
 def run_staleness_grid(*, grad_fn: Callable, params0, aggregator: Aggregator,
@@ -1182,8 +1269,8 @@ def run_staleness_grid(*, grad_fn: Callable, params0, aggregator: Aggregator,
                        randomness: Optional[Sequence[StalenessRandomness]]
                        = None,
                        payload_noise: Optional[Sequence[PayloadNoise]] = None,
-                       faults: Optional[Sequence[FaultSchedule]] = None
-                       ) -> List[List[ScanResult]]:
+                       faults: Optional[Sequence[FaultSchedule]] = None,
+                       mesh=None) -> List[List[ScanResult]]:
     """The lr-tuning grid × seed sweep: ``results[i_lr][i_seed]``, each
     cell equal bit for bit to `run_staleness_scan` with that seed and lr.
     Each seed's streams (and schedule) are drawn once and serve every lr;
@@ -1201,4 +1288,5 @@ def run_staleness_grid(*, grad_fn: Callable, params0, aggregator: Aggregator,
         init_cache_grads=init_cache_grads, runner=runner,
         fault_rates=fault_rates, clip_norm=clip_norm,
         resync_every=resync_every, k_batch=k_batch, device=device,
-        randomness=randomness, payload_noise=payload_noise, faults=faults)
+        randomness=randomness, payload_noise=payload_noise, faults=faults,
+        mesh=mesh)

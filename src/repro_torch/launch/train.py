@@ -18,8 +18,17 @@ schedule) are drawn up front from --seed on the run's device
 (`build_staleness_randomness`, `build_payload_noise`,
 `build_fault_schedule`); ``--driver host`` runs the host reference
 `StalenessSimulator` on the same streams (within 1e-5 of the engine with
-f32 caches). One device: ``--mesh auto`` runs unsharded when one device is
-visible and raises when more are (the sharded runner is ROADMAP A10).
+f32 caches).
+
+Several devices: one process a rank, started by ``torchrun
+--nproc-per-node N -m repro_torch.launch.train --mesh auto ...`` (the
+driver joins the group torchrun describes: NCCL on the cards, one card a
+rank; gloo with ``--device cpu``). ``--mesh auto`` then runs the sharded
+chunked runner over `staleness_mesh()` (the tree layout keeps its state
+replicated on every rank); rank 0 alone prints and writes checkpoints, and
+every rank restores from the same file. One rank (or no group) runs
+unsharded; one process that sees more than one card without a group
+raises, naming torchrun.
 
 Example (CPU, a ~0.8M-number yi-family model, 200 server iterations):
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --reduced \\
@@ -28,10 +37,12 @@ Example (CPU, a ~0.8M-number yi-family model, 200 server iterations):
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (restore_train_checkpoint,
                                     save_train_checkpoint)
@@ -39,6 +50,8 @@ from repro_torch.configs.registry import afl_config, get_config
 from repro_torch.core.aggregators import make_aggregator
 from repro_torch.core.fl_tasks import make_lm_task
 from repro_torch.core.scan_engine import build_payload_noise, default_n_events
+from repro_torch.core.scan_sharded import (
+    make_sharded_chunked_staleness_runner, staleness_mesh)
 from repro_torch.core.scan_staleness import (build_fault_schedule,
                                              build_staleness_randomness,
                                              make_chunked_staleness_runner)
@@ -82,8 +95,9 @@ def _parser() -> argparse.ArgumentParser:
                     "within 1e-5; int8 quantizes per leaf here and per "
                     "raveled row in the host reference)")
     ap.add_argument("--mesh", choices=("auto", "none"), default="auto",
-                    help="auto: unsharded on one visible device; more than "
-                    "one raises (the sharded runner is not ported)")
+                    help="auto: shard over a (data, model) mesh of the "
+                    "process group's ranks (torchrun --nproc-per-node N); "
+                    "unsharded on one rank")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100,
                     help="events between checkpoints (rounded to chunk "
@@ -136,20 +150,45 @@ def main(argv=None) -> float:
     return _run(_parser().parse_args(argv))
 
 
-def _check_mesh(mesh: str, device: torch.device) -> None:
-    """``--mesh auto`` on one visible device runs unsharded (the JAX
-    package's `staleness_mesh()` is None there); on more it has no sharded
-    runner to take."""
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh == "auto" and visible > 1:
-        raise NotImplementedError(
-            f"--mesh auto with {visible} visible devices: the sharded runner "
-            "is not ported (ROADMAP A10); pass --mesh none or expose one "
-            "device")
+def _join_group(device: torch.device) -> torch.device:
+    """Join the process group torchrun describes (``WORLD_SIZE`` > 1 in the
+    environment) unless one is initialised: NCCL with one card a rank
+    (``LOCAL_RANK``), gloo on the CPU. Returns the rank's device."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return device
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+        return torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("gloo")
+    return device
+
+
+def _mesh(mode: str, device: torch.device):
+    """``--mesh auto``: `staleness_mesh()` over the process group's ranks
+    (None on one rank, as JAX's is on one device). Without a group, one
+    process that sees more than one card raises: it never runs unsharded
+    over them by itself."""
+    if mode != "auto":
+        return None
+    if not dist.is_initialized():
+        visible = torch.cuda.device_count() if device.type == "cuda" else 1
+        if visible > 1:
+            raise RuntimeError(
+                f"--mesh auto sees {visible} cards in one process: start one "
+                f"process a card with `torchrun --nproc-per-node {visible} "
+                "-m repro_torch.launch.train --mesh auto ...`, or pass "
+                "--mesh none (or expose one card) to run on one")
+        return None
+    return staleness_mesh()
 
 
 def _run(args) -> float:
-    device = resolve_device(args.device)
+    device = _join_group(resolve_device(args.device))
+    mesh = _mesh(args.mesh, device)
+    # rank 0 alone prints and writes checkpoints
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(layers=args.layers, d_model=args.d_model,
@@ -157,9 +196,9 @@ def _run(args) -> float:
     aflc = afl_config(args.arch, algorithm=args.algo,
                       n_clients=args.n_clients, delay_beta=args.beta,
                       cache_dtype=args.cache_dtype, k_batch=args.k_batch)
-    print(f"model={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"algo={args.algo} clients={aflc.n_clients} driver={args.driver} "
-          f"device={device}")
+    say(f"model={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+        f"algo={args.algo} clients={aflc.n_clients} driver={args.driver} "
+        f"device={device}")
 
     agg = make_aggregator(aflc)
     task = make_lm_task(cfg=cfg, n_clients=aflc.n_clients, batch=args.batch,
@@ -194,9 +233,9 @@ def _run(args) -> float:
         faults = build_fault_schedule(
             args.seed, n_events, explode_scale=args.fault_explode_scale,
             k_batch=args.k_batch, device=device, **fault_rates)
-        print(f"guards on: clip_norm={args.clip_norm} "
-              f"resync_every={args.resync_every or 'off'} "
-              f"injected={faults.counts()}")
+        say(f"guards on: clip_norm={args.clip_norm} "
+            f"resync_every={args.resync_every or 'off'} "
+            f"injected={faults.counts()}")
     resync_every = args.resync_every or None
 
     if args.driver == "host":
@@ -210,18 +249,19 @@ def _run(args) -> float:
         res = sim.run(T)
         final = float(np.mean(res.losses[-20:]))
         if res.faults:
-            print(f"guard counters: {res.faults}")
-        print(f"final loss (mean last 20): {final:.4f}")
+            say(f"guard counters: {res.faults}")
+        say(f"final loss (mean last 20): {final:.4f}")
         return final
 
-    _check_mesh(args.mesh, device)
-    runner = make_chunked_staleness_runner(
+    kw = dict(
         capacity=C, grad_fn=task.grad_fn, params0=task.params0,
         aggregator=agg, n_clients=aflc.n_clients, T=T, beta=args.beta,
         server_lr=server_lr, tau_max=tau_max, speed_skew=args.speed_skew,
         layout="tree", history_dtype=args.history_dtype, guards=guards,
         resync_every=resync_every, checkify_invariants=args.checkify or None,
         k_batch=args.k_batch, device=device)
+    runner = (make_chunked_staleness_runner(**kw) if mesh is None
+              else make_sharded_chunked_staleness_runner(mesh=mesh, **kw))
 
     lr0 = 0.0                 # the schedule is baked in; the runtime lr unused
     carry = runner.init(lr0, noise.init)
@@ -232,8 +272,10 @@ def _run(args) -> float:
             raise RuntimeError(f"checkpoint at event {e0} holds a carry at "
                                f"event {int(carry['e'])}")
         if e0:
-            print(f"resumed from event {e0} (t={int(carry['t'])})")
+            say(f"resumed from event {e0} (t={int(carry['t'])})")
         e0 = min(e0, n_events)
+        if mesh is not None:
+            dist.barrier()      # every rank has read before rank 0 writes
 
     losses: list = []
     t0 = time.time()
@@ -253,12 +295,13 @@ def _run(args) -> float:
         if len(losses) - last_log >= args.log_every or hi >= n_events:
             last_log = len(losses)
             dt = time.time() - t0
-            print(f"t={t_now:5d}/{T} events={hi} "
-                  f"loss={np.mean(losses[-args.log_every:]):.4f} "
-                  f"({events_done * args.k_batch / max(dt, 1e-9):.1f} ev/s)",
-                  flush=True)
-        if args.ckpt_dir and (hi // args.ckpt_every != lo // args.ckpt_every
-                              or hi >= n_events or t_now >= T):
+            say(f"t={t_now:5d}/{T} events={hi} "
+                f"loss={np.mean(losses[-args.log_every:]):.4f} "
+                f"({events_done * args.k_batch / max(dt, 1e-9):.1f} ev/s)",
+                flush=True)
+        if args.ckpt_dir and lead and (
+                hi // args.ckpt_every != lo // args.ckpt_every
+                or hi >= n_events or t_now >= T):
             save_train_checkpoint(args.ckpt_dir, hi, carry)
         if t_now >= T:
             break
@@ -266,10 +309,10 @@ def _run(args) -> float:
     ev = task.eval_fn(carry["w"])
     if guards:
         counters = {k: int(v) for k, v in carry["guards"].items()}
-        print(f"guard counters: {counters}")
+        say(f"guard counters: {counters}")
     # resumed past the event budget: no fresh losses, report the eval loss
     final = float(np.mean(losses[-20:])) if losses else ev["loss"]
-    print(f"final loss (mean last 20): {final:.4f}  eval={ev}")
+    say(f"final loss (mean last 20): {final:.4f}  eval={ev}")
     return final
 
 

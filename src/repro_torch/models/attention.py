@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.sharding.rules import shard
 
 NEG_INF = -1e30
 
@@ -157,6 +158,7 @@ def attn_apply(params, x, cos, sin, cfg, *, causal=True, window=0, kv_x=None,
     """Training / prefill self- or cross-attention."""
     q, k, v = _project_qkv(params, x, kv_x, cos, sin, cfg,
                            rope_kv=kv_x is None)
+    q = shard(q, ("batch", "seq", "heads", None))
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             softcap_val=cfg.attn_softcap)
     B, L = x.shape[:2]

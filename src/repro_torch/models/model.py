@@ -28,6 +28,7 @@ from repro_torch.configs.registry import torch_dtype
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (embed_apply, embed_init, mrope_angles,
                                        rms_norm, rope_angles, unembed_apply)
+from repro_torch.sharding.rules import shard
 
 
 class Model(NamedTuple):
@@ -96,7 +97,7 @@ def build_model(cfg: ModelConfig) -> Model:
         h = h.to(dtype)
         if cfg.frontend == "vision" and "vision_embeds" in batch:
             h = torch.cat([batch["vision_embeds"].to(dtype), h], dim=1)
-        return h
+        return shard(h, ("batch", "seq", "embed"))
 
     def _run_encoder(params, batch, remat):
         src = batch["audio_embeds"].to(dtype)

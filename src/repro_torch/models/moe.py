@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import shard
 
 
 def moe_init(generator, cfg, dtype, device=None):
@@ -128,9 +129,11 @@ def moe_apply(params, x, cfg):
     # order), packed into the (G, E·C, d) slots
     xa = xg[:, :, None, :].expand(G, Tg, k, d).reshape(G, Tk, d)
     buf = _Route.apply(xa, asg, filled, slot, kept).reshape(G, E, C, d)
+    buf = shard(buf, ("batch", "experts", None, None))
 
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["wi_gate"])) \
         * torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
+    h = shard(h, ("batch", "experts", None, None))
     out_buf = torch.einsum("gecf,efd->gecd", h, params["wo"])
 
     # each assignment's expert output (0 if dropped), weighted, summed

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.rules import shard
 
 
 def mamba_init(generator, cfg, dtype, device=None):
@@ -136,6 +137,7 @@ def mamba_apply(params, x, cfg):
     Cm = xBC[..., di + G * N:].reshape(B, L, G, N)
     dt = F.softplus(dt.float() + params["dt_bias"])                  # (B,L,H)
     A = -torch.exp(params["A_log"])                                  # (H,)
+    xp = shard(xp, ("batch", "seq", "ssm_heads", None))
     y, _ = ssd_chunked(xp * dt[..., None].to(x.dtype), dt * A, Bm, Cm, cfg)
     y = y + xp * params["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(B, L, di)

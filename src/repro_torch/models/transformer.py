@@ -14,8 +14,8 @@ shared_attn (Zamba2-style: one attention+MLP unit whose parameters live at
 model level, windowed; its entry in a stage is ``{}``). Dense FFN / MoE
 FFN (with arctic's parallel dense residual) and MLA vs GQA are chosen from
 the config. Encoder-decoder adds per-decoder-layer cross-attention. The
-JAX package's sharding constraints are not ported (multi-GPU is ROADMAP
-A10)."""
+JAX package's `shard` sites are kept (`repro_torch.sharding.rules`): under
+a mesh the activations stay replicated, so they change no number."""
 from __future__ import annotations
 
 import functools
@@ -30,6 +30,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
+from repro_torch.sharding.rules import shard
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +115,7 @@ def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
         x = x + y
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     y, aux = _ffn_apply(params, h, cfg)
-    return x + y, aux, cache
+    return shard(x + y, ("batch", "seq", "embed")), aux, cache
 
 
 def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,

@@ -1,0 +1,191 @@
+"""Logical-axis sharding rules — the port of `repro.sharding.rules`.
+
+Code names the *logical* axes of a tensor (``("cache_clients",
+"cache_d")``, ``("batch", "seq", "embed")``); a thread-local rule set maps
+them to the axes of a ``("data", "model")`` mesh, a
+`torch.distributed.device_mesh.DeviceMesh` (or, for the pure spec
+functions, a mapping ``{axis name: size}``). A spec is a tuple with one
+entry per dim: a mesh-axis name, a tuple of names, or None (whole).
+
+PyTorch runs one process per device, not one controller over a GSPMD
+program, so the rules do not rewrite tensors. Under a mesh, `shard` and
+`replicate` hand their argument back whole: activations and client
+payloads stay replicated on every rank (as the JAX package pins its
+payloads). The server state the engine keeps in blocks — the flat cache,
+the history ring, the snapshot buffer (`repro_torch.core.cache.
+BlockedFlatCache`) — takes its split from `guarded_spec`, so
+``use_rules(mesh, rules={"cache_d": None})`` moves it as it moves JAX's.
+Without a mesh, `shard` and `replicate` return `x`.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+_state = threading.local()
+
+# logical axis -> mesh axis (or tuple of mesh axes)
+LOGICAL_RULES: Dict[str, object] = {
+    "batch": ("pod", "data"),      # batch shards over pod x data
+    "seq": None,
+    "embed": None,                 # activation embed dim replicated
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",            # expert-parallel folded into model axis
+    "vocab": "model",
+    "cache_clients": "data",       # ACE cache client rows
+    "cache_d": "model",            # ACE cache feature shards
+    # parameter dims
+    "p_embed": "data",             # FSDP: shard params' embed dim over data
+    "p_vocab": "model",
+    "p_mlp": "model",
+    "p_heads": "model",
+    "p_experts": "model",
+    "p_expert_ff": None,
+    "ssm_heads": "model",
+    "ssm_inner": "model",
+}
+
+Spec = Tuple[object, ...]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a `DeviceMesh` with named dims, or of a
+    mapping that already is one."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+
+
+class use_rules:
+    """Context manager activating a mesh + rule set for the rules' users."""
+
+    def __init__(self, mesh, rules: Optional[Dict] = None):
+        self.mesh = mesh
+        self.rules = dict(LOGICAL_RULES)
+        if rules:
+            self.rules.update(rules)
+
+    def __enter__(self):
+        self._prev = getattr(_state, "ctx", None)
+        _state.ctx = (self.mesh, self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        _state.ctx = self._prev
+        return False
+
+
+def _active():
+    return getattr(_state, "ctx", None)
+
+
+def active_mesh():
+    """The mesh of the innermost `use_rules`, or None outside one."""
+    ctx = _active()
+    return ctx[0] if ctx else None
+
+
+def logical_to_spec(axes: Sequence[Optional[str]],
+                    rules: Optional[Dict] = None, mesh=None) -> Spec:
+    """The spec of logical `axes` under `rules` (default: the active rule
+    set, else `LOGICAL_RULES`), its mesh axes kept only where `mesh` (default:
+    the active one) has them."""
+    ctx = _active()
+    if rules is None:
+        rules = ctx[1] if ctx else LOGICAL_RULES
+    if mesh is None and ctx:
+        mesh = ctx[0]
+    mesh_axes = set(axis_sizes(mesh)) if mesh is not None else None
+    out = []
+    for ax in axes:
+        m = rules.get(ax) if ax else None
+        if m is None:
+            out.append(None)
+            continue
+        if isinstance(m, (tuple, list)):
+            m = tuple(a for a in m if mesh_axes is None or a in mesh_axes)
+            # one name stands alone, as in JAX's canonical PartitionSpec
+            out.append((m[0] if len(m) == 1 else m) if m else None)
+        else:
+            out.append(m if (mesh_axes is None or m in mesh_axes) else None)
+    return tuple(out)
+
+
+def _guard(shape, spec: Spec, sizes: Dict[str, int]) -> Spec:
+    """The divisibility guard of JAX's `shard`: a dim that does not divide
+    the product of its axes' sizes stays whole."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    fixed = []
+    for dim, s in zip(shape, spec):
+        if s is None:
+            fixed.append(None)
+            continue
+        n = 1
+        for a in (s if isinstance(s, tuple) else (s,)):
+            n *= sizes[a]
+        fixed.append(s if dim % n == 0 else None)
+    return tuple(fixed)
+
+
+def guarded_spec(shape, axes: Sequence[Optional[str]], mesh=None) -> Spec:
+    """The layout of a tensor of `shape` with logical `axes` under the
+    active rules and `mesh` (default: the active one): `logical_to_spec`
+    through the divisibility guard, the spec JAX's `shard` constrains to.
+    All None without a mesh."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return (None,) * len(shape)
+    return _guard(shape, logical_to_spec(axes, mesh=mesh), axis_sizes(mesh))
+
+
+def replicate(x):
+    """`x` pinned replicated: every rank holds all of it (no-op without a
+    mesh, and the layout every tensor has under one)."""
+    return x
+
+
+def shard(x, axes: Sequence[Optional[str]]):
+    """A logical layout hint at JAX's sites; `x` comes back whole on every
+    rank, with or without an active mesh (the blocked server state takes its
+    split from `guarded_spec` instead)."""
+    return x
+
+
+def build_mesh(shape, names):
+    """A `DeviceMesh` of `shape` with dims `names` over the ranks of the
+    initialised process group: on ``cuda`` when the group is NCCL's (its
+    ranks hold cards), on ``cpu`` otherwise (``gloo``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs an initialised process group: call "
+                           "torch.distributed.init_process_group first (or "
+                           "start under torchrun)")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def warm_up_groups(mesh, device) -> None:
+    """One all-reduce on each of `mesh`'s dim groups, so that each group's
+    communicator exists before a CUDA graph records its collectives."""
+    import torch
+    import torch.distributed as dist
+    for name in mesh.mesh_dim_names:
+        x = torch.zeros((1,), device=device)
+        dist.all_reduce(x, group=mesh.get_group(name))
+
+
+def param_spec_fn(path_logical_axes, mesh):
+    """Build a logical-axes tree -> spec tree function (the launch
+    helper): dicts are walked, and each tuple or list of logical axes (a
+    leaf, as in JAX) becomes its `logical_to_spec` under `mesh`."""
+    def fn(logical_axes_tree):
+        def walk(x):
+            if isinstance(x, dict):
+                return {k: walk(v) for k, v in x.items()}
+            return logical_to_spec(x, mesh=mesh)
+        return walk(logical_axes_tree)
+    return fn

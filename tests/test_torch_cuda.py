@@ -28,7 +28,9 @@ reduced MoE, Mamba-2, hybrid and encoder-decoder archs against their CPU
 runs, MoE gradients bit for bit, the reduced zamba2 LM task's graph run
 against eager) with ``-k "ssm or moe"``, the train stack (the AFL train
 step on the card against the CPU, checkpoints restored onto CUDA tensors,
-the train driver resumed bit for bit) with ``-k train``."""
+the train driver resumed bit for bit) with ``-k train``, the sharded
+runner on a one-rank NCCL group (its collectives captured in the tick's
+graph) with ``-k sharded``."""
 import numpy as np
 import pytest
 
@@ -1572,3 +1574,51 @@ def test_train_driver_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
         assert sorted(x.files) == sorted(y.files)
         for k in x.files:
             assert np.array_equal(x[k], y[k]), k
+
+
+def test_sharded_runner_world_one_nccl_matches_unsharded(cuda, tmp_path):
+    """The sharded runner on an NCCL group of one rank ((1, 1) mesh, every
+    block collective issued and captured in the tick's CUDA graph): int8
+    ACE and ACED K = 1 and CA²FL K = 4 on the vision task end where the
+    unsharded graph runs do, their kernels launched and the tick
+    captured."""
+    import torch.distributed as dist
+    from repro_torch.core.scan_sharded import make_sharded_staleness_runner
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        assert tuple(mesh.shape) == (1, 1)
+        task = make_vision_task(n_clients=16, alpha=0.3, batch=8,
+                                n_classes=10, dim=32, hidden=(64,),
+                                n_train=800, n_test=100, seed=0,
+                                device=cuda)
+        for name, K, kernel in (("ace", 1, "cache_row_update"),
+                                ("aced", 1, "row_delta"),
+                                ("ca2fl", 4, "commit_batch")):
+            def rule():
+                if name == "ace":
+                    return tagg.ACEIncremental(cache_dtype="int8")
+                if name == "aced":
+                    return tagg.ACED(tau_algo=5, cache_dtype="int8")
+                return tagg.CA2FL(buffer_size=4, cache_dtype="int8")
+            kw = dict(grad_fn=task.grad_fn, params0=task.params0,
+                      n_clients=16, T=40, beta=2.0, k_batch=K, device=cuda)
+            E = default_n_events(rule(), 40)
+            rand = build_staleness_randomness(1, E, 16, 2.0, k_batch=K,
+                                              device=cuda)
+            noise = build_payload_noise(task.grad_fn, 1, E, 16, K, 1, cuda)
+            plain = make_staleness_runner(aggregator=rule(), **kw)
+            w0 = plain(rand, noise, 0.05)[0]
+            sharded = make_sharded_staleness_runner(mesh=mesh,
+                                                    aggregator=rule(), **kw)
+            ops.reset_launch_counts()
+            w1 = sharded(rand, noise, 0.05)[0]
+            counts = ops.launch_counts()
+            assert sharded.captures >= 1
+            assert counts[kernel] > 0
+            assert float((w1 - w0).abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -125,14 +125,16 @@ def test_train_rejects_unknown_options():
 
 
 def test_mesh_auto_runs_unsharded_on_one_device(monkeypatch):
-    ttrain._check_mesh("auto", torch.device("cpu"))
+    """Without a process group, ``--mesh auto`` runs unsharded on one
+    visible device and raises, naming torchrun, on more."""
+    assert ttrain._mesh("auto", torch.device("cpu")) is None
     cuda = torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    ttrain._check_mesh("auto", cuda)
+    assert ttrain._mesh("auto", cuda) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttrain._check_mesh("auto", cuda)
-    ttrain._check_mesh("none", cuda)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
+        ttrain._mesh("auto", cuda)
+    assert ttrain._mesh("none", cuda) is None
 
 
 # ---------------------------------------------------------------------------

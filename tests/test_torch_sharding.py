@@ -1,0 +1,263 @@
+"""The port's sharding rules (`repro_torch.sharding.rules`, `.auto`) and
+mesh constructors (`repro_torch.launch.mesh`) against the JAX package's.
+
+JAX's spec functions take an `AbstractMesh` on one CPU device; the port's
+take the same axis sizes (a ``{name: size}`` mapping), so every case runs
+without ranks:
+
+  * `logical_to_spec` for every `LOGICAL_RULES` key, on meshes with and
+    without ``pod`` and with none;
+  * the divisibility guards (`auto._guard`, and `guarded_spec` — the spec
+    JAX's `shard` constrains to, which lays out the port's blocked state);
+  * `param_spec` over every leaf of the ten archs' ``reduced()``
+    parameters, with ``fsdp`` on and off, and `cache_spec` over every leaf
+    of their decode caches at B = 1 and B = 4;
+  * `shard` / `replicate` hand their argument back, with or without an
+    active rule set; the mesh constructors raise where JAX's would refuse.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+
+from repro.configs.registry import get_config as jget_config  # noqa: E402
+from repro.models import build_model as jbuild  # noqa: E402
+from repro.sharding import auto as jauto  # noqa: E402
+from repro.sharding import rules as jrules  # noqa: E402
+from repro_torch.configs.registry import ARCHS  # noqa: E402
+from repro_torch.configs.registry import get_config as tget_config  # noqa: E402
+from repro_torch.core.scan_sharded import staleness_mesh  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import build_model as tbuild  # noqa: E402
+from repro_torch.sharding import auto as tauto  # noqa: E402
+from repro_torch.sharding import rules as trules  # noqa: E402
+
+torch.set_num_threads(1)
+
+MESHES = {"data4_model2": {"data": 4, "model": 2},
+          "pod2_data4_model2": {"pod": 2, "data": 4, "model": 2},
+          "data1_model1": {"data": 1, "model": 1}}
+
+
+def _abstract(sizes):
+    return AbstractMesh(tuple(sizes.values()), tuple(sizes))
+
+
+def _spec(p):
+    """A JAX PartitionSpec as the port's tuple."""
+    return tuple(p)
+
+
+@pytest.mark.parametrize("mesh", [None] + sorted(MESHES))
+@pytest.mark.parametrize("key", sorted(trules.LOGICAL_RULES))
+def test_logical_to_spec_matches_jax(key, mesh):
+    sizes = MESHES.get(mesh)
+    jm = _abstract(sizes) if sizes else None
+    for axes in ((key,), (key, None, "heads"), (None, key)):
+        assert trules.logical_to_spec(axes, mesh=sizes) == _spec(
+            jrules.logical_to_spec(axes, mesh=jm))
+    # the active rule set and an override, as use_rules gives them
+    over = {key: "model"}
+    with trules.use_rules(sizes, over), jrules.use_rules(jm, over):
+        assert trules.logical_to_spec((key, "batch")) == _spec(
+            jrules.logical_to_spec((key, "batch")))
+
+
+GUARD_CASES = [((8, 6), ("data", "model")), ((7, 6), ("data", "model")),
+               ((8, 5), ("data", "model")), ((3, 5), ("data", "model")),
+               ((16, 4, 2), (("pod", "data"), "model", None)),
+               ((6, 4), (("pod", "data"), None)),
+               ((4, 4), ("model", "model"))]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("case", range(len(GUARD_CASES)))
+def test_guard_matches_jax(case, mesh):
+    shape, spec = GUARD_CASES[case]
+    sizes = MESHES[mesh]
+    assert tauto._guard(sizes, shape, spec) == _spec(
+        jauto._guard(_abstract(sizes), shape, spec))
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 6), ("data", "model")), ((7, 6), (None, "model")),
+    ((8, 5), ("data", None)), ((7, 5), (None, None))])
+def test_guarded_spec_is_shards_constraint(shape, want):
+    """The blocked cache's split: `logical_to_spec` of the cache axes
+    through `shard`'s guard; a rule override moves it."""
+    sizes = MESHES["data4_model2"]
+    with trules.use_rules(sizes):
+        assert trules.guarded_spec(shape, ("cache_clients", "cache_d")) == want
+    with trules.use_rules(sizes, {"cache_d": None}):
+        assert trules.guarded_spec(
+            shape, ("cache_clients", "cache_d"))[1] is None
+    assert trules.guarded_spec(shape, ("cache_clients", "cache_d")) == (
+        None, None)
+
+
+def _jax_paths(tree):
+    """{path: leaf} of a JAX tree, its keys as the port's path entries."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[tuple(getattr(p, "key", getattr(p, "idx", None))
+                  for p in path)] = (path, leaf)
+    return out
+
+
+def _torch_specs(tree):
+    """{path: spec} of a spec tree the port's `infer_*` built."""
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, path + (k,))
+        elif isinstance(x, list) or (isinstance(x, tuple) and not all(
+                s is None or isinstance(s, (str, tuple)) for s in x)):
+            for i, v in enumerate(x):
+                walk(v, path + (i,))
+        else:
+            out[path] = x
+    walk(tree, ())
+    return out
+
+
+def _leaf_count(tree):
+    return len(jax.tree_util.tree_leaves(tree))
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Each arch's reduced config: JAX's abstract parameters and the port's
+    parameters."""
+    out = {}
+    for arch in sorted(ARCHS):
+        jcfg = jget_config(arch).reduced()
+        tcfg = tget_config(arch).reduced()
+        jm, tm = jbuild(jcfg), tbuild(tcfg)
+        jp = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+        tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+        out[arch] = (jm, tm, jp, tp)
+    return out
+
+
+@pytest.mark.parametrize("fsdp", [True, False])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_spec_matches_jax(arch, fsdp, models):
+    _, _, jp, tp = models[arch]
+    sizes = MESHES["data4_model2"]
+    am = _abstract(sizes)
+    want = {k: _spec(jauto.param_spec(p, leaf, am, fsdp=fsdp))
+            for k, (p, leaf) in _jax_paths(jp).items()}
+    got = _torch_specs(tauto.infer_params_shardings(tp, sizes, fsdp=fsdp))
+    assert len(want) == _leaf_count(jp)
+    # a 0-d or 1-D leaf's spec is () in both (JAX's P() ≡ P(None))
+    got = {k: v for k, v in got.items()}
+    assert got == want
+    # and something is actually split at these widths
+    assert any(any(s is not None for s in v) for v in got.values())
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cache_spec_matches_jax(arch, batch, models):
+    jm, tm, _, _ = models[arch]
+    sizes = MESHES["data4_model2"]
+    am = _abstract(sizes)
+    jc = jax.eval_shape(lambda: jm.init_cache(batch, 16))
+    tc = tm.init_cache(batch, 16, device="cpu")
+    b_axes = jauto._batch_axes(am)
+    sharded = (batch % max(jauto._axis_size(am, b_axes), 1) == 0
+               and jauto._axis_size(am, b_axes) > 1)
+    want = {k: _spec(jauto.cache_spec(p, leaf, am, sharded))
+            for k, (p, leaf) in _jax_paths(jc).items()}
+    got = _torch_specs(tauto.infer_decode_cache_shardings(tc, sizes, batch))
+    assert got == want
+
+
+def test_afl_batch_and_opt_specs_match_jax(models):
+    """`infer_afl_shardings` over a tree cache and running sum of yi's
+    reduced parameters, `infer_batch_shardings` and `infer_opt_shardings`,
+    against JAX's (specs of its NamedShardings)."""
+    _, _, jp, tp = models["yi-9b"]
+    sizes = MESHES["data4_model2"]
+    am = _abstract(sizes)
+    n = 8
+
+    def jafl(p):
+        return {"cache": {"q": jax.tree.map(
+            lambda x: jax.ShapeDtypeStruct((n,) + x.shape, jnp.int8), p),
+            "scale": jax.ShapeDtypeStruct((n,), jnp.float32)}, "u": p}
+    tafl = {"cache": {"q": _tmap(lambda x: torch.zeros(
+        (n,) + tuple(x.shape), dtype=torch.int8), tp),
+        "scale": torch.zeros(n)}, "u": tp}
+    cases = [
+        (jauto.infer_afl_shardings(jafl(jp), am),
+         tauto.infer_afl_shardings(tafl, sizes)),
+        (jauto.infer_opt_shardings({"m": jp, "count": jnp.int32(0)}, am),
+         tauto.infer_opt_shardings({"m": tp, "count": torch.tensor(0)},
+                                   sizes)),
+        (jauto.infer_batch_shardings(
+            {"tokens": jax.ShapeDtypeStruct((8, 16), jnp.int32),
+             "pos": jnp.int32(0)}, am),
+         tauto.infer_batch_shardings(
+            {"tokens": torch.zeros((8, 16), dtype=torch.int32),
+             "pos": torch.tensor(0)}, sizes)),
+    ]
+    for jtree, ttree in cases:
+        want = {k: _spec(s.spec) for k, (_, s) in _jax_paths(jtree).items()}
+        assert _torch_specs(ttree) == want
+
+
+def _tmap(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tmap(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tmap(fn, v) for v in tree)
+    return fn(tree)
+
+
+def test_param_spec_fn_matches_jax():
+    sizes = MESHES["pod2_data4_model2"]
+    tree = {"wq": ("p_embed", "p_heads"), "ln": ("embed",),
+            "ffn": {"wi": ("p_embed", "p_mlp"), "b": ("batch", None)}}
+    got = trules.param_spec_fn(None, sizes)(tree)
+    am = _abstract(sizes)
+    want = jax.tree.map(
+        lambda axes: _spec(jrules.logical_to_spec(axes, mesh=am)), tree,
+        is_leaf=lambda x: isinstance(x, (tuple, list)))
+    assert got == want
+
+
+@pytest.mark.parametrize("mesh", [None, "data4_model2"])
+def test_shard_and_replicate_hand_back_their_argument(mesh):
+    """No-ops without a mesh (JAX's `shard`, `replicate`); under one the
+    port's activations and payloads stay whole on every rank."""
+    x = torch.ones(4, 4)
+    if mesh is None:
+        assert trules.shard(x, ("batch", None)) is x
+        assert trules.replicate(x) is x
+        assert jrules.shard(jnp.ones((4, 4)), ("batch", None)).shape == (4, 4)
+        return
+    with trules.use_rules(MESHES[mesh]):
+        assert trules.active_mesh() == MESHES[mesh]
+        assert trules.shard(x, ("batch", "embed")) is x
+        assert trules.replicate(x) is x
+    assert trules.active_mesh() is None
+
+
+def test_mesh_constructors_without_a_group():
+    """No process group: `staleness_mesh` is None (JAX's is on one device),
+    the host mesh needs a group, the production mesh a world of 256 or
+    512 ranks."""
+    assert not torch.distributed.is_initialized()
+    assert staleness_mesh() is None
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        tmesh.make_host_mesh()
+    with pytest.raises(ValueError, match="256"):
+        tmesh.make_production_mesh()
+    with pytest.raises(ValueError, match="512"):
+        tmesh.make_production_mesh(multi_pod=True)
