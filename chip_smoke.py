@@ -197,6 +197,14 @@ result line):
      against unsharded in turns, and a traced sharded run of int8 ACE
      K = 1 and CA²FL K = 16 (device kernels a tick, the NCCL kernels'
      ms a tick); at most 60 s;
+  4j. the dry run over fake tensors (`repro_torch.launch.dryrun`) against
+     the card at 4h (b)'s cut (yi-9b's widths, one layer, n = 8, int8 tree
+     caches, one step of batch 8 × seq 256, ACE and ACED): (a) its FLOPs
+     equal FlopCounterMode's count of the real step, plain and kernel
+     paths; (b) its peak (the plain versions' step) within 20% of the
+     plain step's max_memory_allocated, the kernels' peak printed beside
+     it; (c) one production record (yi-9b, train_4k, single pod) printed;
+     at most 30 s;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -2803,6 +2811,114 @@ def sharded_phase(torch, ops, task, dev, card, totals, flat_w):
     return took
 
 
+# --- phase 4j: the dry run against the card ------------------------------------
+
+# the dry run's peak of the plain-version step against the card's, and the
+# phase's budget
+DRYRUN_PEAK_TOL, DRYRUN_BUDGET_S = 0.20, 30.0
+
+
+def dryrun_phase(torch, ops, dev, card, totals):
+    """The dry run (`repro_torch.launch.dryrun`) against the card at 4h
+    (b)'s cut: yi-9b's widths, one layer, n = 8 clients, int8 tree caches,
+    one train step of batch 8 × seq 256 (remat none, sgd(0.1)), ACE and
+    ACED. For each rule: (a) the dry run's FLOPs (FlopCounterMode over fake
+    CUDA tensors) equal FlopCounterMode's count of the real step on the
+    card, through the plain versions and through the kernels; (b) the dry
+    run's peak (MemTracker, the plain versions' step, its arguments
+    included) within `DRYRUN_PEAK_TOL` of the plain step's
+    ``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``
+    (called once the arguments are made), less what was allocated before
+    they were made, with nothing else of the script alive; the kernels'
+    peak printed beside it. Then
+    (c) one production record (yi-9b, train_4k, single pod; without the
+    probes, which the CPU runs) printed. At most `DRYRUN_BUDGET_S`."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import afl_config
+    from repro_torch.core.distributed import make_afl_train_step
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    t_start = time.perf_counter()
+    cfg = lm_config("4f")
+    n, B, L = LM_TASK["n_clients"], TRAIN_BATCH, TRAIN_SEQ
+    shape = InputShape("4j", L, B, "train")
+    model = build_model(cfg)
+    for algo in TRAIN_RULES:
+        aflc = afl_config("yi-9b", algorithm=algo, n_clients=n)
+        check(aflc.cache_dtype == "int8", "dry run: yi-9b's cache is int8")
+        t0 = time.perf_counter()
+        rec, _, _ = dryrun.trace_train("yi-9b", shape, None, algo=algo,
+                                       remat="none", lr=0.1, cfg=cfg,
+                                       n_clients=n)
+        t_dry = time.perf_counter() - t0
+        check(rec["coll_counts"] == 0, f"dry run {algo}: collectives")
+        real = {}
+        for backend in (None, "torch"):
+            free(torch)
+            base = torch.cuda.memory_allocated(dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = model.init(gen, device=dev)
+            init_fn, step_fn = make_afl_train_step(
+                model.loss_fn, aflc, sgd(0.1), backend=backend)
+            state = init_fn(params)
+            del params
+            toks = torch.randint(0, cfg.vocab_size, (B, L + 1),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            batch = {"tokens": toks[:, :-1].contiguous(),
+                     "targets": toks[:, 1:].contiguous()}
+            del toks
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            # the window opens on the step's arguments, as the dry run's
+            # does (the init's transients, e.g. ACE's mean of the cache,
+            # are not the step's)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with FlopCounterMode(display=False) as fc:
+                (state, m), counts = counted(
+                    ops, totals, lambda: step_fn(state, batch, zero, zero))
+            torch.cuda.synchronize(dev)
+            check(bool(torch.isfinite(m["loss"])),
+                  f"dry run {algo}: the real step's loss is not finite")
+            real[backend] = (float(fc.get_total_flops()),
+                             torch.cuda.max_memory_allocated(dev) - base,
+                             counts)
+            del state, m, batch, zero, step_fn, init_fn
+        free(torch)
+        flops, peak, _ = real["torch"]
+        kflops, kpeak, kcounts = real[None]
+        check(rec["flops"] == flops == kflops, f"dry run {algo}: FLOPs "
+              f"{rec['flops']:.6e} against the card's {flops:.6e} (plain) "
+              f"and {kflops:.6e} (kernels)")
+        for kernel in TREE_KERNELS:
+            check(kcounts[kernel] > 0, f"dry run {algo}: {kernel} not "
+                  "launched by the real step")
+        rel = (rec["peak_bytes"] - peak) / peak
+        print(f"dry run {algo} int8 at yi-9b's widths (1 layer, n={n}, "
+              f"batch {B} x seq {L}): traced in {t_dry:.2f} s; FLOPs "
+              f"{rec['flops']:.6e} dry, {flops:.6e} the card's plain step, "
+              f"{kflops:.6e} its kernel step (equal: "
+              f"{rec['flops'] == flops == kflops}); peak "
+              f"{rec['peak_bytes'] / 1e9:.3f} GB dry (plain versions) "
+              f"against {peak / 1e9:.3f} GB max_memory_allocated of the "
+              f"plain step ({100 * rel:+.2f}%), kernel step "
+              f"{kpeak / 1e9:.3f} GB; launches {kcounts} [{card}]")
+        check(abs(rel) <= DRYRUN_PEAK_TOL, f"dry run {algo}: peak "
+              f"{rec['peak_bytes'] / 1e9:.3f} GB against the card's "
+              f"{peak / 1e9:.3f} GB ({100 * rel:+.1f}%)")
+    del model
+    free(torch)
+    prod = dryrun.run_one("yi-9b", "train_4k", multi_pod=False,
+                          probes=False)
+    check("error" not in prod and prod["spec_argument_bytes_per_rank"] > 0,
+          f"dry run: the production record {prod}")
+    print("dry run production record: " + json.dumps(prod))
+    took = time.perf_counter() - t_start
+    check(took <= DRYRUN_BUDGET_S, f"phase 4j took {took:.1f} s")
+    return took
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3033,6 +3149,11 @@ def main() -> int:
     print(f"phase 4i starts at {time.perf_counter() - start:.1f} s")
     took = sharded_phase(torch, ops, task, dev, card, totals, results)
     print(f"phase 4i took {took:.1f} s")
+
+    # 4j. the dry run over fake tensors against the card's step
+    print(f"phase 4j starts at {time.perf_counter() - start:.1f} s")
+    took = dryrun_phase(torch, ops, dev, card, totals)
+    print(f"phase 4j took {took:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

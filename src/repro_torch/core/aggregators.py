@@ -151,7 +151,11 @@ _CONSTANTS = {}
 def _constant(key, device, make) -> torch.Tensor:
     """A constant tensor of the rules, made by `make()` once per `key` and
     device and only ever read: a tick launches no fill for it, and a
-    captured tick copies no host value into it."""
+    captured tick copies no host value into it. Under a `FakeTensorMode`
+    (the dry run) it is made afresh and not kept, so that no fake tensor
+    reaches a later real step, nor a real one the trace."""
+    if torch._guards.active_fake_mode() is not None:
+        return make()
     t = _CONSTANTS.get((key, device))
     if t is None:
         t = _CONSTANTS[key, device] = make()

@@ -43,9 +43,11 @@ def mlp_classifier(dims: Sequence[int]):
         params = []
         for a, b in zip(dims[:-1], dims[1:]):
             w = torch.randn((a, b), generator=generator,
+                            dtype=torch.float32,
                             device=generator.device) * (2.0 / a) ** 0.5
             params.append({"w": w.to(device),
-                           "b": torch.zeros((b,), device=device)})
+                           "b": torch.zeros((b,), dtype=torch.float32,
+                                            device=device)})
         return params
 
     def apply(params, x):
@@ -69,18 +71,22 @@ def tiny_text_classifier(vocab: int, d: int, n_classes: int, seq_len: int):
     def init(generator: torch.Generator, device=None):
         def normal(shape, std):
             return (torch.randn(shape, generator=generator,
+                                dtype=torch.float32,
                                 device=generator.device) * std).to(device)
         return {"emb": normal((vocab, d), 0.05),
                 "w1": normal((d, d), (2.0 / d) ** 0.5),
-                "b1": torch.zeros((d,), device=device),
+                "b1": torch.zeros((d,), dtype=torch.float32,
+                                  device=device),
                 "w2": normal((d, n_classes), (1.0 / d) ** 0.5),
-                "b2": torch.zeros((n_classes,), device=device)}
+                "b2": torch.zeros((n_classes,), dtype=torch.float32,
+                                  device=device)}
 
     def apply(params, toks):
         emb = params["emb"]
         if emb.dim() == 3:
             lanes = emb.shape[0]
-            offset = torch.arange(lanes, device=toks.device) * vocab
+            offset = torch.arange(lanes, dtype=torch.int64,
+                                  device=toks.device) * vocab
             toks = toks + offset.reshape((lanes,) + (1,) * (toks.dim() - 1))
             emb = emb.reshape(lanes * vocab, d)
         h = F.embedding(toks, emb).mean(-2)
@@ -254,7 +260,7 @@ def make_lm_task(*, cfg, n_clients=8, batch=8, seq=256, n_tokens=1 << 18,
     if per < seq + 2:
         raise ValueError(f"stream too short: {per} tokens/client < seq+2")
     toks_t = torch.as_tensor(toks).to(device=device, dtype=torch.int64)
-    offsets = torch.arange(seq + 1, device=device)
+    offsets = torch.arange(seq + 1, dtype=torch.int64, device=device)
 
     def grad(w, clients, u):
         lo = clients.long().unsqueeze(-1) * per                 # (B, 1)

@@ -294,7 +294,7 @@ class _Ticks:
                      for k, dt in prog.out_dtypes.items()}
         if prog.record_w:
             self.outs["w"] = torch.zeros((self.capacity, prog.d),
-                                         device=dev)
+                                         dtype=torch.float32, device=dev)
         self.xs: Optional[Dict[str, torch.Tensor]] = None
         self.carry = None
         self.captures = 0
@@ -465,7 +465,8 @@ def _scan_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # one payload per client at w0 (paper Alg. 1 line 1), and u⁰
             # applied before the loop (lines 4-5)
             init_rows, _ = payload_fn(
-                w0[None].repeat(n, 1), torch.arange(n, device=device),
+                w0[None].repeat(n, 1),
+                torch.arange(n, dtype=torch.int64, device=device),
                 torch.as_tensor(init_noise).to(device))
             state = agg.init_state(n, d, init_rows, device)
             w, t0 = w0 - lr_of_t(i32(0), lr) * init_rows.mean(0), 1

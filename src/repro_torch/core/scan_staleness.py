@@ -610,7 +610,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             init_rows, _ = payload_fn(
                 tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
                          w0),
-                torch.arange(n, device=device),
+                torch.arange(n, dtype=torch.int64, device=device),
                 torch.as_tensor(init_noise).to(device))
             state = agg.init_state(n, d_tpl, init_rows, device)
             eta0 = lr_of_t(i32(0), lr)
@@ -634,7 +634,7 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         if marks is not None:
             carry["snaps"] = tree_map(lambda x: torch.zeros(
                 (marks.shape[0],) + tuple(snap_part(x).shape),
-                device=device), w0)
+                dtype=torch.float32, device=device), w0)
             carry["hits"] = torch.zeros((marks.shape[0],), dtype=torch.bool,
                                         device=device)
         if guards:

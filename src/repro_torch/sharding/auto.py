@@ -19,8 +19,9 @@ Rules (in/out projection convention):
   KV caches (B, S, H, D)            -> (batch | None, data-if-B-unsharded, model-on-H, None)
 
 A path is the tuple of keys from the root to a leaf: a dict key (str) or a
-list or tuple index (int), as `infer_*` build them. Their consumer, the dry
-run over meta-device stand-ins, is not ported yet (ROADMAP A12).
+list or tuple index (int), as `infer_*` build them. Their consumer is the
+dry run (`repro_torch.launch.dryrun`): the per-rank bytes of its
+``spec_argument_bytes_per_rank``.
 """
 from __future__ import annotations
 

@@ -20,9 +20,13 @@ snapshots ``(·, d/model)``, a dim that does not divide its axis whole.
 
 How it runs: a module fixture draws every case's streams with JAX, starts
 the ranks (spawned: they never import JAX, nor does this module at its top
-level), computes the unsharded references while they run, and joins them
-within `DEADLINE` seconds, killing them past it. Each rank runs every case
-on every mesh and writes its results to a file the fixture reads.
+level), computes the unsharded references while they run, and joins them.
+Each rank runs every case on every mesh, marks its progress after each one,
+and writes its results to a file the fixture reads. The ranks' time is
+mostly gloo's latency (some 10,000 small collectives a mesh a rank, ~0.5–1
+ms each on an idle machine, several ms on a loaded one), so the join waits
+while they make progress: it kills them after `STALL` seconds without a
+finished case, or `DEADLINE` seconds in all.
 """
 import functools
 import os
@@ -40,9 +44,9 @@ torch.set_num_threads(1)
 
 WORLD = 4
 MESHES = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
-#: seconds the ranks get in all; a collective that hangs raises after the
-#: group's own 60 s
-DEADLINE = 240
+#: seconds the ranks may go without finishing a case (a collective that
+#: hangs raises after the group's own 60 s), and seconds they get in all
+STALL, DEADLINE = 150, 900
 N, D, SIGMA, ZETA = 8, 8, 0.2, 2.0
 
 RULES = {"asgd": ("VanillaASGD", {}),
@@ -312,6 +316,12 @@ class _Inputs(dict):
         return self[name]
 
 
+def _progress(tmp, rank):
+    """Mark one finished piece of a rank's work (one byte a piece)."""
+    with open(f"{tmp}/rank{rank}.progress", "ab") as f:
+        f.write(b".")
+
+
 def _rank_main(rank, tmp):
     """One rank: every case on every mesh, then (ranks 0 and 1) the train
     driver on a 2-rank group; results or the traceback into `tmp`."""
@@ -327,12 +337,15 @@ def _rank_main(rank, tmp):
             world_size=WORLD, timeout=timedelta(seconds=60))
         from repro_torch.sharding.rules import build_mesh
         out["mesh_checks"] = _mesh_checks(tmp)
+        _progress(tmp, rank)
         for mname, shape in MESHES.items():
             mesh = build_mesh(shape, ("data", "model"))
             for name, case in CASES.items():
                 out[mname, name] = _port_run(case, inputs[name], mesh)
+                _progress(tmp, rank)
             for name, case in LAYOUT_CASES.items():
                 out[mname, name] = _layout_run(case, inputs[name], mesh)
+                _progress(tmp, rank)
         dist.destroy_process_group()
         if rank < 2:
             dist.init_process_group(
@@ -340,6 +353,7 @@ def _rank_main(rank, tmp):
                 world_size=2, timeout=timedelta(seconds=60))
             ck = f"{tmp}/train_ckpt"
             first = _train(TRAIN + ["--steps", "10", "--ckpt-dir", ck])
+            _progress(tmp, rank)
             second = _train(TRAIN + ["--steps", "20", "--ckpt-dir", ck])
             out["train"] = (second[0], len(first[1]) + len(second[1]))
             dist.destroy_process_group()
@@ -502,13 +516,24 @@ def _jax_run(case):
         k_batch=case["K"], layout=case["layout"], **common))
 
 
+def _done(tmp):
+    """Pieces of work the ranks have finished, in all."""
+    paths = (f"{tmp}/rank{r}.progress" for r in range(WORLD))
+    return sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+
+
 def _join(procs, tmp, t0):
-    """Wait for the ranks until `DEADLINE`; a rank that fails or a rank
-    still running past it ends them all."""
+    """Wait for the ranks while they make progress: a rank that fails, no
+    finished piece of work for `STALL` seconds, or `DEADLINE` seconds in
+    all, ends them all."""
+    done, seen = _done(tmp), time.time()
     while True:
         codes = [p.exitcode for p in procs]
         bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-        late = time.time() - t0 > DEADLINE
+        now = time.time()
+        if _done(tmp) != done:
+            done, seen = _done(tmp), now
+        late = now - seen > STALL or now - t0 > DEADLINE
         if bad or late or all(c == 0 for c in codes):
             break
         time.sleep(0.2)
@@ -519,7 +544,8 @@ def _join(procs, tmp, t0):
     if bad or late:
         errs = [open(f"{tmp}/rank{r}.err").read()
                 for r in range(WORLD) if os.path.exists(f"{tmp}/rank{r}.err")]
-        pytest.fail(("ranks past the deadline" if late else
+        pytest.fail((f"ranks stalled ({done} pieces done in "
+                     f"{now - t0:.0f} s)" if late else
                      f"ranks {bad} failed") + "\n" + "\n".join(errs[:1]))
 
 
