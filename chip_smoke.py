@@ -129,7 +129,7 @@ result line):
      heads, 4 kv heads, d_ff 11,008, vocab 64,000) cut to one layer (11
      leaves, 435,171,328 numbers), on the LM task at n = 8 clients, batch
      8, seq 256 through the tree layout with int8 tree caches and an int8
-     history ring (51 rows), 24 ticks at lr 0.1, the launch counts added
+     history ring (51 rows), 12 ticks at lr 0.1, the launch counts added
      to the totals: (a) the leaf count and numel, the eval loss at w0
      within 0.5 of ln 64,000, a prefill of 16 tokens carried into a
      decode cache and 16 decode steps against the forward pass within
@@ -205,6 +205,18 @@ result line):
      plain step's max_memory_allocated, the kernels' peak printed beside
      it; (c) one production record (yi-9b, train_4k, single pod) printed;
      at most 30 s;
+  4k. the model laid out by the specs (`repro_torch.sharding.place`,
+     DTensors) over an NCCL group of one rank on the (1, 1) mesh of
+     `make_host_mesh`: (a) the AFL train step at 4h (b)'s cut (yi-9b's
+     widths, one layer, n = 8, int8 tree caches, batch 8 × seq 256), ACE
+     and ACED, placed by `place_train` against unplaced, in turns
+     (unplaced, placed, placed, unplaced): the new parameters and losses
+     bit for bit (max |diff| printed), both quant kernels launched inside
+     the placed steps, ms a step each way (DTensor's host overhead);
+     (b) gemma2-2b at its published size (4h's served model), eight
+     `decode_step`s placed by `place_decode` against unplaced: the argmax
+     tokens equal, max |diff| of the logits and ms a step printed; at most
+     40 s;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -1850,10 +1862,11 @@ def tree_phase(torch, ops, task, dev, card, totals, flat_w, flat_tick,
 # (mamba,) stage, so two stages and the model-level shared block. Both on
 # the LM task at launch/train.py's defaults (n = 8 clients, batch 8, seq 256
 # — one SSD chunk —, 2^18 tokens; beta = 5, so tau_max = 50 and a ring of 51
-# rows; lr = sqrt_nt_schedule(0.5, 8, 200) = 0.1, the first 24 ticks), with
-# int8 tree caches and an int8 history ring
+# rows; lr = sqrt_nt_schedule(0.5, 8, 200) = 0.1, the first 12 ticks: 24
+# until phase 4k came, which took the time this half gives back), with int8
+# tree caches and an int8 history ring
 LM_TASK = dict(n_clients=8, batch=8, seq=256, n_tokens=1 << 18, seed=0)
-LM_STEPS, LM_TICKS, LM_LR_SCALE = 200, 24, 0.5
+LM_STEPS, LM_TICKS, LM_LR_SCALE = 200, 12, 0.5
 # phase: (arch, leaves, numbers, reckoned peak GB allocated, decode from a
 # prefill's K/V — an SSM keeps no prefill state, so 4g decodes from the
 # start)
@@ -1951,7 +1964,7 @@ def lm_phase(torch, ops, dev, card, totals, phase="4f"):
     decode against forward; (d) quantize_rows and dequantize_rows against
     their plain versions at every leaf view of the tree by 1 and 8 rows,
     timed at the embedding's one row; (b) ACE int8 K = 1 and ACED int8
-    K = 3 (int8 tree caches, an int8 ring, 24 ticks), each graph run bit
+    K = 3 (int8 tree caches, an int8 ring, 12 ticks), each graph run bit
     for bit with its eager run (model, caches, outputs), finite, both
     quant kernels launched, eval losses at w0 and at the end, peak memory;
     (c) ACE again with the plain versions (no kernel, within 1e-4); (e)
@@ -2919,6 +2932,169 @@ def dryrun_phase(torch, ops, dev, card, totals):
     return took
 
 
+# --- phase 4k: the model laid out by the specs ---------------------------------
+
+# (a) the train steps a rule, (b) gemma2-2b's decode: batch, cache length,
+# steps; the phase's budget
+PLACED_STEPS = 3
+PLACED_DECODE = (4, 64, 8)
+PLACED_BUDGET_S = 40.0
+
+
+def placed_phase(torch, ops, dev, card, totals):
+    """The model, the AFL train step and decode laid out by JAX's specs
+    (`place_train`, `place_decode`: DTensors over `make_host_mesh()`'s
+    (1, 1) mesh of an NCCL group of one rank, initialised here as 4i's is).
+    At one rank every placement is whole, so the placed path must give the
+    unplaced numbers bit for bit while it runs every DTensor op, the
+    kernels on the local shards and the collectives on their groups. (a)
+    ACE and ACED with int8 tree caches at 4h (b)'s cut, `PLACED_STEPS`
+    steps from one init, unplaced, placed, placed, unplaced: parameters and
+    losses bit for bit, quantize_rows and dequantize_rows launched by the
+    placed steps, ms a step each way; (b) gemma2-2b at its published size,
+    `PLACED_DECODE` decode steps from an empty cache, unplaced then placed:
+    the fed-back argmax tokens equal, the logits' max |diff| and ms a step
+    printed. At most `PLACED_BUDGET_S`; the group is destroyed at the
+    end."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs.registry import afl_config, get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.distributed import make_afl_train_step
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.sharding import place
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1), f"mesh {tuple(mesh.shape)}")
+        cfg = lm_config("4f")
+        model = build_model(cfg)
+        n, B, L = LM_TASK["n_clients"], TRAIN_BATCH, TRAIN_SEQ
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (PLACED_STEPS, B, L + 1),
+                             generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        batches = [{"tokens": t[:, :-1].contiguous(),
+                    "targets": t[:, 1:].contiguous()} for t in toks]
+        del toks
+        for algo in TRAIN_RULES:
+            aflc = afl_config("yi-9b", algorithm=algo, n_clients=n)
+            check(aflc.cache_dtype == "int8", "placed: yi-9b's cache is "
+                  "int8")
+            init_fn, step_fn = make_afl_train_step(model.loss_fn, aflc,
+                                                   sgd(0.1))
+
+            def run(placed):
+                state, bs = init_fn(params), batches
+                if placed:
+                    state, first = place.place_train(state, batches[0], mesh)
+                    check(place.tree_mesh(state.params) is not None,
+                          "placed: the parameters are not placed")
+                    bs = [first] + [place.place_batch(b, mesh)
+                                    for b in batches[1:]]
+                torch.cuda.synchronize()
+                stamps, losses = [time.perf_counter()], []
+                for s, b in enumerate(bs):
+                    state, m = step_fn(state, b, s % n, s)
+                    losses.append(m["loss"])
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+                new = [x.cpu() for x in leaves(place.full_tree(state.params))]
+                del state
+                return new, np.diff(stamps), [float(x) for x in losses]
+
+            runs = []
+            for placed in (False, True, True, False):
+                free(torch)
+                out, counts = counted(ops, totals, lambda: run(placed))
+                if placed:
+                    for kernel in TREE_KERNELS:
+                        check(counts[kernel] > 0, f"placed {algo}: {kernel} "
+                              "not launched by the placed steps")
+                runs.append((placed, out, counts))
+            (_, (ref, ref_s, ref_l), _), (_, (got, got_s, got_l), pc) = \
+                runs[0], runs[1]
+            diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            same = (all(torch.equal(a, b) for a, b in zip(got, ref))
+                    and got_l == ref_l)
+            check(same, f"placed {algo}: the placed steps end {diff} from "
+                  f"the unplaced ones (losses {got_l} against {ref_l})")
+            ms = {p: [1e3 * float(np.mean(o[1][1:])) for q, o, _ in runs
+                      if q == p] for p in (False, True)}
+            print(f"placed train step {algo} int8 at yi-9b's widths (1 "
+                  f"layer, n={n}, batch {B} x seq {L}), {PLACED_STEPS} steps "
+                  f"on the (1, 1) mesh: parameters and losses bit for bit "
+                  f"with the unplaced steps: {same} (max |diff| {diff:.3e}); "
+                  f"ms a step in turns unplaced {ms[False][0]:.1f}, placed "
+                  f"{ms[True][0]:.1f}, placed {ms[True][1]:.1f}, unplaced "
+                  f"{ms[False][1]:.1f} after each run's first step "
+                  f"({1e3 * ref_s[0]:.1f} and {1e3 * got_s[0]:.1f} in the "
+                  f"first two runs); "
+                  f"launches of a placed run {pc} [{card}]")
+            del runs, ref, got
+        del params, batches, model
+        free(torch)
+
+        cfg = get_config("gemma2-2b")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        Bd, S, T = PLACED_DECODE
+        first = torch.randint(0, cfg.vocab_size, (Bd,), device=dev,
+                              generator=torch.Generator(device=dev
+                                                        ).manual_seed(1),
+                              dtype=torch.int64).to(torch.int32)
+
+        def decode(placed):
+            cache, p, tk = model.init_cache(Bd, S, device=dev), params, first
+            if placed:
+                p, cache, tk = place.place_decode(params, cache, first, mesh)
+            toks, logits_all = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pos in range(T):
+                logits, cache = model.decode_step(p, cache, tk, pos)
+                if placed:
+                    logits = logits.full_tensor()
+                nxt = logits.argmax(-1).to(torch.int32)
+                toks.append(nxt)
+                logits_all.append(logits.float())
+                tk = place.place_batch(nxt, mesh) if placed else nxt
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return (torch.stack(toks).cpu(), torch.stack(logits_all).cpu(),
+                    1e3 * secs / T)
+
+        (ref_t, ref_lg, ref_ms), (got_t, got_lg, got_ms) = (
+            decode(False), decode(True))
+        lg_diff = float((got_lg - ref_lg).abs().max())
+        check(torch.equal(got_t, ref_t), f"placed decode: tokens {got_t} "
+              f"against the unplaced {ref_t}")
+        print(f"placed decode gemma2-2b at its published size (batch {Bd}, "
+              f"cache {S}, {T} steps from an empty cache) on the (1, 1) "
+              f"mesh: argmax tokens equal to the unplaced steps': True; "
+              f"logits max |diff| {lg_diff:.3e} (bit for bit: "
+              f"{lg_diff == 0.0}); ms a step unplaced {ref_ms:.1f}, placed "
+              f"{got_ms:.1f} [{card}]")
+        del params, model
+        free(torch)
+    finally:
+        dist.destroy_process_group()
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    took = time.perf_counter() - t_start
+    check(took <= PLACED_BUDGET_S, f"phase 4k took {took:.1f} s")
+    return took
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3154,6 +3330,11 @@ def main() -> int:
     print(f"phase 4j starts at {time.perf_counter() - start:.1f} s")
     took = dryrun_phase(torch, ops, dev, card, totals)
     print(f"phase 4j took {took:.1f} s")
+
+    # 4k. the model, the train step and decode laid out by the specs
+    print(f"phase 4k starts at {time.perf_counter() - start:.1f} s")
+    took = placed_phase(torch, ops, dev, card, totals)
+    print(f"phase 4k took {took:.1f} s")
 
     # 5. results
     print(f"phase 5 starts at {time.perf_counter() - start:.1f} s")

@@ -14,7 +14,10 @@ all-client aggregation possible (paper §3.4, Table a.3), with the paper's
 Under a ``("data", "model")`` mesh the flat cache is a `BlockedFlatCache`:
 this rank's block (client rows over ``data``, features over ``model``, as
 `repro.core.scan_sharded` lays JAX's out), behind `FlatCache`'s methods, so
-the rules run on it unchanged. A tree cache stays whole on every rank.
+the rules run on it unchanged. A tree cache stays whole on every rank, in
+a placed train state too (JAX's specs replicate it, ROADMAP C16): a placed
+payload is laid out as its cache leaf (`sharding.place.like`: gathered
+whole) before the leaf's ``(rows, numel)`` view.
 
 The layout-generic dispatchers at the bottom (`cache_row`,
 `cache_set_row_delta`, `cache_mean`, ...) let one rule serve both layouts.
@@ -47,6 +50,7 @@ from repro_torch.convert import _rebuild, leaves, tree_map
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.sharding.place import like
 
 INT8_MAX = 127.0
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -653,7 +657,8 @@ def _quant_leaf(g, backend=None):
     """int8 codes ``(K, *s)`` and scales ``(K,)`` of ``g (K, *s)``, one
     scale per lane over all of its leaf: `quantize_rows` on the ``(K,
     numel)`` view — the scalar scale JAX reduces over every axis but the
-    client one is that view's `row_scale`."""
+    client one is that view's `row_scale`. A placed payload comes laid out
+    as its cache leaf (the writers see to it): whole rows."""
     q, s = quantize_rows(g.float().reshape(g.shape[0], -1), backend)
     return q.reshape(g.shape), s
 
@@ -725,12 +730,13 @@ def tree_cache_set_row(cache, i, grads, backend=None):
     i = row_index(i, _tree_device(cache))
 
     def leaf(c, g):
+        g = like(g[None], c["q"])
         if "scale" in c:
-            q, s = _quant_leaf(g[None], backend)
+            q, s = _quant_leaf(g, backend)
             c["q"].index_copy_(0, i, q)
             c["scale"].index_copy_(0, i, s)
         else:
-            c["q"].index_copy_(0, i, g.to(c["q"].dtype)[None])
+            c["q"].index_copy_(0, i, g.to(c["q"].dtype))
     tree_map(leaf, cache, grads, is_leaf=is_tree_cache_leaf)
     return cache
 
@@ -761,7 +767,7 @@ def tree_cache_set_rows_delta(cache, idx, grads, valid=None, backend=None):
         return new if valid is None else torch.where(mask, new, stored)
 
     def leaf(c, g):
-        g = g.float()
+        g = like(g.float(), c["q"])
         vmask = None if valid is None else broadcast_lanes(valid, g)
         old_raw = c["q"].index_select(0, idx)
         if "scale" in c:

@@ -1,7 +1,11 @@
 """The AFL server step over a model's parameter structure — the port of
-`repro.core.distributed` (one device: the step holds the whole parameter
-structure, as the tree layout does on every rank of the sharded runner,
-`repro_torch.core.scan_sharded`).
+`repro.core.distributed`. Its state and batch are plain tensors (every
+rank holds all of them, as the tree layout does on every rank of the
+sharded runner, `repro_torch.core.scan_sharded`) or placed by JAX's specs
+(`repro_torch.sharding.place.place_train`, DTensors: parameters TP over
+``model`` and FSDP over ``data``, the batch over ``data``); the same
+`step_fn` runs both, and a placed state comes back in the placements it
+came in with.
 
 One step is one server iteration of Algorithm 1 / a.1:
   1. the arriving client's gradient of ``loss_fn`` at the current
@@ -31,6 +35,11 @@ import torch
 from repro_torch.convert import _rebuild, leaves, tree_map
 from repro_torch.core.aggregators import Arrival, make_aggregator
 from repro_torch.optim.optim import Optimizer
+from repro_torch.sharding.auto import (infer_afl_shardings,
+                                       infer_opt_shardings)
+from repro_torch.sharding.place import (distribute_tree, full_tree, like,
+                                        like_tree, placed_scope, tree_mesh)
+from repro_torch.sharding.rules import replicate
 
 _BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 
@@ -57,10 +66,18 @@ def init_afl_state(cfg, grads_like, init_grads=None,
     structure `grads_like`, on its device: `Aggregator.init_state` with the
     structure as the template (the code path the engines take). `init_grads`,
     a structure whose leaves lead with (n,), seeds the cache of a cache-init
-    rule; asgd and delay_asgd keep no state."""
-    return _rule(cfg, backend).init_state(cfg.n_clients, grads_like,
-                                          init_grads,
-                                          leaves(grads_like)[0].device)
+    rule; asgd and delay_asgd keep no state. Over placed parameters the
+    state comes back placed by `infer_afl_shardings`: the leaves they split
+    (the running sums) DTensors, the replicated ones (the tree cache, the
+    bookkeeping) whole plain tensors."""
+    state = _rule(cfg, backend).init_state(cfg.n_clients, grads_like,
+                                           init_grads,
+                                           leaves(grads_like)[0].device)
+    mesh = tree_mesh(grads_like)
+    if mesh is None:
+        return state
+    return distribute_tree(state, infer_afl_shardings(state, mesh), mesh,
+                           whole_plain=True)
 
 
 def apply_server_rule(cfg, afl_state, grads, client, t, staleness,
@@ -85,20 +102,45 @@ def make_afl_train_step(loss_fn: Callable, cfg, opt: Optimizer,
     batch, client, staleness) -> (state, metrics)``, the metrics ``loss``,
     ``grad_norm``, ``update_norm`` and ``lr_scale`` as 0-d tensors.
     ``backend="torch"`` runs the rule's cache through the plain versions of
-    the kernels (the comparison on the card)."""
+    the kernels (the comparison on the card).
+
+    Placed parameters give a placed state (`sharding.place.place_train`'s
+    layout: the optimizer state by JAX's specs, replicated leaves and the
+    step whole); on a placed state and batch the loss is summed whole,
+    each gradient comes back in its parameter's placements (the ``data``
+    gathers' reduce-scatter), the rule writes its whole tree cache from the
+    gathered payload and updates its split running sums, every leaf of the
+    new state is laid out as it came in, and the metrics are whole plain
+    tensors."""
 
     def init_fn(params):
-        return AFLTrainState(params=params, opt_state=opt.init(params),
-                             afl=init_afl_state(cfg, params, backend=backend),
-                             step=torch.zeros((), dtype=torch.int32,
-                                              device=leaves(params)[0].device))
+        state = AFLTrainState(params=params, opt_state=opt.init(params),
+                              afl=init_afl_state(cfg, params,
+                                                 backend=backend),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device=leaves(params)[0].device))
+        mesh = tree_mesh(params)
+        if mesh is None:
+            return state
+        return state._replace(opt_state=distribute_tree(
+            state.opt_state, infer_opt_shardings(state.opt_state, mesh), mesh,
+            whole_plain=True))
 
     def step_fn(state: AFLTrainState, batch, client, staleness):
+        with placed_scope(state.params):
+            new, metrics = _step(state, batch, client, staleness)
+        if tree_mesh(state.params) is None:
+            return new, metrics
+        return like_tree(new, state), full_tree(metrics)
+
+    def _step(state, batch, client, staleness):
         xs = [p.detach().requires_grad_(True) for p in leaves(state.params)]
         with torch.enable_grad():
-            loss = loss_fn(_rebuild(state.params, iter(xs)), batch)
-            grads = _rebuild(state.params,
-                             iter(torch.autograd.grad(loss, xs)))
+            loss = replicate(loss_fn(_rebuild(state.params, iter(xs)),
+                                     batch))
+            grads = _rebuild(state.params, iter(
+                like(g, p) for g, p in zip(torch.autograd.grad(loss, xs),
+                                           xs)))
         with torch.no_grad():
             new_afl, u, scale = apply_server_rule(
                 cfg, state.afl, grads, client, state.step, staleness, backend)

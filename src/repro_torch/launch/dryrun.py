@@ -17,30 +17,43 @@ the kernel wrappers would launch their kernels, so the traced step takes
 
 The production meshes are axis sizes, ``{"data": 16, "model": 16}`` and
 ``{"pod": 2, "data": 16, "model": 16}`` with ``--multi-pod``
-(`launch.mesh.make_production_mesh` needs a live world of 256 ranks). Two
+(`launch.mesh.make_production_mesh` needs a live world of 256 ranks). The
+five attention-only decoders (yi-9b, llama3-405b, gemma2-2b, qwen2-vl-7b,
+minicpm3-4b; `sharding.place.has_placed_path`) trace placed: under a fake
+process group of the mesh's ranks each argument is a DTensor laid out by
+its spec (`sharding.place`, as JAX's ``in_shardings``), holding only this
+rank's local shard, and the step runs the placed model (TP over
+``model``, FSDP over ``data``). The other five archs (the MoE FFN, the
+SSD, zamba2's shared block, the encoder-decoder: ROADMAP A13b) trace with
+every argument whole, and their records say ``"sharded": false``. Two
 argument sizes per rank are reported:
 
   * ``spec_argument_bytes_per_rank`` — params, optimizer state, AFL state
     and batch (or cache and tokens), each leaf divided as the
     ``sharding.auto.infer_*_shardings`` specs say: the JAX package's layout
     (its ``memory_analysis`` argument size);
-  * ``held_argument_bytes_per_rank`` — what the port holds per rank today:
-    every argument whole. `sharding.rules.shard` and `replicate` hand their
-    argument back, so the model, the train step and decode replicate their
-    parameters and activations on every rank; only the staleness runner's
-    flat server state is blocked (`core.cache.BlockedFlatCache`), and no
-    mode here holds one.
+  * ``held_argument_bytes_per_rank`` — what a rank of the port holds: for
+    a placed arch the bytes of its local shards (equal to the specs' to the
+    byte), for the others every argument whole.
 
 ``peak_bytes_per_rank`` is the MemTracker peak of the whole traced step,
 arguments included, at the probe depths (`probe_costs`), extrapolated to
-full depth; FLOPs and collective bytes are extrapolated the same way. Since
-every rank computes the whole step, ``t_compute`` and ``t_memory`` divide
-the whole step's analytic FLOPs and bytes (`launch.analytic`) by one card's
-peaks; ``spec_t_compute`` and ``spec_t_memory`` divide by the chips, as the
-JAX package's layout would. ``fits_one_card`` says whether the held
-arguments and the peak stay within the card's 80 GB. The traced step does
-not depend on the mesh (every argument is whole), so `main` traces each
-(arch, shape) once and the second mesh's record reuses the probes.
+full depth; collective bytes (``probe_coll_per_rank``, by kind in
+``probe_coll_detail``: DTensor's redistributions, counted by
+`_CommBytes`) are extrapolated the same way. A placed trace's peak leaves
+out the global-shape stand-ins DTensor's sharding propagation makes
+(`_shard_tracker`), and its FLOPs (``probe_flops_placed``) mix two
+scopes: FlopCounterMode sees a DTensor op at its global shapes, and the
+attention the model runs on local shards at this rank's. A
+replicated trace's FLOPs are ``probe_flops_per_rank``: every rank computes
+the whole step. ``t_compute`` and ``t_memory`` divide the analytic FLOPs
+and bytes (`launch.analytic`) by one card's peaks and, for a placed step,
+by the chips; ``spec_t_compute`` and ``spec_t_memory`` always divide by the
+chips, as the JAX package's layout would. ``fits_one_card`` says whether
+the held arguments and the peak stay within the card's 80 GB. A
+replicated trace does not depend on the mesh, so `main` traces such an
+(arch, shape) once and the second mesh's record reuses its probes; a
+placed one is traced on each mesh.
 
 Peaks are the NVIDIA H100 SXM5 80GB HBM3 datasheet's (dense), chosen by the
 config's dtype. JAX's ``--keep-hlo`` has no counterpart (there is no HLO)
@@ -75,6 +88,8 @@ from repro_torch.sharding.auto import (infer_afl_shardings,
                                        infer_decode_cache_shardings,
                                        infer_opt_shardings,
                                        infer_params_shardings)
+from repro_torch.sharding.place import (contiguous_stride, has_placed_path,
+                                        local_shape_offset, to_placements)
 from repro_torch.sharding.rules import axis_sizes, use_rules
 
 #: the card the roofline is drawn for, and its datasheet peaks (dense)
@@ -189,6 +204,74 @@ def _fake(tree, device):
                                       device=device), tree)
 
 
+def device_mesh(mesh, device_type: str):
+    """A `DeviceMesh` of the axis sizes `mesh` over the live (fake) world,
+    its dims named as the axes."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(mesh.values()),
+                            mesh_dim_names=tuple(mesh))
+
+
+def _fake_placed(tree, specs, dmesh, device, whole_plain=False):
+    """Stand-ins for a meta tree placed by `specs` on `dmesh`: each rank's
+    local shard made on `device` (inside the fake mode, so the memory
+    tracker sees only the shard) and wrapped as a DTensor of the global
+    shape; with `whole_plain`, a leaf its spec splits over no rank a plain
+    tensor (as `sharding.place.distribute_tree` holds it)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(m, spec):
+        placements = to_placements(spec, dmesh)
+        if whole_plain and all(p.is_replicate() for p in placements):
+            return torch.empty(tuple(m.shape), dtype=m.dtype, device=device)
+        shape = tuple(m.shape)
+        local, _ = local_shape_offset(shape, dmesh, placements)
+        x = torch.empty(tuple(local), dtype=m.dtype, device=device)
+        return DTensor.from_local(x, dmesh, placements, run_check=False,
+                                  shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    if isinstance(tree, dict):
+        return {k: _fake_placed(v, specs[k], dmesh, device, whole_plain)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_fake_placed(x, s, dmesh, device, whole_plain)
+                            for x, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fake_placed(x, s, dmesh, device, whole_plain)
+                          for x, s in zip(tree, specs))
+    return one(tree, specs) if isinstance(tree, torch.Tensor) else tree
+
+
+def _fake_args(args, specs, dmesh, device):
+    """A mode's arguments placed as a caller of the placed path holds them
+    (`sharding.place.place_train` / `place_prefill` / `place_decode`): the
+    parameters, batch, tokens and decode cache as DTensors, the train
+    state's other leaves split where their specs split them and else whole
+    plain tensors, the scalar arguments (client, staleness, position)
+    plain."""
+    out = []
+    for a, s in zip(args, specs):
+        if isinstance(a, AFLTrainState):
+            params = _fake_placed(a.params, s.params, dmesh, device)
+            rest = _fake_placed(a._replace(params=None),
+                                s._replace(params=None), dmesh, device,
+                                whole_plain=True)
+            out.append(rest._replace(params=params))
+        elif isinstance(a, torch.Tensor) and a.dim() == 0:
+            out.append(torch.empty((), dtype=a.dtype, device=device))
+        else:
+            out.append(_fake_placed(a, s, dmesh, device))
+    return tuple(out)
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the local shards of `tree`'s DTensors (and of its plain
+    tensors whole)."""
+    return sum(_nbytes(x.to_local() if hasattr(x, "to_local") else x)
+               for x, _ in _walk(tree))
+
+
 # ---------------------------------------------------------------------------
 # The arguments of each mode (meta trees) and their specs
 # ---------------------------------------------------------------------------
@@ -292,7 +375,8 @@ def _comm_mode():
 @contextlib.contextmanager
 def fake_world(world: int):
     """A fake process group of `world` ranks (this process rank 0) for the
-    length of the block, unless a group is already initialised."""
+    length of the block, unless a group is already initialised; DTensor's
+    caches are emptied when it ends (`_forget_meshes`)."""
     import torch.distributed as dist
     if dist.is_initialized():
         yield
@@ -304,22 +388,84 @@ def fake_world(world: int):
         yield
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
 
 
-def measure(args, run, *, mesh=None) -> Dict:
+def _forget_meshes():
+    """Empty DTensor's caches of sharding decisions and redistribution
+    plans: they key on a mesh by its shape and names, and would hand a later
+    world's mesh the groups of one destroyed."""
+    import torch.distributed.tensor._redistribute as redistribute
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+    _clear_sharding_prop_cache()
+    plans = getattr(redistribute, "_gen_transform_infos", None)
+    if hasattr(plans, "cache_clear"):
+        plans.cache_clear()
+    getattr(redistribute, "_planner_cache", {}).clear()
+
+
+def _shard_tracker():
+    """A `MemTracker` for placed steps: DTensor's sharding propagation
+    infers each op's output by running it on global-shape stand-ins, fake
+    tensors that the tracker would count and that a real step never
+    allocates (its propagation runs under a fake mode of its own); those
+    are left out, so the peak is this rank's shards and buffers."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    class _ShardTracker(MemTracker):
+        def __init__(self):
+            super().__init__()
+            self._inferring = 0
+
+        def _track(self, reftype, t):
+            if not self._inferring:
+                super()._track(reftype, t)
+
+        def __enter__(self):
+            infer = ShardingPropagator._propagate_tensor_meta_non_cached
+            tracker = self
+
+            @functools.wraps(infer)
+            def untracked(prop, op_schema):
+                tracker._inferring += 1
+                try:
+                    return infer(prop, op_schema)
+                finally:
+                    tracker._inferring -= 1
+
+            self._infer = infer
+            ShardingPropagator._propagate_tensor_meta_non_cached = untracked
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            ShardingPropagator._propagate_tensor_meta_non_cached = self._infer
+            return super().__exit__(*exc)
+
+    return _ShardTracker()
+
+
+def measure(args, run, *, mesh=None, specs=None) -> Dict:
     """Run ``run(*fake args)`` once over fake tensors of `args`' meta trees
     -> ``{"flops", "peak_bytes", "coll_bytes", "coll_detail",
     "coll_counts"}``: FlopCounterMode's FLOPs, MemTracker's peak on the
     trace device (the arguments included, made inside the tracker) and the
-    collectives' bytes by kind, under `use_rules(mesh)` when given."""
+    collectives' bytes by kind, under `use_rules(mesh)` when given. With
+    `specs` (and `mesh`, under a world of its ranks) the arguments are
+    placed: each a DTensor over the mesh holding only its local shard, the
+    peak this rank's, the collectives DTensor's; FlopCounterMode counts a
+    DTensor's op at its global shapes and a plain op (the attention on
+    local shards) at this rank's, so a placed step's FLOPs mix the two."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
     device = trace_device()
-    tracker = MemTracker()
+    dmesh = device_mesh(mesh, device) if specs is not None else None
+    tracker = MemTracker() if specs is None else _shard_tracker()
     rules = use_rules(mesh) if mesh is not None else contextlib.nullcontext()
     with FakeTensorMode(), tracker, rules:
-        fake = _fake(args, device)
+        fake = (_fake(args, device) if specs is None
+                else _fake_args(args, specs, dmesh, device))
         with _comm_mode() as comm, FlopCounterMode(display=False) as fc:
             run(*fake)
     peak = sum(snap.get("Total", 0) for dev, snap in
@@ -331,11 +477,19 @@ def measure(args, run, *, mesh=None) -> Dict:
             "coll_counts": int(comm.get_total_counts())}
 
 
+def placed(cfg, mesh) -> bool:
+    """Whether a trace on `mesh` places its arguments: a mesh is given and
+    `cfg`'s model has a placed path (the five attention-only decoders; the
+    other archs trace with every argument whole)."""
+    return mesh is not None and has_placed_path(cfg)
+
+
 def trace_train(arch, shape: InputShape, mesh=None, *, algo="ace",
                 remat="full", lr=0.01, cfg=None, fsdp=True,
                 cache_dtype=None, **afl_over):
     """One AFL train step (`make_afl_train_step` with the arch's
-    `afl_config`, ``backend="torch"``) over fake tensors -> (`measure`'s
+    `afl_config`, ``backend="torch"``) over fake tensors, placed by the
+    specs on `mesh` where the arch has a placed path (`placed`) -> (`measure`'s
     record, the arguments' meta trees and specs, cfg)."""
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     over = {"algorithm": algo, **afl_over}
@@ -347,7 +501,9 @@ def trace_train(arch, shape: InputShape, mesh=None, *, algo="ace",
     _, step_fn = make_afl_train_step(
         lambda p, b: model.loss_fn(p, b, remat=remat), aflc, sgd(lr),
         backend="torch")
-    return measure(args, step_fn, mesh=mesh), (args, specs), cfg
+    return (measure(args, step_fn, mesh=mesh,
+                    specs=specs if placed(cfg, mesh) else None),
+            (args, specs), cfg)
 
 
 def trace_prefill(arch, shape: InputShape, mesh=None, cfg=None):
@@ -355,7 +511,9 @@ def trace_prefill(arch, shape: InputShape, mesh=None, cfg=None):
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     model = build_model(cfg)
     args, specs = prefill_args(cfg, shape, mesh)
-    return measure(args, model.prefill, mesh=mesh), (args, specs), cfg
+    return (measure(args, model.prefill, mesh=mesh,
+                    specs=specs if placed(cfg, mesh) else None),
+            (args, specs), cfg)
 
 
 def trace_decode(arch, shape: InputShape, mesh=None, cfg=None):
@@ -364,7 +522,9 @@ def trace_decode(arch, shape: InputShape, mesh=None, cfg=None):
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     model = build_model(cfg)
     args, specs = decode_args(cfg, shape, mesh)
-    return measure(args, model.decode_step, mesh=mesh), (args, specs), cfg
+    return (measure(args, model.decode_step, mesh=mesh,
+                    specs=specs if placed(cfg, mesh) else None),
+            (args, specs), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -394,10 +554,10 @@ _TERMS = ("flops", "peak_bytes", "coll_bytes")
 
 def probe_costs(arch, shape: InputShape, mesh=None, *, algo="ace",
                 remat="full", cfg=None, **train_kw) -> Dict:
-    """FLOPs, peak bytes and collective bytes per rank, traced at one and
-    two repeats of each stage (and of the encoder) and extrapolated
-    linearly to the full depth of `cfg` (default: the arch's bf16 config
-    for `shape`), as JAX's probes are."""
+    """FLOPs, peak bytes and collective bytes per rank (and those by kind,
+    ``coll_detail``), traced at one and two repeats of each stage (and of
+    the encoder) and extrapolated linearly to the full depth of `cfg`
+    (default: the arch's bf16 config for `shape`), as JAX's probes are."""
     base_cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     n_stage = len(base_cfg.stages)
     reps_full = [r for _, r in base_cfg.stages]
@@ -410,18 +570,24 @@ def probe_costs(arch, shape: InputShape, mesh=None, *, algo="ace",
 
     p1 = probe([1] * n_stage, 1 if enc_full else 0)
     terms = {k: p1[k] for k in _TERMS}
+    detail = dict(p1["coll_detail"])
+
+    def extend(times, p2):
+        for k in terms:
+            terms[k] += times * (p2[k] - p1[k])
+        for k in detail:
+            detail[k] += times * (p2["coll_detail"][k] - p1["coll_detail"][k])
+
     for s in range(n_stage):
         reps = [1] * n_stage
         reps[s] = 2
-        p2 = probe(reps, 1 if enc_full else 0)
-        for k in terms:
-            terms[k] += (reps_full[s] - 1) * (p2[k] - p1[k])
+        extend(reps_full[s] - 1, probe(reps, 1 if enc_full else 0))
     if enc_full:
-        p2 = probe([1] * n_stage, 2)
-        for k in terms:
-            terms[k] += (enc_full - 1) * (p2[k] - p1[k])
+        extend(enc_full - 1, probe([1] * n_stage, 2))
     # linear extrapolation can go slightly negative on tiny terms — clamp
-    return {k: max(v, 0.0) for k, v in terms.items()}
+    out = {k: max(v, 0.0) for k, v in terms.items()}
+    out["coll_detail"] = {k: max(v, 0.0) for k, v in detail.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +597,10 @@ def probe_costs(arch, shape: InputShape, mesh=None, *, algo="ace",
 def argument_bytes(arch, shape: InputShape, mesh, *, algo="ace", cfg=None,
                    fsdp=True, cache_dtype=None):
     """``(spec bytes per rank, held bytes per rank, cfg)`` of a mode's
-    arguments on the mesh of axis sizes `mesh`."""
+    arguments on the mesh of axis sizes `mesh`: the specs' division of each
+    leaf, and what a rank holds — for an arch with a placed path the bytes
+    of its local shards, placed over a fake world of the mesh's ranks (fake
+    CPU tensors: no byte allocated), else every argument whole."""
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     sizes = axis_sizes(mesh)
     if shape.mode == "train":
@@ -444,16 +613,24 @@ def argument_bytes(arch, shape: InputShape, mesh, *, algo="ace", cfg=None,
         args, specs = prefill_args(cfg, shape, mesh)
     else:
         args, specs = decode_args(cfg, shape, mesh)
-    return tree_bytes(args, specs, sizes), tree_bytes(args), cfg
+    held = tree_bytes(args)
+    if placed(cfg, mesh):
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with fake_world(math.prod(sizes.values())):
+            dmesh = device_mesh(mesh, "cpu")
+            with FakeTensorMode():
+                held = local_bytes(_fake_args(args, specs, dmesh, "cpu"))
+    return tree_bytes(args, specs, sizes), held, cfg
 
 
 def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
             remat="full", probes: bool = True, variant: str = "",
             cache_dtype: Optional[str] = None,
             probe_memo: Optional[Dict] = None) -> Dict:
-    """One record. `probe_memo` (a dict) keeps each (arch, shape, algo,
-    remat, cache dtype)'s probes for the next mesh: the traced step does
-    not depend on the mesh, since the port replicates every argument."""
+    """One record. `probe_memo` (a dict) keeps each (arch, shape, mesh,
+    algo, remat, cache dtype)'s probes: an arch without a placed path
+    traces the same step on every mesh, so its probes are reused for the
+    next mesh; a placed arch's trace depends on the mesh."""
     shape = INPUT_SHAPES[shape_name]
     if not supports_shape(arch, shape_name):
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
@@ -463,10 +640,12 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
     t0 = time.time()
     spec_b, held_b, cfg = argument_bytes(arch, shape, mesh, algo=algo,
                                          cache_dtype=cache_dtype)
+    sharded = placed(cfg, mesh)
     rec = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "mode": shape.mode, "algo": algo if shape.mode == "train" else None,
         "variant": variant, "chips": int(chips), "mesh": mesh,
+        "sharded": sharded,
         "trace_device": trace_device(), "hardware": HARDWARE,
         "spec_argument_bytes_per_rank": int(spec_b),
         "held_argument_bytes_per_rank": int(held_b),
@@ -483,7 +662,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
     rec["analytic_flops_total"] = ana["flops"]
     rec["analytic_bytes_total"] = ana["bytes"]
     if probes:
-        key = (arch, shape_name, algo, remat, cache_dtype)
+        key = (arch, shape_name, multi_pod if sharded else None, algo, remat,
+               cache_dtype)
         pr = (probe_memo or {}).get(key)
         if pr is None:
             with fake_world(chips):
@@ -491,21 +671,27 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
                                  cache_dtype=cache_dtype)
             if probe_memo is not None:
                 probe_memo[key] = pr
-        rec["probe_flops_per_rank"] = pr["flops"]
+        if sharded:
+            # DTensor ops at global shapes, local-shard attention at a
+            # rank's: neither the whole step's count nor a rank's
+            rec["probe_flops_placed"] = pr["flops"]
+        else:
+            rec["probe_flops_per_rank"] = pr["flops"]
         rec["peak_bytes_per_rank"] = pr["peak_bytes"]
         rec["probe_coll_per_rank"] = pr["coll_bytes"]
+        rec["probe_coll_detail"] = pr["coll_detail"]
         rec["peak_path"] = "plain versions (backend='torch')"
     rec["trace_s"] = round(time.time() - t0, 1)
 
-    # roofline terms (seconds a step, per rank): every rank computes the
-    # whole step (replicated), so the port's terms divide the whole step's
-    # analytic counts by one card; spec_* divide by the chips as JAX's
-    # layout would
+    # roofline terms (seconds a step, per rank): a placed step's work is
+    # divided over the chips (spec_*), a replicated one's is the whole
+    # step's on every rank
     peak = PEAK_FLOPS[cfg.dtype]
+    div = chips if sharded else 1
     rec.update({
         "peak_flops": peak, "hbm_bw": HBM_BW, "nvlink_bw": NVLINK_BW,
-        "t_compute": ana["flops"] / peak,
-        "t_memory": ana["bytes"] / HBM_BW,
+        "t_compute": ana["flops"] / div / peak,
+        "t_memory": ana["bytes"] / div / HBM_BW,
         "t_collective": rec.get("probe_coll_per_rank", 0.0) / NVLINK_BW,
         "spec_t_compute": ana["flops"] / chips / peak,
         "spec_t_memory": ana["bytes"] / chips / HBM_BW,
@@ -521,11 +707,13 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
                rec.get("peak_bytes_per_rank", 0.0))
     rec["fits_one_card"] = held <= CARD_BYTES
     if not rec["fits_one_card"]:
+        why = ("its arguments laid out by JAX's specs" if sharded else
+               f"the port replicates what JAX's layout splits to "
+               f"{spec_b / 1e9:.2f} GB of arguments (no placed path, "
+               f"ROADMAP A13b)")
         rec["fit_note"] = (f"holds {held / 1e9:.1f} GB per rank (arguments "
                            f"or peak) against the card's "
-                           f"{CARD_BYTES / 1e9:.0f} GB: the port replicates "
-                           f"what JAX's layout splits to "
-                           f"{spec_b / 1e9:.2f} GB of arguments")
+                           f"{CARD_BYTES / 1e9:.0f} GB: {why}")
     return rec
 
 

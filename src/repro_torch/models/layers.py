@@ -5,12 +5,17 @@ Pure-functional: each layer is (init_fn, apply_fn) operating on param
 dicts of tensors laid out as the JAX package's (``x @ w`` with `w` of
 shape (in, out)), so that `repro_torch.convert.params_from_jax` carries a
 JAX model's parameters across as they are. The init functions draw from
-an explicit `torch.Generator` on its own device."""
+an explicit `torch.Generator` on its own device. A placed parameter (a
+DTensor, `repro_torch.sharding.place`) is gathered over ``data`` at its
+use and keeps its ``model`` split (`use_param`)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.rules import (is_placed, row_parallel, settle,
+                                        use_param)
 
 
 def truncated_normal_init(generator: torch.Generator, shape, scale, dtype,
@@ -113,8 +118,9 @@ def mlp_init(generator, d_model, d_ff, dtype, device=None):
 
 
 def mlp_apply(params, x):
-    h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
-    return h @ params["wo"]
+    h = (F.silu(x @ use_param(params["wi_gate"]))
+         * (x @ use_param(params["wi_up"])))
+    return row_parallel(h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +134,50 @@ def embed_init(generator, vocab, d_model, dtype, device=None):
 
 def embed_apply(params, tokens):
     """The rows of the table at `tokens` (`F.embedding`, whose backward
-    sums each row's gradient in a sorted segment reduction)."""
-    return F.embedding(tokens.long(), params["embedding"])
+    sums each row's gradient in a sorted segment reduction). A placed
+    table is gathered over ``data`` and looked up vocab-parallel over
+    ``model`` (`_vocab_parallel_embedding`)."""
+    table = use_param(params["embedding"])
+    if is_placed(table):
+        return _vocab_parallel_embedding(table, tokens)
+    return F.embedding(tokens.long(), table)
+
+
+def _vocab_parallel_embedding(table, tokens):
+    """The rows of a placed table at `tokens`, by hand on the local shards:
+    each rank looks up the ids its rows hold (the others give zero rows) and
+    the rows are summed over the ranks that split the vocabulary — the one
+    rank that holds a row adds exact zeros to it, so the rows are the
+    unplaced lookup's. The table's gradient is partial where the tokens are
+    split (the ``data`` ranks' batches), which the ``data`` gather's
+    backward reduce-scatters. (DTensor's own `F.embedding` rule gives a
+    masked partial whose backward it cannot redistribute.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.sharding.place import (contiguous_stride,
+                                            local_shape_offset)
+    mesh = table.device_mesh
+    tok_pl = (tokens.placements if is_placed(tokens)
+              else [Replicate()] * mesh.ndim)
+    ids = (tokens.to_local() if is_placed(tokens) else tokens).long()
+    vocab_split = [p.is_shard(0) for p in table.placements]
+    local = table.to_local(grad_placements=[
+        p if split else (Partial() if t.is_shard() else Replicate())
+        for p, t, split in zip(table.placements, tok_pl, vocab_split)])
+    _, offset = local_shape_offset(tuple(table.shape), mesh,
+                                   table.placements)
+    i = ids - offset[0]
+    inside = (i >= 0) & (i < local.shape[0])
+    rows = F.embedding(torch.clamp(i, 0, local.shape[0] - 1), local)
+    rows = torch.where(inside[..., None], rows, 0.0)
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    out = DTensor.from_local(
+        rows, mesh, [Partial() if split else t
+                     for t, split in zip(tok_pl, vocab_split)],
+        run_check=False, shape=shape, stride=contiguous_stride(shape))
+    return settle(out)
 
 
 def unembed_apply(params, x, *, logit_softcap=0.0):
     """Logits against the (tied) embedding table, as the JAX package's."""
-    logits = x @ params["embedding"].T
+    logits = x @ use_param(params["embedding"]).T
     return softcap(logits, logit_softcap)

@@ -15,6 +15,11 @@ decode:
   enc-dec decode additionally reads cache["cross"] (per-layer encoder K/V),
   which `init_cache` zero-fills and nothing fills, as in the JAX package:
   decode attends over zeros and ignores the encoder (ROADMAP C13).
+
+Placed arguments (DTensors, `repro_torch.sharding.place.place_train` /
+`place_prefill` / `place_decode`) run the same functions laid out by the
+specs: each entry point runs where the plain tensors it makes (positions,
+rope angles, masks) meet placed ones as replicated (`placed_scope`).
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from repro_torch.configs.registry import torch_dtype
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (embed_apply, embed_init, mrope_angles,
                                        rms_norm, rope_angles, unembed_apply)
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.place import placed_scope
+from repro_torch.sharding.rules import settle, shard
 
 
 class Model(NamedTuple):
@@ -122,6 +128,10 @@ def build_model(cfg: ModelConfig) -> Model:
 
     # ---------------- forward / loss --------------------------------------
     def forward(params, batch, remat="none"):
+        with placed_scope(params):
+            return _forward(params, batch, remat)
+
+    def _forward(params, batch, remat):
         enc_out = (_run_encoder(params, batch, remat)
                    if cfg.is_encoder_decoder else None)
         h = _embed_inputs(params, batch)
@@ -138,13 +148,19 @@ def build_model(cfg: ModelConfig) -> Model:
         """Mean next-token cross-entropy over the targets ≥ 0, plus
         ``router_aux_weight`` × the MoE layers' summed load-balance loss
         (a MoE model's only: every other's aux is 0)."""
-        logits, aux = forward(params, batch, remat=remat)
+        with placed_scope(params):
+            return _loss(params, batch, remat)
+
+    def _loss(params, batch, remat):
+        logits, aux = _forward(params, batch, remat)
         targets = batch["targets"].long()
         mask = (targets >= 0).float()
         tgt = torch.clamp(targets, min=0)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, tgt[..., None])[..., 0] - logz
+        # vocab-parallel on placed logits: the picked logit is summed over
+        # ``model`` before it is indexed
+        ll = settle(torch.gather(logits, -1, tgt[..., None]))[..., 0] - logz
         loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
         if cfg.is_moe:
             loss = loss + cfg.router_aux_weight * aux
@@ -171,6 +187,10 @@ def build_model(cfg: ModelConfig) -> Model:
         return out
 
     def prefill(params, batch):
+        with placed_scope(params):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
         enc_out = (_run_encoder(params, batch, "none")
                    if cfg.is_encoder_decoder else None)
         h = _embed_inputs(params, batch)
@@ -184,6 +204,10 @@ def build_model(cfg: ModelConfig) -> Model:
         return logits[:, 0], caches
 
     def decode_step(params, cache, tokens, pos):
+        with placed_scope(params):
+            return _decode_step(params, cache, tokens, pos)
+
+    def _decode_step(params, cache, tokens, pos):
         B = tokens.shape[0]
         h = embed_apply(params["embed"], tokens[:, None]) * math.sqrt(
             cfg.d_model)

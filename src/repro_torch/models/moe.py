@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.place import refuse_placed
 from repro_torch.sharding.rules import shard
 
 
@@ -101,7 +102,10 @@ def moe_apply(params, x, cfg):
     """x (B, L, d) -> (y (B, L, d), aux_loss scalar).
 
     Group-local dispatch: tokens are grouped per sequence (G = B) unless
-    L == 1 (decode: one group of the B tokens)."""
+    L == 1 (decode: one group of the B tokens). Placed tensors over more
+    than one rank raise: the experts' split over ``model`` is ROADMAP
+    A13b."""
+    refuse_placed(x, "the MoE FFN")
     B, L, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     G = B if L > 1 else 1

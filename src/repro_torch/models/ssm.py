@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.place import refuse_placed
 from repro_torch.sharding.rules import shard
 
 
@@ -126,7 +127,10 @@ def ssd_chunked(x, a, Bm, Cm, cfg, init_state=None):
 
 
 def mamba_apply(params, x, cfg):
-    """Full-sequence Mamba2 block. x (B, L, d) -> (B, L, d)."""
+    """Full-sequence Mamba2 block. x (B, L, d) -> (B, L, d). Placed
+    tensors over more than one rank raise (the heads' split is ROADMAP
+    A13b)."""
+    refuse_placed(x, "the Mamba-2 SSD")
     B, L, _ = x.shape
     di, N, G, H, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                       cfg.ssm_heads, cfg.ssm_head_dim)
@@ -159,7 +163,9 @@ def mamba_init_cache(cfg, batch, dtype, device=None):
 
 def mamba_decode(params, x, cache, cfg):
     """Single-step recurrence. x (B, 1, d) -> (y (B,1,d), a new cache); the
-    cache given is not written."""
+    cache given is not written. Placed tensors over more than one rank
+    raise (ROADMAP A13b)."""
+    refuse_placed(x, "the Mamba-2 SSD")
     B = x.shape[0]
     di, N, G, H, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                       cfg.ssm_heads, cfg.ssm_head_dim)

@@ -14,8 +14,13 @@ shared_attn (Zamba2-style: one attention+MLP unit whose parameters live at
 model level, windowed; its entry in a stage is ``{}``). Dense FFN / MoE
 FFN (with arctic's parallel dense residual) and MLA vs GQA are chosen from
 the config. Encoder-decoder adds per-decoder-layer cross-attention. The
-JAX package's `shard` sites are kept (`repro_torch.sharding.rules`): under
-a mesh the activations stay replicated, so they change no number."""
+JAX package's `shard` sites are kept (`repro_torch.sharding.rules`): on
+placed tensors (`repro_torch.sharding.place`) each block's output is
+redistributed to ``("batch", "seq", "embed")``, and a unit runs where plain
+tensors meet placed ones as replicated (`placed_scope`), its recompute in
+the backward pass too. The kinds no placed path covers yet (mamba, the
+shared block, the MoE FFN, cross-attention) raise on placed tensors over
+more than one rank (ROADMAP A13b)."""
 from __future__ import annotations
 
 import functools
@@ -30,6 +35,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
+from repro_torch.sharding.place import placed_scope, refuse_placed
 from repro_torch.sharding.rules import shard
 
 
@@ -81,6 +87,15 @@ def _ffn_apply(params, x, cfg):
     return mlp_apply(params["ffn"], x), 0.0
 
 
+def _refuse_kind(x, kind, cross: bool) -> None:
+    """The block kinds without a placed path raise on placed `x` (mamba
+    raises in `repro_torch.models.ssm`)."""
+    if kind == SHARED_ATTN:
+        refuse_placed(x, "zamba2's shared attention block")
+    if cross:
+        refuse_placed(x, "the encoder-decoder's cross-attention")
+
+
 def _window(kind, cfg):
     return cfg.window_size if kind in (ATTN_LOCAL, SHARED_ATTN) else 0
 
@@ -88,6 +103,7 @@ def _window(kind, cfg):
 def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
                 shared=None, return_cache=False):
     """Full-sequence (train / prefill) block. Returns (x, aux, cache|None)."""
+    _refuse_kind(x, kind, enc_out is not None)
     if kind == MAMBA:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y = ssm_lib.mamba_apply(params["mamba"], h, cfg)
@@ -121,6 +137,7 @@ def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
 def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
                  cross_cache=None):
     """Single-token decode. x (B,1,d). Returns (x, new_cache)."""
+    _refuse_kind(x, kind, cross_cache is not None)
     if kind == MAMBA:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, new_cache = ssm_lib.mamba_decode(params["mamba"], h, cache, cfg)
@@ -214,12 +231,14 @@ def stage_apply(stage_params, pattern, x, cos, sin, cfg, *, causal=True,
 
     def unit(h, unit_params):
         aux, caches = 0.0, []
-        for bp, kind in zip(unit_params, pattern):
-            h, a, c = block_apply(bp, kind, h, cos, sin, cfg, causal=causal,
-                                  enc_out=enc_out, shared=shared,
-                                  return_cache=return_cache)
-            aux = aux + a
-            caches.append(c)
+        with placed_scope(h):
+            for bp, kind in zip(unit_params, pattern):
+                h, a, c = block_apply(bp, kind, h, cos, sin, cfg,
+                                      causal=causal, enc_out=enc_out,
+                                      shared=shared,
+                                      return_cache=return_cache)
+                aux = aux + a
+                caches.append(c)
         return h, aux, tuple(caches)
 
     repeats = stage_params_len(stage_params)
@@ -258,11 +277,12 @@ def stage_decode(stage_params, pattern, x, cos, sin, stage_cache, pos, cfg,
         unit_cross = (_unit(r)(cross_caches) if cross_caches is not None
                       else (None,) * len(pattern))
         new = []
-        for i, (bp, kind) in enumerate(zip(unit_params, pattern)):
-            x, nc = block_decode(bp, kind, x, cos, sin, unit_cache[i], pos,
-                                 cfg, shared=shared,
-                                 cross_cache=unit_cross[i])
-            new.append(nc)
+        with placed_scope(x):
+            for i, (bp, kind) in enumerate(zip(unit_params, pattern)):
+                x, nc = block_decode(bp, kind, x, cos, sin, unit_cache[i],
+                                     pos, cfg, shared=shared,
+                                     cross_cache=unit_cross[i])
+                new.append(nc)
         new_units.append(tuple(new))
     return x, _stack(new_units)
 

@@ -8,14 +8,18 @@ functions, a mapping ``{axis name: size}``). A spec is a tuple with one
 entry per dim: a mesh-axis name, a tuple of names, or None (whole).
 
 PyTorch runs one process per device, not one controller over a GSPMD
-program, so the rules do not rewrite tensors. Under a mesh, `shard` and
-`replicate` hand their argument back whole: activations and client
-payloads stay replicated on every rank (as the JAX package pins its
-payloads). The server state the engine keeps in blocks — the flat cache,
-the history ring, the snapshot buffer (`repro_torch.core.cache.
-BlockedFlatCache`) — takes its split from `guarded_spec`, so
-``use_rules(mesh, rules={"cache_d": None})`` moves it as it moves JAX's.
-Without a mesh, `shard` and `replicate` return `x`.
+program, so a split tensor is a `torch.distributed.tensor.DTensor`: the
+model, the train step, prefill and decode run laid out by the specs when
+their arguments are placed (`repro_torch.sharding.place`). On a DTensor,
+`shard` redistributes to the `guarded_spec` of its logical axes (JAX's
+`with_sharding_constraint`), `replicate` to every rank whole, and
+`use_param` gathers a parameter over ``data`` (and ``pod``) at its use, its
+``model`` split kept: FSDP over ``data``, TP over ``model``. A plain tensor
+comes back untouched, with or without a mesh. The server state the
+staleness engine keeps in blocks — the flat cache, the history ring, the
+snapshot buffer (`repro_torch.core.cache.BlockedFlatCache`) — takes its
+split from `guarded_spec`, so ``use_rules(mesh, rules={"cache_d": None})``
+moves it as it moves JAX's.
 """
 from __future__ import annotations
 
@@ -140,17 +144,115 @@ def guarded_spec(shape, axes: Sequence[Optional[str]], mesh=None) -> Spec:
     return _guard(shape, logical_to_spec(axes, mesh=mesh), axis_sizes(mesh))
 
 
+def is_placed(x) -> bool:
+    """Whether `x` is a DTensor (laid out over a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def replicate(x):
-    """`x` pinned replicated: every rank holds all of it (no-op without a
-    mesh, and the layout every tensor has under one)."""
-    return x
+    """`x` whole on every rank: a DTensor redistributed to all-`Replicate`
+    (an all-gather or all-reduce), a plain tensor as it is."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 def shard(x, axes: Sequence[Optional[str]]):
-    """A logical layout hint at JAX's sites; `x` comes back whole on every
-    rank, with or without an active mesh (the blocked server state takes its
-    split from `guarded_spec` instead)."""
-    return x
+    """A DTensor redistributed to the layout of its logical `axes`
+    (`guarded_spec` under the active rules, on its own mesh), as JAX's
+    `shard` constrains it; an all-None spec leaves it as it is, and a plain
+    tensor comes back untouched."""
+    if not is_placed(x):
+        return x
+    from repro_torch.sharding.place import to_placements
+    mesh = x.device_mesh
+    spec = guarded_spec(tuple(x.shape), axes, mesh)
+    if all(s is None for s in spec):
+        return x
+    placements = to_placements(spec, mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def settle(x):
+    """A DTensor's partial sums reduced (its ``Partial`` placements made
+    ``Replicate``: an all-reduce), its splits kept; a plain tensor as it
+    is."""
+    if not is_placed(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def gather_unless_divides(x, dim: int, parts: int):
+    """A DTensor whose `dim` is split over ranks that do not divide `parts`
+    (the heads about to be unflattened from it, or the kv heads a query's
+    heads are grouped by) gathered whole along `dim`; otherwise, and for a
+    plain tensor, `x` as it is. A split that does not divide a dim's first
+    factor has no DTensor layout (at 16 model ranks, yi-9b's 4 kv heads)."""
+    if not is_placed(x):
+        return x
+    dim = dim % x.dim()
+    split = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            split *= x.device_mesh.size(i)
+    if parts % split == 0:
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(dim) else p for p in x.placements])
+
+
+def split_heads(x, heads: int, head_dim: int):
+    """``x (..., heads·head_dim) -> (..., heads, head_dim)``, a placed `x`
+    gathered first where its split does not divide `heads`."""
+    x = gather_unless_divides(x, -1, heads)
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
+def row_parallel(x, w):
+    """``x @ w`` for an out-projection: a placed `w` gathered over ``data``
+    (`use_param`) with its rows split over ``model``, `x`'s last dim
+    redistributed to that split first — an explicit, differentiable step:
+    the slice DTensor would make inside the product leaves a gradient its
+    backward cannot view back into heads — and the partial sums over
+    ``model`` reduced (`settle`), so the residual stream keeps its layout.
+    Plain tensors: ``x @ w``."""
+    w = use_param(w)
+    if is_placed(x) and is_placed(w):
+        from torch.distributed.tensor import Shard
+        last = x.dim() - 1
+        pl = tuple(Shard(last) if pw.is_shard(0) else px
+                   for px, pw in zip(x.placements, w.placements))
+        if pl != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return settle(x @ w)
+
+
+#: the mesh axes a parameter is gathered over at its use (FSDP)
+FSDP_AXES = ("pod", "data")
+
+
+def use_param(p):
+    """A placed parameter as its use needs it: whole over ``data`` and
+    ``pod`` (the FSDP all-gather), its ``model`` split kept (TP). Autograd
+    turns the gather into the reduce-scatter of its gradient. A plain
+    tensor comes back untouched."""
+    if not is_placed(p):
+        return p
+    from torch.distributed.tensor import Replicate
+    mesh = p.device_mesh
+    placements = tuple(Replicate() if name in FSDP_AXES else pl
+                       for name, pl in zip(mesh.mesh_dim_names,
+                                           p.placements))
+    if placements == tuple(p.placements):
+        return p
+    return p.redistribute(mesh, placements)
 
 
 def build_mesh(shape, names):

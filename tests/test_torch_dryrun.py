@@ -11,12 +11,18 @@ against the JAX package's (`repro.launch.dryrun`) on the CPU.
     two-stage hybrid and an encoder-decoder).
   * The traced train step's FLOPs lie within 0.9–3.5× of 6·N·D for
     train_4k, as tests/test_launch.py asks of the analytic count.
-  * The collective counter counts real collectives by JAX's byte formulas,
-    and the port's traced steps issue none.
+  * The collective counter counts real collectives by JAX's byte formulas;
+    the traced steps of an arch without a placed path issue none, the
+    placed ones (the five attention-only decoders) some.
+  * A placed record on a reduced yi-9b at a fake (2, 2) world: held bytes
+    (the local shards') equal to the specs', collectives above 0, each
+    kind's bytes summing to the total, and a peak per rank below the
+    replicated trace's.
   * The CLI writes one JSON line per combination.
 """
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
@@ -37,6 +43,7 @@ from repro.sharding import auto as jauto  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.configs.registry import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.sharding.place import has_placed_path  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -98,13 +105,15 @@ def _jax_arguments(arch, shape, mesh):
 @pytest.mark.parametrize("arch,shape", COMBOS)
 def test_spec_bytes_per_rank_equal_jax(arch, shape):
     """Both production meshes: the port's per-rank argument bytes under the
-    specs equal JAX's exactly, and the port holds more than that per rank
-    (everything whole)."""
+    specs equal JAX's exactly; an arch with a placed path holds exactly
+    that per rank (its local shards), the others more (everything
+    whole)."""
     sh = INPUT_SHAPES[shape]
+    placed = has_placed_path(get_config(arch))
     for sizes in MESHES.values():
         spec_b, held_b, _ = dryrun.argument_bytes(arch, sh, sizes)
         assert spec_b == _jax_arguments(arch, sh, _abstract(sizes))
-        assert held_b >= spec_b
+        assert held_b == spec_b if placed else held_b > spec_b
 
 
 @pytest.fixture(scope="module")
@@ -165,22 +174,35 @@ def test_probe_extrapolation_equals_full_depth(arch, reps, enc, mode):
 @pytest.mark.parametrize("arch", ["yi-9b", "mamba2-780m"])
 def test_train_flops_sane(arch):
     """The traced train_4k step (full remat), extrapolated to full depth,
-    lies between 0.9× and 3.5× of 6·N_active·D."""
+    lies between 0.9× and 3.5× of 6·N_active·D (a placed step's FLOPs
+    count its DTensor ops at their global shapes and the attention it runs
+    on local shards at a rank's). yi-9b's step is
+    placed and issues collectives, mamba2's is not and issues none; both
+    hold more than a card per rank (mamba2 the whole batch, yi-9b JAX's
+    replicated AFL tree cache, ROADMAP C16)."""
     cfg = get_config(arch, dtype="bfloat16")
     shape = INPUT_SHAPES["train_4k"]
-    probe = dryrun.probe_costs(arch, shape, MESHES["single"], remat="full")
+    with dryrun.fake_world(256):
+        probe = dryrun.probe_costs(arch, shape, MESHES["single"],
+                                   remat="full")
     model_flops = 6 * cfg.active_param_count() * shape.global_batch \
         * shape.seq_len
     assert 0.9 * model_flops < probe["flops"] < 3.5 * model_flops
-    assert probe["coll_bytes"] == 0.0
-    assert probe["peak_bytes"] > dryrun.CARD_BYTES    # the whole batch
+    if has_placed_path(cfg):
+        assert probe["coll_bytes"] > 0.0
+    else:
+        assert probe["coll_bytes"] == 0.0
+    assert probe["peak_bytes"] > dryrun.CARD_BYTES
 
 
 def test_collective_counter_and_none_in_the_port():
     """Collectives issued under a fake world of 4 ranks are counted by
     JAX's formulas (all-reduce 2 × size, all-gather the result,
     reduce-scatter result × k); the port's traced train, prefill and
-    decode issue none under the production mesh."""
+    decode issue none for an arch without a placed path (mamba2 at the
+    production mesh, every argument whole) and some for yi-9b's placed ones
+    (on a fake (2, 2) world: the reduced batch of 2 divides its ``data``
+    axis)."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
     with dryrun.fake_world(4):
@@ -202,13 +224,18 @@ def test_collective_counter_and_none_in_the_port():
             assert c.bytes["all-gather"] == 128
             assert c.bytes["reduce-scatter"] == 128
     assert not dist.is_initialized()
-    cfg = get_config("yi-9b").reduced(d_model=64, vocab=96)
-    mesh = MESHES["single"]
-    with dryrun.fake_world(256):
-        for mode in ("train", "prefill", "decode"):
-            rec = dryrun._trace("yi-9b", SMALL[mode], mesh, cfg, "ace",
-                                "full")
-            assert rec["coll_counts"] == 0 and rec["coll_bytes"] == 0.0
+    for arch, mesh in (("mamba2-780m", MESHES["single"]),
+                       ("yi-9b", {"data": 2, "model": 2})):
+        cfg = get_config(arch).reduced(d_model=64, vocab=96)
+        with dryrun.fake_world(math.prod(mesh.values())):
+            for mode in ("train", "prefill", "decode"):
+                rec = dryrun._trace(arch, SMALL[mode], mesh, cfg, "ace",
+                                    "full")
+                if has_placed_path(cfg):
+                    assert rec["coll_counts"] > 0 and rec["coll_bytes"] > 0
+                else:
+                    assert rec["coll_counts"] == 0
+                    assert rec["coll_bytes"] == 0.0
 
 
 def test_traces_leave_no_fake_tensor_behind():
@@ -263,7 +290,9 @@ def test_cli_writes_one_line_per_combination(tmp_path):
     done = [r for r in recs if not r.get("skipped")]
     for r in done:
         assert r["chips"] == (512 if r["multi_pod"] else 256)
-        assert r["held_argument_bytes_per_rank"] > \
+        # gemma2-2b and yi-9b run placed: a rank holds its shards
+        assert r["sharded"]
+        assert r["held_argument_bytes_per_rank"] == \
             r["spec_argument_bytes_per_rank"]
         assert r["bottleneck"] in ("compute", "memory", "collective")
         assert r["fits_one_card"] == (
@@ -271,6 +300,41 @@ def test_cli_writes_one_line_per_combination(tmp_path):
     dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
                  "--out", str(out)])
     last = json.loads(out.read_text().splitlines()[-1])
+    assert not last["sharded"]
     assert last["probe_coll_per_rank"] == 0.0
     assert last["peak_bytes_per_rank"] >= last["held_argument_bytes_per_rank"]
     assert last["probe_flops_per_rank"] > 0
+
+
+def test_placed_record_at_a_fake_2x2_world():
+    """A reduced yi-9b, train, prefill and decode on the mesh (data 2,
+    model 2): the arguments a rank holds (its local shards) are the specs'
+    division to the byte, the placed trace issues collectives (their bytes
+    by kind summing to the total), and its peak per rank is below the
+    trace with every argument whole."""
+    cfg = get_config("yi-9b").reduced(d_model=64, vocab=96)
+    sizes = {"data": 2, "model": 2}
+    for mode in ("train", "prefill", "decode"):
+        shape = SMALL[mode]
+        spec_b, held_b, _ = dryrun.argument_bytes("yi-9b", shape, sizes,
+                                                  cfg=cfg)
+        assert held_b == spec_b < dryrun.tree_bytes(_whole_args(cfg, shape))
+        with dryrun.fake_world(4):
+            placed = dryrun.probe_costs("yi-9b", shape, sizes, cfg=cfg,
+                                        remat="full")
+        whole = dryrun.probe_costs("yi-9b", shape, None, cfg=cfg,
+                                   remat="full")
+        assert placed["coll_bytes"] > 0
+        assert sum(placed["coll_detail"].values()) == placed["coll_bytes"]
+        assert 0 < placed["peak_bytes"] < whole["peak_bytes"]
+        assert whole["coll_bytes"] == 0
+
+
+def _whole_args(cfg, shape):
+    """A mode's arguments as meta trees (every leaf whole)."""
+    if shape.mode == "train":
+        return dryrun.train_args(cfg, shape, dryrun.afl_config(
+            "yi-9b", algorithm="ace"))[0]
+    if shape.mode == "prefill":
+        return dryrun.prefill_args(cfg, shape)[0]
+    return dryrun.decode_args(cfg, shape)[0]

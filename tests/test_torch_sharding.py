@@ -12,8 +12,14 @@ without ranks:
   * `param_spec` over every leaf of the ten archs' ``reduced()``
     parameters, with ``fsdp`` on and off, and `cache_spec` over every leaf
     of their decode caches at B = 1 and B = 4;
-  * `shard` / `replicate` hand their argument back, with or without an
-    active rule set; the mesh constructors raise where JAX's would refuse.
+  * `shard` / `replicate` hand a plain tensor back, with or without an
+    active rule set, and on a DTensor over a fake (2, 2) world redistribute
+    it (`use_param` gathers over ``data`` and keeps the ``model`` split);
+    the mesh constructors raise where JAX's would refuse;
+  * `place.to_placements` on tuple axes (``("pod", "data")``), one-rank
+    axes and dims that do not divide, and the kernel wrappers on DTensors:
+    rows whole on each rank run on the local shard (the quantizers also on
+    rows split over ranks), a row split across ranks raises.
 """
 import pytest
 
@@ -232,21 +238,111 @@ def test_param_spec_fn_matches_jax():
     assert got == want
 
 
-@pytest.mark.parametrize("mesh", [None, "data4_model2"])
+@pytest.mark.parametrize("mesh", [None, "data4_model2", "placed"])
 def test_shard_and_replicate_hand_back_their_argument(mesh):
-    """No-ops without a mesh (JAX's `shard`, `replicate`); under one the
-    port's activations and payloads stay whole on every rank."""
+    """No-ops on a plain tensor without a mesh (JAX's `shard`, `replicate`)
+    and under one; a DTensor is redistributed: `shard` to the guarded spec
+    of its logical axes (an all-None spec leaves it), `replicate` to every
+    rank whole, `use_param` over ``data`` only."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.sharding import place
     x = torch.ones(4, 4)
     if mesh is None:
         assert trules.shard(x, ("batch", None)) is x
         assert trules.replicate(x) is x
+        assert trules.use_param(x) is x
         assert jrules.shard(jnp.ones((4, 4)), ("batch", None)).shape == (4, 4)
+        return
+    if mesh == "placed":
+        with fake_world(4):
+            m = trules.build_mesh((2, 2), ("data", "model"))
+            w = place.distribute(torch.ones(8, 4), ("model", "data"), m)
+            assert w.placements == (Shard(1), Shard(0))
+            assert trules.use_param(w).placements == (Replicate(), Shard(0))
+            assert trules.replicate(w).placements == (Replicate(),) * 2
+            h = trules.replicate(w)
+            assert trules.shard(h, ("batch", "embed")).placements == (
+                Shard(0), Replicate())
+            assert trules.shard(h, ("seq", None)) is h
+            # 3 does not divide over data: that dim stays whole
+            odd = place.distribute(torch.ones(3, 4), (), m)
+            assert trules.shard(odd, ("batch", "embed")) is odd
         return
     with trules.use_rules(MESHES[mesh]):
         assert trules.active_mesh() == MESHES[mesh]
         assert trules.shard(x, ("batch", "embed")) is x
         assert trules.replicate(x) is x
     assert trules.active_mesh() is None
+
+
+def test_to_placements_tuple_axes_and_guard():
+    """A dim over ``("pod", "data")`` is split over both in the mesh's
+    order; an axis of one rank splits nothing; with a shape, a dim that
+    does not divide stays whole; an axis against the mesh's order, one
+    named twice or one the mesh lacks raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.sharding.place import local_shape_offset, to_placements
+    with fake_world(8):
+        m = trules.build_mesh((2, 2, 2), ("pod", "data", "model"))
+        pl = to_placements((("pod", "data"), None, "model"), m)
+        assert pl == (Shard(0), Shard(0), Shard(2))
+        assert local_shape_offset((8, 3, 6), m, pl) == ((2, 3, 3),
+                                                       (0, 0, 0))
+        assert to_placements((("pod", "data"), None), m,
+                             shape=(6, 4)) == (Replicate(),) * 3
+        assert to_placements(("model", "data"), m, shape=(4, 3)) == (
+            Replicate(), Replicate(), Shard(0))
+        for bad in ((("data", "pod"),), ("data", "data"), ("expert",)):
+            with pytest.raises(ValueError):
+                to_placements(bad, m)
+    with fake_world(4):
+        m = trules.build_mesh((1, 4), ("data", "model"))
+        assert to_placements(("data", "model"), m) == (Replicate(),
+                                                       Shard(1))
+
+
+def test_kernel_wrappers_on_placed_rows():
+    """On DTensors the wrappers run the plain versions (CPU) on the local
+    shard where each row is whole: `quantize_rows` / `dequantize_rows` on
+    rows split over ranks (``Shard(0)``) or whole tensors, equal to the
+    plain call on those rows, placements kept; a row split across ranks
+    raises, and so do the row-indexing and row-summing kernels on rows
+    split over ranks."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.sharding import place
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 6, generator=g)
+    with fake_world(4):
+        m = trules.build_mesh((2, 2), ("data", "model"))
+        for spec in (("data",), ()):
+            xd = place.distribute(x, spec, m)
+            q, s = ops.quantize_rows(xd)
+            assert q.placements == s.placements == xd.placements
+            q0, s0 = ref.quantize_rows_ref(xd.to_local())
+            assert torch.equal(q.to_local(), q0)
+            assert torch.equal(s.to_local(), s0)
+            d = ops.dequantize_rows(q, s)
+            assert d.placements == xd.placements
+            assert torch.equal(d.to_local(), ref.dequantize_rows_ref(q0, s0))
+        split = place.distribute(x, (None, "model"), m)
+        with pytest.raises(ValueError, match="split a row"):
+            ops.quantize_rows(split)
+        q, s = ops.quantize_rows(place.distribute(x, ("data",), m))
+        with pytest.raises(ValueError):
+            ops.dequantize_rows(q, place.distribute(torch.ones(8), (), m))
+        j = torch.zeros(1, dtype=torch.long)
+        with pytest.raises(ValueError, match="across rows"):
+            ops.row_delta(q, s, j, torch.zeros(6))
+        with pytest.raises(ValueError, match="across rows"):
+            ops.masked_agg(q, s, torch.ones(8, dtype=torch.bool))
+        qr = place.distribute(q.full_tensor(), (), m)
+        sr = place.distribute(torch.ones(8), (), m)
+        assert ops.masked_agg(qr, sr, torch.ones(8, dtype=torch.bool)
+                              ).placements == (Replicate(), Replicate())
 
 
 def test_mesh_constructors_without_a_group():
