@@ -184,7 +184,7 @@ result line):
      checkpoint bit for bit the straight run's; ``--driver host`` against
      the engine with f32 caches within 1e-5; a faulted run (NaN rate
      0.05, the clip at 1.0, resync every 10) and its guard counters;
-     examples/torch_train_lm.py runs its 300 steps (its exit code is its
+     examples/torch_train_lm.py runs 100 steps (its exit code is its
      loss bound's, as its JAX twin's: ROADMAP §C, C15);
   4i. the sharded runner (`make_sharded_staleness_runner`) over an NCCL
      group of one rank initialised in-process, on `make_host_mesh()`'s
@@ -215,8 +215,15 @@ result line):
      the placed steps, ms a step each way (DTensor's host overhead);
      (b) gemma2-2b at its published size (4h's served model), eight
      `decode_step`s placed by `place_decode` against unplaced: the argmax
-     tokens equal, max |diff| of the logits and ms a step printed; at most
-     40 s;
+     tokens equal, max |diff| of the logits and ms a step printed; (c)
+     zamba2-1.2b at 4g's cut (the SSD's heads and the shared block): ACE
+     int8 train steps over 2 clients as (a), the placed state saved and
+     restored bit for bit, eight decode steps as (b); (d)
+     qwen3-moe-235b-a22b at one layer (the MoE's experts): loss and
+     gradient at B = 2, L = 16 bit for bit, eight decode steps as (b) at
+     capacity factor `MOE_DECODE_CAPACITY`; (e) seamless-m4t-medium at
+     full depth (the cross-attention): the loss and three decode steps bit
+     for bit; each run's seconds printed; at most 65 s;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Needs one GPU; imports nothing of JAX.
@@ -285,9 +292,7 @@ def _device_us(torch, prof, name_part, launches=False):
     kernel when it is None. Only the device-side events count (a CPU op's
     own device time is its kernels' again)."""
     total = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device_kernels(torch, prof):
         if name_part is None or name_part in e.key:
             total += e.count if launches else e.self_device_time_total
     return total
@@ -858,6 +863,42 @@ def same_run(torch, a, b):
 TRACE_ATTEMPTS = 3
 
 
+class _KernelRow:
+    """One device kernel's row of a trace: its name, launches and device
+    microseconds."""
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_kernels(torch, prof):
+    """A trace's device events summed by name, as `key_averages()` sums its
+    device rows (the same rows, launches and times), read straight from the
+    profiler's kineto results: building the Python events that
+    `key_averages()` aggregates took 7.8–8.0 s for a 300-tick graph run at
+    287 kernels a tick, this 0.9 s (PR 29 calls 4 and 6)."""
+    from torch.autograd.profiler_util import _rewrite_name
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {}
+    for e in result.events():
+        if (e.device_type() != cuda
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        key = _rewrite_name(name=e.name(), with_wildcard=True)
+        row = rows.get(key)
+        if row is None:
+            row = rows[key] = _KernelRow(key)
+        row.count += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            # a FunctionEvent's interval: microseconds from the trace start
+            row.self_device_time_total += ((e.end_ns() - t0) / 1000
+                                           - (e.start_ns() - t0) / 1000)
+    return list(rows.values())
+
+
 def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
                  per_tick_expected=None, must=(), top=6, groups=None):
     """One traced graph run of `runner(*args)`: device busy ms and device
@@ -877,6 +918,7 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     time is printed."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         ops.reset_launch_counts()
         with torch.profiler.profile(activities=acts) as prof:
@@ -884,9 +926,7 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
             runner(*args)
             torch.cuda.synchronize()
         counts = ops.launch_counts()
-        # aggregated once: key_averages() over a whole run takes seconds
-        device_events = [e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_events = device_kernels(torch, prof)
         per_tick = sum(e.count for e in device_events) / E
         ours = {name: [e for e in device_events
                        if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
@@ -911,7 +951,8 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
     busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3 / E
     print(f"engine {label}: device busy {busy_ms:.4f} ms per tick of "
           f"{tick_ms:.4f} ms wall, idle share {1 - busy_ms / tick_ms:.3f}, "
-          f"{per_tick:.1f} device kernels per tick [{card}]")
+          f"{per_tick:.1f} device kernels per tick (traced in "
+          f"{time.perf_counter() - t0:.1f} s) [{card}]")
     largest = sorted(device_events,
                      key=lambda e: -e.self_device_time_total)[:top]
     for e in largest:
@@ -2350,6 +2391,7 @@ SERVE_TRACED = 8                        # decode steps traced
 # again through their plain versions
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 256
 TRAIN_RULES = ("ace", "aced")
+EXAMPLE_STEPS = 100                    # examples/torch_train_lm.py's run
 # (c) the train driver at tests/test_system.py's reduced sizes; ACE with an
 # int8 cache, checkpoints every 60 events (at 64 and 119 with chunks of 64)
 DRIVER_ARGS = ["--arch", "gemma2-2b", "--reduced", "--d-model", "128",
@@ -2466,8 +2508,7 @@ def serve_phase(torch, dev, card):
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     decode(SERVE_TRACED, prof)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_kernels(torch, prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_TRACED
     kernels = sum(e.count for e in events) / SERVE_TRACED
     gemv = sum(e.self_device_time_total for e in events
@@ -2697,21 +2738,24 @@ def driver_phase(torch, ops, dev, card, totals):
     # the example exits 0 when its final loss is below 5.5 and 1 otherwise,
     # as its JAX twin does; neither package reaches 5.5 in its 300 steps
     # (ROADMAP §C, C15), so the gate is the run itself: every step, a
-    # finite loss, the exit code that loss gives, no traceback
+    # finite loss, the exit code that loss gives, no traceback (at
+    # `EXAMPLE_STEPS` steps: 300 until the placed runs took the time)
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, str(ROOT / "examples" /
-                                                "torch_train_lm.py")],
+                                                "torch_train_lm.py"),
+                           "--steps", str(EXAMPLE_STEPS)],
                           capture_output=True, text=True, env=env, cwd=ROOT)
     lines = [s for s in proc.stdout.splitlines()
              if s.startswith("final loss")]
-    ok = (proc.returncode in (0, 1) and "t=  300/300" in proc.stdout
+    ok = (proc.returncode in (0, 1)
+          and f"t={EXAMPLE_STEPS:5d}/{EXAMPLE_STEPS}" in proc.stdout
           and len(lines) == 1 and "Traceback" not in proc.stderr)
     final = float(lines[0].split(":")[1].split()[0]) if ok else math.nan
     check(ok and math.isfinite(final) and (final < 5.5) ==
           (proc.returncode == 0), f"examples/torch_train_lm.py exited "
           f"{proc.returncode}: {proc.stdout[-400:]} {proc.stderr[-400:]}")
-    print(f"examples/torch_train_lm.py: 300 steps in "
+    print(f"examples/torch_train_lm.py: {EXAMPLE_STEPS} steps in "
           f"{time.perf_counter() - t0:.1f} s, {lines[0]}; exit "
           f"{proc.returncode} (its bound is 5.5; JAX's examples/train_lm.py "
           f"ends at 6.2417 on a CPU and exits 1 too, ROADMAP §C, C15) "
@@ -2934,131 +2978,163 @@ def dryrun_phase(torch, ops, dev, card, totals):
 
 # --- phase 4k: the model laid out by the specs ---------------------------------
 
-# (a) the train steps a rule, (b) gemma2-2b's decode: batch, cache length,
-# steps; the phase's budget
+# the train steps a rule; decode: batch, cache length, steps; the clients of
+# (c)'s run, whose state is checkpointed (at 8 its 4.6 GB file took 26.5 s
+# to write, sync and read back, PR 29 call 1; at 2, 2.9 GB); the phase's
+# budget (PR 28's 40 s, and 25 s for runs (c)-(e))
 PLACED_STEPS = 3
 PLACED_DECODE = (4, 64, 8)
-PLACED_BUDGET_S = 40.0
+PLACED_CKPT_CLIENTS = 2
+PLACED_BUDGET_S = 65.0
 
 
-def placed_phase(torch, ops, dev, card, totals):
-    """The model, the AFL train step and decode laid out by JAX's specs
-    (`place_train`, `place_decode`: DTensors over `make_host_mesh()`'s
-    (1, 1) mesh of an NCCL group of one rank, initialised here as 4i's is).
-    At one rank every placement is whole, so the placed path must give the
-    unplaced numbers bit for bit while it runs every DTensor op, the
-    kernels on the local shards and the collectives on their groups. (a)
-    ACE and ACED with int8 tree caches at 4h (b)'s cut, `PLACED_STEPS`
-    steps from one init, unplaced, placed, placed, unplaced: parameters and
-    losses bit for bit, quantize_rows and dequantize_rows launched by the
-    placed steps, ms a step each way; (b) gemma2-2b at its published size,
-    `PLACED_DECODE` decode steps from an empty cache, unplaced then placed:
-    the fed-back argmax tokens equal, the logits' max |diff| and ms a step
-    printed. At most `PLACED_BUDGET_S`; the group is destroyed at the
-    end."""
-    import os
-    import tempfile
+def placed_train_turns(torch, ops, totals, model, params, batches, aflc, mesh,
+                       label, card, keep=False):
+    """`PLACED_STEPS` AFL train steps of `aflc` from one init, in turns
+    unplaced, placed, placed, unplaced: parameters and losses bit for bit,
+    both quant kernels launched by the placed steps, ms a step each way
+    printed. With `keep`, the first placed run's final state is returned
+    (for the checkpoint), else None."""
     import numpy as np
-    import torch.distributed as dist
-    from repro_torch.configs.registry import afl_config, get_config
     from repro_torch.convert import leaves
     from repro_torch.core.distributed import make_afl_train_step
-    from repro_torch.launch import make_host_mesh
-    from repro_torch.models import build_model
     from repro_torch.optim import sgd
     from repro_torch.sharding import place
-    t_start = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
-                            world_size=1)
-    try:
-        mesh = make_host_mesh()
-        check(tuple(mesh.shape) == (1, 1), f"mesh {tuple(mesh.shape)}")
-        cfg = lm_config("4f")
-        model = build_model(cfg)
-        n, B, L = LM_TASK["n_clients"], TRAIN_BATCH, TRAIN_SEQ
-        gen = torch.Generator(device=dev).manual_seed(0)
-        params = model.init(gen, device=dev)
-        toks = torch.randint(0, cfg.vocab_size, (PLACED_STEPS, B, L + 1),
-                             generator=gen, device=dev,
-                             dtype=torch.int64).to(torch.int32)
-        batches = [{"tokens": t[:, :-1].contiguous(),
-                    "targets": t[:, 1:].contiguous()} for t in toks]
-        del toks
-        for algo in TRAIN_RULES:
-            aflc = afl_config("yi-9b", algorithm=algo, n_clients=n)
-            check(aflc.cache_dtype == "int8", "placed: yi-9b's cache is "
-                  "int8")
-            init_fn, step_fn = make_afl_train_step(model.loss_fn, aflc,
-                                                   sgd(0.1))
+    init_fn, step_fn = make_afl_train_step(model.loss_fn, aflc, sgd(0.1))
+    n, kept = aflc.n_clients, []
 
-            def run(placed):
-                state, bs = init_fn(params), batches
-                if placed:
-                    state, first = place.place_train(state, batches[0], mesh)
-                    check(place.tree_mesh(state.params) is not None,
-                          "placed: the parameters are not placed")
-                    bs = [first] + [place.place_batch(b, mesh)
-                                    for b in batches[1:]]
-                torch.cuda.synchronize()
-                stamps, losses = [time.perf_counter()], []
-                for s, b in enumerate(bs):
-                    state, m = step_fn(state, b, s % n, s)
-                    losses.append(m["loss"])
-                    torch.cuda.synchronize()
-                    stamps.append(time.perf_counter())
-                new = [x.cpu() for x in leaves(place.full_tree(state.params))]
-                del state
-                return new, np.diff(stamps), [float(x) for x in losses]
-
-            runs = []
-            for placed in (False, True, True, False):
-                free(torch)
-                out, counts = counted(ops, totals, lambda: run(placed))
-                if placed:
-                    for kernel in TREE_KERNELS:
-                        check(counts[kernel] > 0, f"placed {algo}: {kernel} "
-                              "not launched by the placed steps")
-                runs.append((placed, out, counts))
-            (_, (ref, ref_s, ref_l), _), (_, (got, got_s, got_l), pc) = \
-                runs[0], runs[1]
-            diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-            same = (all(torch.equal(a, b) for a, b in zip(got, ref))
-                    and got_l == ref_l)
-            check(same, f"placed {algo}: the placed steps end {diff} from "
-                  f"the unplaced ones (losses {got_l} against {ref_l})")
-            ms = {p: [1e3 * float(np.mean(o[1][1:])) for q, o, _ in runs
-                      if q == p] for p in (False, True)}
-            print(f"placed train step {algo} int8 at yi-9b's widths (1 "
-                  f"layer, n={n}, batch {B} x seq {L}), {PLACED_STEPS} steps "
-                  f"on the (1, 1) mesh: parameters and losses bit for bit "
-                  f"with the unplaced steps: {same} (max |diff| {diff:.3e}); "
-                  f"ms a step in turns unplaced {ms[False][0]:.1f}, placed "
-                  f"{ms[True][0]:.1f}, placed {ms[True][1]:.1f}, unplaced "
-                  f"{ms[False][1]:.1f} after each run's first step "
-                  f"({1e3 * ref_s[0]:.1f} and {1e3 * got_s[0]:.1f} in the "
-                  f"first two runs); "
-                  f"launches of a placed run {pc} [{card}]")
-            del runs, ref, got
-        del params, batches, model
-        free(torch)
-
-        cfg = get_config("gemma2-2b")
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        Bd, S, T = PLACED_DECODE
-        first = torch.randint(0, cfg.vocab_size, (Bd,), device=dev,
-                              generator=torch.Generator(device=dev
-                                                        ).manual_seed(1),
-                              dtype=torch.int64).to(torch.int32)
-
-        def decode(placed):
-            cache, p, tk = model.init_cache(Bd, S, device=dev), params, first
-            if placed:
-                p, cache, tk = place.place_decode(params, cache, first, mesh)
-            toks, logits_all = [], []
+    def run(placed):
+        state, bs = init_fn(params), batches
+        if placed:
+            state, first = place.place_train(state, batches[0], mesh)
+            check(place.tree_mesh(state.params) is not None,
+                  f"{label}: the parameters are not placed")
+            bs = [first] + [place.place_batch(b, mesh) for b in batches[1:]]
+        torch.cuda.synchronize()
+        stamps, losses = [time.perf_counter()], []
+        for s, b in enumerate(bs):
+            state, m = step_fn(state, b, s % n, s)
+            losses.append(m["loss"])
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            stamps.append(time.perf_counter())
+        new = [x.cpu() for x in leaves(place.full_tree(state.params))]
+        if placed and keep and not kept:
+            kept.append(state)
+        del state
+        return new, np.diff(stamps), [float(x) for x in losses]
+
+    runs = []
+    for placed in (False, True, True, False):
+        free(torch)
+        out, counts = counted(ops, totals, lambda: run(placed))
+        if placed:
+            for kernel in TREE_KERNELS:
+                check(counts[kernel] > 0, f"{label}: {kernel} not launched "
+                      "by the placed steps")
+        runs.append((placed, out, counts))
+    (_, (ref, ref_s, ref_l), _), (_, (got, got_s, got_l), pc) = \
+        runs[0], runs[1]
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    same = (all(torch.equal(a, b) for a, b in zip(got, ref))
+            and got_l == ref_l)
+    check(same, f"{label}: the placed steps end {diff} from the unplaced "
+          f"ones (losses {got_l} against {ref_l})")
+    ms = {p: [1e3 * float(np.mean(o[1][1:])) for q, o, _ in runs if q == p]
+          for p in (False, True)}
+    print(f"{label}, {PLACED_STEPS} steps on the (1, 1) mesh: parameters "
+          f"and losses bit for bit with the unplaced steps: {same} (max "
+          f"|diff| {diff:.3e}); ms a step in turns unplaced "
+          f"{ms[False][0]:.1f}, placed {ms[True][0]:.1f}, placed "
+          f"{ms[True][1]:.1f}, unplaced {ms[False][1]:.1f} after each run's "
+          f"first step ({1e3 * ref_s[0]:.1f} and {1e3 * got_s[0]:.1f} in the "
+          f"first two runs); launches of a placed run {pc} [{card}]")
+    return kept[0] if kept else None
+
+
+def placed_checkpoint(torch, state, mesh, label, card):
+    """A placed train state saved (`save_checkpoint`: gathered, rank 0
+    writes) and restored into a placed template of its layout: every leaf
+    bit for bit, DTensors in their placements and plain leaves plain."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.convert import leaves
+    from repro_torch.sharding import place
+    from repro_torch.sharding.rules import is_placed
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 1, state)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        back = restore_checkpoint(d, 1, state)
+        t2 = time.perf_counter()
+        pairs = list(zip(leaves(back), leaves(state)))
+        layout = all(is_placed(a) == is_placed(b) and (
+            not is_placed(a) or place.same_layout(a, b)) for a, b in pairs)
+        same = layout and all(torch.equal(
+            a.full_tensor() if is_placed(a) else a,
+            b.full_tensor() if is_placed(b) else b) for a, b in pairs)
+        del back, pairs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(same, f"{label}: the restored placed state differs")
+    print(f"{label}: saved ({size / 1e9:.3f} GB, {t1 - t0:.1f} s) and "
+          f"restored into its placed layout ({t2 - t1:.1f} s): bit for bit "
+          f"with placements and plain leaves kept: {same} [{card}]")
+
+
+def placed_loss(torch, model, params, batch, mesh, label, card, grad=True):
+    """The loss (and with `grad` every parameter's gradient) placed by
+    `place_prefill` against unplaced: bit for bit."""
+    from repro_torch.convert import _rebuild, leaves
+    from repro_torch.sharding import place
+    from repro_torch.sharding.rules import is_placed, replicate
+
+    def run(p, b):
+        xs = [x.detach().requires_grad_(grad) for x in leaves(p)]
+        with place.placed_scope(p), torch.set_grad_enabled(grad):
+            loss = replicate(model.loss_fn(_rebuild(p, iter(xs)), b))
+            gs = torch.autograd.grad(loss, xs) if grad else ()
+        full = [g.full_tensor() if is_placed(g) else g for g in gs]
+        loss = loss.full_tensor() if is_placed(loss) else loss
+        return loss.detach(), full
+
+    ref_loss, ref_g = run(params, batch)
+    pp, pb = place.place_prefill(params, batch, mesh)
+    got_loss, got_g = run(pp, pb)
+    same = bool(torch.equal(ref_loss, got_loss)) and all(
+        torch.equal(a, b) for a, b in zip(got_g, ref_g))
+    diff = max([float((a - b).abs().max()) for a, b in zip(got_g, ref_g)]
+               + [float((got_loss - ref_loss).abs())])
+    del ref_g, got_g, pp, pb
+    free(torch)
+    what = "loss and gradient" if grad else "loss"
+    check(same, f"{label}: the placed {what} differs by {diff}")
+    print(f"{label}: the placed {what} bit for bit with the unplaced: "
+          f"{same} (loss {float(ref_loss):.4f}, max |diff| {diff:.3e}) "
+          f"[{card}]")
+
+
+def placed_decode(torch, model, params, mesh, first, S, T, label, card,
+                  exact=False):
+    """`T` decode steps from an empty cache of `S` at `first`'s batch,
+    unplaced then placed by `place_decode`: the fed-back argmax tokens equal
+    (with `exact`, the logits bit for bit too), the logits' max |diff| and
+    ms a step printed."""
+    from repro_torch.sharding import place
+    dev = first.device
+
+    def decode(placed):
+        cache, p, tk = model.init_cache(first.shape[0], S, device=dev), \
+            params, first
+        if placed:
+            p, cache, tk = place.place_decode(params, cache, first, mesh)
+        toks, logits_all = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
             for pos in range(T):
                 logits, cache = model.decode_step(p, cache, tk, pos)
                 if placed:
@@ -3067,24 +3143,178 @@ def placed_phase(torch, ops, dev, card, totals):
                 toks.append(nxt)
                 logits_all.append(logits.float())
                 tk = place.place_batch(nxt, mesh) if placed else nxt
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            return (torch.stack(toks).cpu(), torch.stack(logits_all).cpu(),
-                    1e3 * secs / T)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (torch.stack(toks).cpu(), torch.stack(logits_all).cpu(),
+                1e3 * secs / T)
 
-        (ref_t, ref_lg, ref_ms), (got_t, got_lg, got_ms) = (
-            decode(False), decode(True))
-        lg_diff = float((got_lg - ref_lg).abs().max())
-        check(torch.equal(got_t, ref_t), f"placed decode: tokens {got_t} "
-              f"against the unplaced {ref_t}")
-        print(f"placed decode gemma2-2b at its published size (batch {Bd}, "
-              f"cache {S}, {T} steps from an empty cache) on the (1, 1) "
-              f"mesh: argmax tokens equal to the unplaced steps': True; "
-              f"logits max |diff| {lg_diff:.3e} (bit for bit: "
-              f"{lg_diff == 0.0}); ms a step unplaced {ref_ms:.1f}, placed "
-              f"{got_ms:.1f} [{card}]")
+    (ref_t, ref_lg, ref_ms), (got_t, got_lg, got_ms) = (decode(False),
+                                                        decode(True))
+    lg_diff = float((got_lg - ref_lg).abs().max())
+    check(torch.equal(got_t, ref_t), f"{label}: tokens {got_t} against the "
+          f"unplaced {ref_t}")
+    check(not exact or lg_diff == 0.0, f"{label}: logits differ by "
+          f"{lg_diff}")
+    print(f"{label} (batch {first.shape[0]}, cache {S}, {T} steps from an "
+          f"empty cache) on the (1, 1) mesh: argmax tokens equal to the "
+          f"unplaced steps': True; logits max |diff| {lg_diff:.3e} (bit for "
+          f"bit: {lg_diff == 0.0}); ms a step unplaced {ref_ms:.1f}, placed "
+          f"{got_ms:.1f} [{card}]")
+
+
+def _first_tokens(torch, cfg, B, dev, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B,), device=dev, generator=g,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def placed_phase(torch, ops, dev, card, totals):
+    """The model, the AFL train step and decode laid out by JAX's specs
+    (`place_train`, `place_prefill`, `place_decode`: DTensors over
+    `make_host_mesh()`'s (1, 1) mesh of an NCCL group of one rank,
+    initialised here as 4i's is). At one rank every placement is whole, so
+    the placed path must give the unplaced numbers bit for bit while it
+    runs every DTensor op, the local-shard code (attention, the MoE, the
+    SSD), the kernels on the local shards and the collectives on their
+    groups. (a) ACE and ACED with int8 tree caches at 4h (b)'s cut
+    (`placed_train_turns`); (b) gemma2-2b at its published size,
+    `PLACED_DECODE` decode steps (`placed_decode`); (c) zamba2-1.2b at
+    4g's cut: ACE int8 train steps as (a) over `PLACED_CKPT_CLIENTS`
+    clients, the placed state saved and restored (`placed_checkpoint`), and
+    `PLACED_DECODE` decode steps; (d)
+    qwen3-moe-235b-a22b at one layer: loss and gradient at B = 2, L = 16
+    (`placed_loss`), then `PLACED_DECODE` decode steps at capacity factor
+    `MOE_DECODE_CAPACITY`; (e) seamless-m4t-medium at full depth: the loss
+    and three decode steps, bit for bit. Memory is freed between runs and
+    each run's seconds printed. At most `PLACED_BUDGET_S`; the group is
+    destroyed at the end."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import ATTN
+    from repro_torch.configs.registry import afl_config, get_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import build_model
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    Bd, S, T = PLACED_DECODE
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1), f"mesh {tuple(mesh.shape)}")
+
+        def batches_of(cfg, B, L, gen):
+            toks = torch.randint(0, cfg.vocab_size, (PLACED_STEPS, B, L + 1),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            return [{"tokens": t[:, :-1].contiguous(),
+                     "targets": t[:, 1:].contiguous()} for t in toks]
+
+        # (a) yi-9b's widths at one layer, ACE and ACED int8
+        t0 = time.perf_counter()
+        cfg = lm_config("4f")
+        model = build_model(cfg)
+        n, B, L = LM_TASK["n_clients"], TRAIN_BATCH, TRAIN_SEQ
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, device=dev)
+        batches = batches_of(cfg, B, L, gen)
+        for algo in TRAIN_RULES:
+            aflc = afl_config("yi-9b", algorithm=algo, n_clients=n)
+            check(aflc.cache_dtype == "int8", "placed: yi-9b's cache is "
+                  "int8")
+            placed_train_turns(
+                torch, ops, totals, model, params, batches, aflc, mesh,
+                f"placed train step {algo} int8 at yi-9b's widths (1 layer, "
+                f"n={n}, batch {B} x seq {L})", card)
+        del params, batches, model
+        free(torch)
+        print(f"placed (a) took {time.perf_counter() - t0:.1f} s")
+
+        # (b) gemma2-2b at its published size, decode
+        t0 = time.perf_counter()
+        cfg = get_config("gemma2-2b")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        placed_decode(torch, model, params, mesh,
+                      _first_tokens(torch, cfg, Bd, dev), S, T,
+                      "placed decode gemma2-2b at its published size", card)
         del params, model
         free(torch)
+        print(f"placed (b) took {time.perf_counter() - t0:.1f} s")
+
+        # (c) zamba2-1.2b at 4g's cut: train, decode, checkpoint
+        t0 = time.perf_counter()
+        cfg = lm_config("4g")
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, device=dev)
+        batches = batches_of(cfg, B, L, gen)
+        aflc = afl_config("zamba2-1.2b", algorithm="ace",
+                          n_clients=PLACED_CKPT_CLIENTS, cache_dtype="int8")
+        state = placed_train_turns(
+            torch, ops, totals, model, params, batches, aflc, mesh,
+            f"placed train step ace int8 at zamba2-1.2b's widths (4g's cut: "
+            f"{cfg.num_layers} layers, n={PLACED_CKPT_CLIENTS}, batch {B} x "
+            f"seq {L})", card, keep=True)
+        del batches
+        placed_checkpoint(torch, state, mesh, "placed checkpoint of "
+                          "zamba2-1.2b's ace int8 state", card)
+        del state
+        free(torch)
+        placed_decode(torch, model, params, mesh,
+                      _first_tokens(torch, cfg, Bd, dev), S, T,
+                      "placed decode zamba2-1.2b at 4g's cut", card)
+        del params, model
+        free(torch)
+        print(f"placed (c) took {time.perf_counter() - t0:.1f} s")
+
+        # (d) qwen3-moe-235b-a22b at one layer: loss and gradient, decode
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                                  num_layers=1, stages=(((ATTN,), 1),))
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                             device=dev, dtype=torch.int32)
+        placed_loss(torch, model, params,
+                    {"tokens": toks[:, :-1], "targets": toks[:, 1:]}, mesh,
+                    f"placed {cfg.name} at one layer (B=2, L=16)", card)
+        wide = build_model(dataclasses.replace(
+            cfg, capacity_factor=MOE_DECODE_CAPACITY))
+        placed_decode(torch, wide, params, mesh,
+                      _first_tokens(torch, cfg, Bd, dev), S, T,
+                      f"placed decode {cfg.name} at one layer, capacity "
+                      f"factor {MOE_DECODE_CAPACITY}", card)
+        del params, model, wide
+        free(torch)
+        print(f"placed (d) took {time.perf_counter() - t0:.1f} s")
+
+        # (e) seamless-m4t-medium at full depth: loss, decode
+        t0 = time.perf_counter()
+        cfg = get_config("seamless-m4t-medium")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        B2, L2 = 2, 64
+        gen = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (B2, L2 + 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                 "audio_embeds": torch.randn(
+                     (B2, L2 // cfg.encoder_frames_ratio, cfg.d_model),
+                     generator=gen, device=dev) * 0.1}
+        placed_loss(torch, model, params, batch, mesh,
+                    f"placed {cfg.name} at full depth ({B2} x {L2} tokens, "
+                    f"{L2 // cfg.encoder_frames_ratio} source frames)", card,
+                    grad=False)
+        placed_decode(torch, model, params, mesh, toks[:, 0], L2, 3,
+                      f"placed decode {cfg.name} at full depth (the zero "
+                      f"cross cache, ROADMAP C13)", card, exact=True)
+        del params, model
+        free(torch)
+        print(f"placed (e) took {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
         for f in os.listdir(tmp):

@@ -14,6 +14,14 @@ casts it the same way); a bfloat16 leaf the JAX package wrote (its raw 16
 bits) restores too. Restore casts every leaf to its template leaf's dtype
 and puts it on that leaf's device.
 
+A placed tree (DTensors, `repro_torch.sharding.place`) is saved whole, as
+the JAX package saves a sharded array: every rank gathers each placed
+leaf (a collective, in the tree's order), rank 0 writes the same files as
+for the unplaced tree and the other ranks wait for it at a barrier.
+Restoring into a placed template lays each leaf out by the template
+leaf's own placements (each rank keeps its shard of the file's whole
+array); its plain leaves stay plain.
+
 Crash safety: a payload is written to ``<path>.tmp`` in the target
 directory, fsynced, then published with `os.replace`, so a reader never
 sees a half-written checkpoint under the final name. Each payload has a
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache import BlockedFlatCache, FlatCache
+from repro_torch.sharding.rules import is_placed
 
 
 def _is_namedtuple(x) -> bool:
@@ -100,9 +109,13 @@ def _rebuild(template, fn: Callable, prefix: str = ""):
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array; bfloat16 as its exact float32."""
+    """A leaf as a host numpy array; bfloat16 as its exact float32; a
+    DTensor gathered whole (a collective)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if is_placed(t):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
@@ -111,6 +124,18 @@ def _host(leaf) -> np.ndarray:
 
 def _flatten_with_paths(tree) -> dict:
     return {key: _host(leaf) for key, leaf in _paths(tree)}
+
+
+def _is_placed_tree(tree) -> bool:
+    return any(is_placed(leaf) for _, leaf in _paths(tree))
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
 
 
 def _describe(leaf) -> dict:
@@ -170,12 +195,28 @@ def save_checkpoint(directory: str, step: int, tree: Any, *, prefix="ckpt",
     sidecar; keep the newest `keep` checkpoints. The payload is published
     before its sidecar, so a crash between the two leaves a file that still
     verifies by parsing. An `OSError` retries up to `retries` times with
-    exponential backoff."""
+    exponential backoff. A placed tree: every rank calls it and gathers,
+    rank 0 writes, all return after a barrier."""
     directory = os.fspath(directory)
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{prefix}_{step:08d}.npz")
-    tmp = path + ".tmp"
     flat = _flatten_with_paths(tree)
+    if not _is_placed_tree(tree):
+        _write(directory, path, flat, tree, prefix, keep, retries, backoff)
+        return path
+    import torch.distributed as dist
+    try:
+        if dist.get_rank() == 0:
+            _write(directory, path, flat, tree, prefix, keep, retries,
+                   backoff)
+    finally:
+        _barrier()
+    return path
+
+
+def _write(directory, path, flat, tree, prefix, keep, retries,
+           backoff) -> None:
+    os.makedirs(directory, exist_ok=True)
+    tmp = path + ".tmp"
     for attempt in range(retries + 1):
         try:
             # a file handle, not a path: np.savez would append ".npz" to a
@@ -208,7 +249,6 @@ def save_checkpoint(directory: str, step: int, tree: Any, *, prefix="ckpt",
                       _sidecar(os.path.join(directory, old))):
             if os.path.isfile(stale):
                 os.remove(stale)
-    return path
 
 
 def _all_steps(directory: str, prefix: str) -> List[int]:
@@ -231,8 +271,9 @@ def latest_step(directory: str, prefix="ckpt",
 
 
 def _like(arr: np.ndarray, leaf):
-    """`arr` as `leaf`'s kind: a tensor of its dtype on its device, else a
-    numpy array of its dtype."""
+    """`arr` as `leaf`'s kind: a tensor of its dtype on its device (a
+    DTensor of its placements, this rank keeping its shard), else a numpy
+    array of its dtype."""
     if isinstance(leaf, torch.Tensor):
         if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
             # the JAX package's bfloat16 leaf: ml_dtypes' type, which numpy
@@ -240,6 +281,11 @@ def _like(arr: np.ndarray, leaf):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if is_placed(leaf):
+            from repro_torch.sharding.place import distribute_tensor_local
+            t = t.to(device=leaf.to_local().device, dtype=leaf.dtype)
+            return distribute_tensor_local(t, leaf.device_mesh,
+                                           leaf.placements)
         return t.to(device=leaf.device, dtype=leaf.dtype)
     return arr.astype(np.asarray(leaf).dtype)
 

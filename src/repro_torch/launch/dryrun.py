@@ -17,24 +17,22 @@ the kernel wrappers would launch their kernels, so the traced step takes
 
 The production meshes are axis sizes, ``{"data": 16, "model": 16}`` and
 ``{"pod": 2, "data": 16, "model": 16}`` with ``--multi-pod``
-(`launch.mesh.make_production_mesh` needs a live world of 256 ranks). The
-five attention-only decoders (yi-9b, llama3-405b, gemma2-2b, qwen2-vl-7b,
-minicpm3-4b; `sharding.place.has_placed_path`) trace placed: under a fake
-process group of the mesh's ranks each argument is a DTensor laid out by
-its spec (`sharding.place`, as JAX's ``in_shardings``), holding only this
-rank's local shard, and the step runs the placed model (TP over
-``model``, FSDP over ``data``). The other five archs (the MoE FFN, the
-SSD, zamba2's shared block, the encoder-decoder: ROADMAP A13b) trace with
-every argument whole, and their records say ``"sharded": false``. Two
+(`launch.mesh.make_production_mesh` needs a live world of 256 ranks).
+Every arch traces placed on a mesh: under a fake process group of the
+mesh's ranks each argument is a DTensor laid out by its spec
+(`sharding.place`, as JAX's ``in_shardings``), holding only this rank's
+local shard, and the step runs the placed model (TP over ``model``, FSDP
+over ``data``, the MoE's experts and the SSD's heads over ``model``); every
+record says ``"sharded": true``. Without a mesh (`probe_costs` with
+``mesh=None``) a trace holds every argument whole. Two
 argument sizes per rank are reported:
 
   * ``spec_argument_bytes_per_rank`` — params, optimizer state, AFL state
     and batch (or cache and tokens), each leaf divided as the
     ``sharding.auto.infer_*_shardings`` specs say: the JAX package's layout
     (its ``memory_analysis`` argument size);
-  * ``held_argument_bytes_per_rank`` — what a rank of the port holds: for
-    a placed arch the bytes of its local shards (equal to the specs' to the
-    byte), for the others every argument whole.
+  * ``held_argument_bytes_per_rank`` — what a rank of the port holds: the
+    bytes of its local shards (equal to the specs' to the byte).
 
 ``peak_bytes_per_rank`` is the MemTracker peak of the whole traced step,
 arguments included, at the probe depths (`probe_costs`), extrapolated to
@@ -44,16 +42,13 @@ full depth; collective bytes (``probe_coll_per_rank``, by kind in
 out the global-shape stand-ins DTensor's sharding propagation makes
 (`_shard_tracker`), and its FLOPs (``probe_flops_placed``) mix two
 scopes: FlopCounterMode sees a DTensor op at its global shapes, and the
-attention the model runs on local shards at this rank's. A
-replicated trace's FLOPs are ``probe_flops_per_rank``: every rank computes
-the whole step. ``t_compute`` and ``t_memory`` divide the analytic FLOPs
-and bytes (`launch.analytic`) by one card's peaks and, for a placed step,
-by the chips; ``spec_t_compute`` and ``spec_t_memory`` always divide by the
-chips, as the JAX package's layout would. ``fits_one_card`` says whether
-the held arguments and the peak stay within the card's 80 GB. A
-replicated trace does not depend on the mesh, so `main` traces such an
-(arch, shape) once and the second mesh's record reuses its probes; a
-placed one is traced on each mesh.
+parts the model runs on local shards (attention, the MoE's routing and
+experts, the SSD) at this rank's. ``t_compute`` and ``t_memory`` divide
+the analytic FLOPs and bytes (`launch.analytic`) by one card's peaks and
+by the chips (``spec_t_compute`` and ``spec_t_memory``, the JAX package's
+layout, are the same numbers). ``fits_one_card`` says whether the held
+arguments and the peak stay within the card's 80 GB. Each mesh's record
+is traced on its own mesh.
 
 Peaks are the NVIDIA H100 SXM5 80GB HBM3 datasheet's (dense), chosen by the
 config's dtype. JAX's ``--keep-hlo`` has no counterpart (there is no HLO)
@@ -88,7 +83,7 @@ from repro_torch.sharding.auto import (infer_afl_shardings,
                                        infer_decode_cache_shardings,
                                        infer_opt_shardings,
                                        infer_params_shardings)
-from repro_torch.sharding.place import (contiguous_stride, has_placed_path,
+from repro_torch.sharding.place import (contiguous_stride,
                                         local_shape_offset, to_placements)
 from repro_torch.sharding.rules import axis_sizes, use_rules
 
@@ -477,20 +472,13 @@ def measure(args, run, *, mesh=None, specs=None) -> Dict:
             "coll_counts": int(comm.get_total_counts())}
 
 
-def placed(cfg, mesh) -> bool:
-    """Whether a trace on `mesh` places its arguments: a mesh is given and
-    `cfg`'s model has a placed path (the five attention-only decoders; the
-    other archs trace with every argument whole)."""
-    return mesh is not None and has_placed_path(cfg)
-
-
 def trace_train(arch, shape: InputShape, mesh=None, *, algo="ace",
                 remat="full", lr=0.01, cfg=None, fsdp=True,
                 cache_dtype=None, **afl_over):
     """One AFL train step (`make_afl_train_step` with the arch's
     `afl_config`, ``backend="torch"``) over fake tensors, placed by the
-    specs on `mesh` where the arch has a placed path (`placed`) -> (`measure`'s
-    record, the arguments' meta trees and specs, cfg)."""
+    specs on `mesh` (if given) -> (`measure`'s record, the arguments'
+    meta trees and specs, cfg)."""
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     over = {"algorithm": algo, **afl_over}
     if cache_dtype:
@@ -501,9 +489,7 @@ def trace_train(arch, shape: InputShape, mesh=None, *, algo="ace",
     _, step_fn = make_afl_train_step(
         lambda p, b: model.loss_fn(p, b, remat=remat), aflc, sgd(lr),
         backend="torch")
-    return (measure(args, step_fn, mesh=mesh,
-                    specs=specs if placed(cfg, mesh) else None),
-            (args, specs), cfg)
+    return measure(args, step_fn, mesh=mesh, specs=specs), (args, specs), cfg
 
 
 def trace_prefill(arch, shape: InputShape, mesh=None, cfg=None):
@@ -511,8 +497,7 @@ def trace_prefill(arch, shape: InputShape, mesh=None, cfg=None):
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     model = build_model(cfg)
     args, specs = prefill_args(cfg, shape, mesh)
-    return (measure(args, model.prefill, mesh=mesh,
-                    specs=specs if placed(cfg, mesh) else None),
+    return (measure(args, model.prefill, mesh=mesh, specs=specs),
             (args, specs), cfg)
 
 
@@ -522,8 +507,7 @@ def trace_decode(arch, shape: InputShape, mesh=None, cfg=None):
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     model = build_model(cfg)
     args, specs = decode_args(cfg, shape, mesh)
-    return (measure(args, model.decode_step, mesh=mesh,
-                    specs=specs if placed(cfg, mesh) else None),
+    return (measure(args, model.decode_step, mesh=mesh, specs=specs),
             (args, specs), cfg)
 
 
@@ -598,9 +582,9 @@ def argument_bytes(arch, shape: InputShape, mesh, *, algo="ace", cfg=None,
                    fsdp=True, cache_dtype=None):
     """``(spec bytes per rank, held bytes per rank, cfg)`` of a mode's
     arguments on the mesh of axis sizes `mesh`: the specs' division of each
-    leaf, and what a rank holds — for an arch with a placed path the bytes
-    of its local shards, placed over a fake world of the mesh's ranks (fake
-    CPU tensors: no byte allocated), else every argument whole."""
+    leaf, and what a rank holds: the bytes of its local shards, placed over
+    a fake world of the mesh's ranks (fake CPU tensors: no byte
+    allocated)."""
     cfg = cfg or get_config(arch, shape=shape.name, dtype="bfloat16")
     sizes = axis_sizes(mesh)
     if shape.mode == "train":
@@ -613,24 +597,18 @@ def argument_bytes(arch, shape: InputShape, mesh, *, algo="ace", cfg=None,
         args, specs = prefill_args(cfg, shape, mesh)
     else:
         args, specs = decode_args(cfg, shape, mesh)
-    held = tree_bytes(args)
-    if placed(cfg, mesh):
-        from torch._subclasses.fake_tensor import FakeTensorMode
-        with fake_world(math.prod(sizes.values())):
-            dmesh = device_mesh(mesh, "cpu")
-            with FakeTensorMode():
-                held = local_bytes(_fake_args(args, specs, dmesh, "cpu"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_world(math.prod(sizes.values())):
+        dmesh = device_mesh(mesh, "cpu")
+        with FakeTensorMode():
+            held = local_bytes(_fake_args(args, specs, dmesh, "cpu"))
     return tree_bytes(args, specs, sizes), held, cfg
 
 
 def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
             remat="full", probes: bool = True, variant: str = "",
-            cache_dtype: Optional[str] = None,
-            probe_memo: Optional[Dict] = None) -> Dict:
-    """One record. `probe_memo` (a dict) keeps each (arch, shape, mesh,
-    algo, remat, cache dtype)'s probes: an arch without a placed path
-    traces the same step on every mesh, so its probes are reused for the
-    next mesh; a placed arch's trace depends on the mesh."""
+            cache_dtype: Optional[str] = None) -> Dict:
+    """One record: the (arch, shape) placed on the production mesh."""
     shape = INPUT_SHAPES[shape_name]
     if not supports_shape(arch, shape_name):
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
@@ -640,12 +618,11 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
     t0 = time.time()
     spec_b, held_b, cfg = argument_bytes(arch, shape, mesh, algo=algo,
                                          cache_dtype=cache_dtype)
-    sharded = placed(cfg, mesh)
     rec = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "mode": shape.mode, "algo": algo if shape.mode == "train" else None,
         "variant": variant, "chips": int(chips), "mesh": mesh,
-        "sharded": sharded,
+        "sharded": True,
         "trace_device": trace_device(), "hardware": HARDWARE,
         "spec_argument_bytes_per_rank": int(spec_b),
         "held_argument_bytes_per_rank": int(held_b),
@@ -662,36 +639,25 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
     rec["analytic_flops_total"] = ana["flops"]
     rec["analytic_bytes_total"] = ana["bytes"]
     if probes:
-        key = (arch, shape_name, multi_pod if sharded else None, algo, remat,
-               cache_dtype)
-        pr = (probe_memo or {}).get(key)
-        if pr is None:
-            with fake_world(chips):
-                pr = probe_costs(arch, shape, mesh, algo=algo, remat=remat,
-                                 cache_dtype=cache_dtype)
-            if probe_memo is not None:
-                probe_memo[key] = pr
-        if sharded:
-            # DTensor ops at global shapes, local-shard attention at a
-            # rank's: neither the whole step's count nor a rank's
-            rec["probe_flops_placed"] = pr["flops"]
-        else:
-            rec["probe_flops_per_rank"] = pr["flops"]
+        with fake_world(chips):
+            pr = probe_costs(arch, shape, mesh, algo=algo, remat=remat,
+                             cache_dtype=cache_dtype)
+        # DTensor ops at global shapes, the local-shard parts at a rank's:
+        # neither the whole step's count nor a rank's
+        rec["probe_flops_placed"] = pr["flops"]
         rec["peak_bytes_per_rank"] = pr["peak_bytes"]
         rec["probe_coll_per_rank"] = pr["coll_bytes"]
         rec["probe_coll_detail"] = pr["coll_detail"]
         rec["peak_path"] = "plain versions (backend='torch')"
     rec["trace_s"] = round(time.time() - t0, 1)
 
-    # roofline terms (seconds a step, per rank): a placed step's work is
-    # divided over the chips (spec_*), a replicated one's is the whole
-    # step's on every rank
+    # roofline terms (seconds a step, per rank): the step's work divided
+    # over the chips
     peak = PEAK_FLOPS[cfg.dtype]
-    div = chips if sharded else 1
     rec.update({
         "peak_flops": peak, "hbm_bw": HBM_BW, "nvlink_bw": NVLINK_BW,
-        "t_compute": ana["flops"] / div / peak,
-        "t_memory": ana["bytes"] / div / HBM_BW,
+        "t_compute": ana["flops"] / chips / peak,
+        "t_memory": ana["bytes"] / chips / HBM_BW,
         "t_collective": rec.get("probe_coll_per_rank", 0.0) / NVLINK_BW,
         "spec_t_compute": ana["flops"] / chips / peak,
         "spec_t_memory": ana["bytes"] / chips / HBM_BW,
@@ -707,13 +673,10 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False, algo="ace",
                rec.get("peak_bytes_per_rank", 0.0))
     rec["fits_one_card"] = held <= CARD_BYTES
     if not rec["fits_one_card"]:
-        why = ("its arguments laid out by JAX's specs" if sharded else
-               f"the port replicates what JAX's layout splits to "
-               f"{spec_b / 1e9:.2f} GB of arguments (no placed path, "
-               f"ROADMAP A13b)")
         rec["fit_note"] = (f"holds {held / 1e9:.1f} GB per rank (arguments "
                            f"or peak) against the card's "
-                           f"{CARD_BYTES / 1e9:.0f} GB: {why}")
+                           f"{CARD_BYTES / 1e9:.0f} GB: its arguments laid "
+                           f"out by JAX's specs")
     return rec
 
 
@@ -736,7 +699,6 @@ def main(argv=None):
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    memo: Dict = {}
     with open(args.out, "a") as f:
         for arch in archs:
             for shape in shapes:
@@ -745,8 +707,7 @@ def main(argv=None):
                     try:
                         rec = run_one(arch, shape, multi_pod=mp,
                                       algo=args.algo, remat=args.remat,
-                                      probes=not args.no_probes,
-                                      probe_memo=memo)
+                                      probes=not args.no_probes)
                     except Exception as e:  # record failures, keep going
                         rec = {"arch": arch, "shape": shape, "multi_pod": mp,
                                "error": f"{type(e).__name__}: {e}"}

@@ -42,8 +42,8 @@ def _on_local_shards(fn, q, k, v, **kw):
     query head and its kv head then live on one rank), and every other dim
     is made whole: each rank's attention is then exactly its part of the
     whole one, with no DTensor op inside the block loops."""
-    from torch.distributed.tensor import DTensor, Replicate
-    from repro_torch.sharding.place import contiguous_stride
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding.place import wrap_local
     mesh = q.device_mesh
     heads = 1
     for i, p in enumerate(q.placements):
@@ -55,9 +55,7 @@ def _on_local_shards(fn, q, k, v, **kw):
     q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
                for x in (q, k, v))
     out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
-    shape = tuple(q.shape[:3]) + (v.shape[-1],)
-    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
-                              shape=shape, stride=contiguous_stride(shape))
+    return wrap_local(out, mesh, pl, tuple(q.shape[:3]) + (v.shape[-1],))
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, softcap_val=0.0,
@@ -138,9 +136,8 @@ def _decode_on_local_shards(q, k_cache, v_cache, valid_mask, **kw):
     whose sequence is whole on every rank: q takes the cache's batch and
     head splits (a query head and its kv head on one rank), the mask the
     batch's, and the output q's placements."""
-    from torch.distributed.tensor import DTensor, Shard
-    from repro_torch.sharding.place import (contiguous_stride,
-                                            local_shape_offset)
+    from torch.distributed.tensor import Shard
+    from repro_torch.sharding.place import local_shape_offset, wrap_local
     mesh = k_cache.device_mesh
     pl = tuple(Shard(1) if p.is_shard(2) else p for p in k_cache.placements)
     if tuple(q.placements) != pl:
@@ -152,9 +149,8 @@ def _decode_on_local_shards(q, k_cache, v_cache, valid_mask, **kw):
     (b, _, _), (b0, _, _) = local_shape_offset(tuple(q.shape), mesh, pl)
     out = decode_attention(q.to_local(), k_cache.to_local(),
                            v_cache.to_local(), valid_mask[b0:b0 + b], **kw)
-    shape = tuple(q.shape[:2]) + (v_cache.shape[-1],)
-    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
-                              shape=shape, stride=contiguous_stride(shape))
+    return wrap_local(out, mesh, pl,
+                      tuple(q.shape[:2]) + (v_cache.shape[-1],))
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, *, softcap_val=0.0):
@@ -333,9 +329,8 @@ def _mla_absorbed_on_local_shards(q_nope, q_rope, lat_c, kr_c, w_uk, w_uv,
     ``model``), the softmax runs over the whole sequence (the scores, not
     the cache, are gathered over ``data``), and each rank's context and
     values come from its own latent rows and sequence slice."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from repro_torch.sharding.place import (contiguous_stride,
-                                            local_shape_offset)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.place import local_shape_offset, wrap_local
     mesh = lat_c.device_mesh
     lat_pl = tuple(lat_c.placements)
     batch = tuple(Shard(0) if q.is_shard(0) else Replicate()
@@ -346,10 +341,6 @@ def _mla_absorbed_on_local_shards(q_nope, q_rope, lat_c, kr_c, w_uk, w_uv,
     def local(x, pl):
         return (x if tuple(x.placements) == pl
                 else x.redistribute(mesh, pl)).to_local()
-
-    def placed(t, pl, shape):
-        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
-                                  shape=shape, stride=contiguous_stride(shape))
 
     qn, qr = local(q_nope, batch), local(q_rope, batch)
     w_rows = tuple(Shard(0) if r else Replicate() for r in rows)
@@ -362,9 +353,10 @@ def _mla_absorbed_on_local_shards(q_nope, q_rope, lat_c, kr_c, w_uk, w_uv,
     s1 = torch.einsum("bhr,bsr->bhs", q_lat, lat).float()
     s2 = torch.einsum("bhr,bsr->bhs", qr, kr).float()
     seq_pl = tuple(Shard(2) if s_ else b for s_, b in zip(seq, batch))
-    s1 = placed(s1, tuple(Partial() if r else q
-                          for r, q in zip(rows, seq_pl)), (B, H, S))
-    s2 = placed(s2, seq_pl, (B, H, S))
+    s1 = wrap_local(s1, mesh, tuple(Partial() if r else q
+                                    for r, q in zip(rows, seq_pl)),
+                    (B, H, S))
+    s2 = wrap_local(s2, mesh, seq_pl, (B, H, S))
     s = (local(s1, batch) + local(s2, batch)) * scale
     valid = (torch.arange(S, device=s.device) <= p)[None, None, :]
     if is_placed(valid):            # made from a placed position
@@ -375,15 +367,15 @@ def _mla_absorbed_on_local_shards(q_nope, q_rope, lat_c, kr_c, w_uk, w_uv,
     ctx = torch.einsum("bhs,bsr->bhr", pr[..., s0:s0 + s_len].to(lat.dtype),
                        lat)
     R = lat_c.shape[2]
-    ctx = placed(ctx, tuple(Shard(2) if r else (Partial() if s_ else b)
-                            for r, s_, b in zip(rows, seq, batch)),
-                 (B, H, R))
+    ctx = wrap_local(ctx, mesh, tuple(
+        Shard(2) if r else (Partial() if s_ else b)
+        for r, s_, b in zip(rows, seq, batch)), (B, H, R))
     ctx = local(ctx, tuple(Shard(2) if r else b
                            for r, b in zip(rows, batch)))
     v = torch.einsum("bhr,rhv->bhv", ctx, wv)
-    return placed(v, tuple(Partial() if r else b
-                           for r, b in zip(rows, batch)),
-                  (B, H, w_uv.shape[2]))
+    return wrap_local(v, mesh, tuple(Partial() if r else b
+                                     for r, b in zip(rows, batch)),
+                      (B, H, w_uv.shape[2]))
 
 
 def mla_decode(params, x, cos, sin, cache, pos, cfg):

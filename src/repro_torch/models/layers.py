@@ -152,9 +152,8 @@ def _vocab_parallel_embedding(table, tokens):
     split (the ``data`` ranks' batches), which the ``data`` gather's
     backward reduce-scatters. (DTensor's own `F.embedding` rule gives a
     masked partial whose backward it cannot redistribute.)"""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    from repro_torch.sharding.place import (contiguous_stride,
-                                            local_shape_offset)
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch.sharding.place import local_shape_offset, wrap_local
     mesh = table.device_mesh
     tok_pl = (tokens.placements if is_placed(tokens)
               else [Replicate()] * mesh.ndim)
@@ -169,12 +168,10 @@ def _vocab_parallel_embedding(table, tokens):
     inside = (i >= 0) & (i < local.shape[0])
     rows = F.embedding(torch.clamp(i, 0, local.shape[0] - 1), local)
     rows = torch.where(inside[..., None], rows, 0.0)
-    shape = tuple(tokens.shape) + (table.shape[1],)
-    out = DTensor.from_local(
+    return settle(wrap_local(
         rows, mesh, [Partial() if split else t
                      for t, split in zip(tok_pl, vocab_split)],
-        run_check=False, shape=shape, stride=contiguous_stride(shape))
-    return settle(out)
+        tuple(tokens.shape) + (table.shape[1],)))
 
 
 def unembed_apply(params, x, *, logit_softcap=0.0):

@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
-from repro_torch.sharding.place import refuse_placed
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import (guarded_spec, is_placed, replicate,
+                                        shard, use_param)
 
 
 def moe_init(generator, cfg, dtype, device=None):
@@ -98,21 +98,43 @@ def _routing(top_e, E, C, k):
     return slot, kept, torch.gather(sort_i, 1, pos), filled
 
 
+def _experts(buf, wi_gate, wi_up, wo):
+    """The expert FFN over a (G, E, C, d) buffer and E experts' weights."""
+    buf = shard(buf, ("batch", "experts", None, None))
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, wi_gate)) \
+        * torch.einsum("gecd,edf->gecf", buf, wi_up)
+    h = shard(h, ("batch", "experts", None, None))
+    return torch.einsum("gecf,efd->gecd", h, wo)
+
+
 def moe_apply(params, x, cfg):
     """x (B, L, d) -> (y (B, L, d), aux_loss scalar).
 
     Group-local dispatch: tokens are grouped per sequence (G = B) unless
-    L == 1 (decode: one group of the B tokens). Placed tensors over more
-    than one rank raise: the experts' split over ``model`` is ROADMAP
-    A13b."""
-    refuse_placed(x, "the MoE FFN")
-    B, L, d = x.shape
+    L == 1 (decode: one group of the B tokens). Placed, it runs on each
+    rank's local shards (`_moe_placed`)."""
+    if is_placed(x):
+        return _moe_placed(params, x, cfg)
+    return _moe(x, x, params["router"], cfg, lambda buf: _experts(
+        buf, params["wi_gate"], params["wi_up"], params["wo"]))
+
+
+def _moe(x_router, x_experts, router, cfg, experts, mean=None, lo=0,
+         count=None):
+    """The MoE on plain tensors: `x_router` feeds the router and
+    `x_experts` the dispatch (one tensor, or two views of one whose
+    gradients are laid out apart); `experts(buf)` maps the dispatch buffer
+    of the `count` experts from `lo` (default: all) to every expert's
+    outputs (G, E, C, d); `mean` takes the load-balance loss's means over
+    the groups to the means over every rank's groups."""
+    B, L, d = x_router.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
+    count = E if count is None else count
     G = B if L > 1 else 1
     Tg = (B * L) // G
-    xg = x.reshape(G, Tg, d)
+    xg = x_router.reshape(G, Tg, d)
 
-    logits = (xg @ params["router"]).float()                 # (G, Tg, E)
+    logits = (xg @ router).float()                           # (G, Tg, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: the k largest, the lower index first on ties (a stable
     # descending sort keeps equal values in index order)
@@ -123,22 +145,27 @@ def moe_apply(params, x, cfg):
     # Switch-style load-balance auxiliary loss (global).
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1))
+    if mean is not None:
+        me, ce = mean(me), mean(ce)
     aux = E * torch.sum(me * ce)
 
     Tk = Tg * k
-    C = max(1, int(math.ceil(Tk / E * cfg.capacity_factor)))
+    C = _capacity(Tk, cfg)
     slot, kept, asg, filled = _routing(top_e, E, C, k)
 
     # each token's k assignments as rows (the backward sums over k in
-    # order), packed into the (G, E·C, d) slots
-    xa = xg[:, :, None, :].expand(G, Tg, k, d).reshape(G, Tk, d)
-    buf = _Route.apply(xa, asg, filled, slot, kept).reshape(G, E, C, d)
-    buf = shard(buf, ("batch", "experts", None, None))
-
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["wi_gate"])) \
-        * torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
-    h = shard(h, ("batch", "experts", None, None))
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["wo"])
+    # order), packed into the (G, count·C, d) slots of the experts held
+    xe = xg if x_experts is x_router else x_experts.reshape(G, Tg, d)
+    xa = xe[:, :, None, :].expand(G, Tg, k, d).reshape(G, Tk, d)
+    if count != E:
+        span = slice(lo * C, (lo + count) * C)
+        held = (slot >= span.start) & (slot < span.stop)
+        buf = _Route.apply(xa, asg[:, span], filled[:, span],
+                           torch.clamp(slot - span.start, 0, count * C - 1),
+                           kept & held)
+    else:
+        buf = _Route.apply(xa, asg, filled, slot, kept)
+    out_buf = experts(buf.reshape(G, count, C, d))
 
     # each assignment's expert output (0 if dropped), weighted, summed
     # over its token's k choices
@@ -146,3 +173,101 @@ def moe_apply(params, x, cfg):
     w = top_p.to(ya.dtype)
     y = (ya.reshape(G, Tg, k, d) * w[..., None]).sum(dim=2)
     return y.reshape(B, L, d), aux
+
+
+def _capacity(Tk, cfg) -> int:
+    return max(1, int(math.ceil(Tk / cfg.num_experts * cfg.capacity_factor)))
+
+
+def expert_split(mesh, buf_shape):
+    """How the experts of a (G, E, C, d) dispatch buffer lie on `mesh`, as
+    JAX's ``shard(buf, ("batch", "experts", None, None))`` lays them
+    (guarded): ``(the mesh dims that split them, the count a rank holds,
+    its first)``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.place import local_shape_offset, spec_dims
+    spec = guarded_spec(tuple(buf_shape), ("batch", "experts", None, None),
+                        mesh)
+    ex = spec_dims(mesh, spec[1])
+    (count,), (lo,) = local_shape_offset(
+        (buf_shape[1],), mesh,
+        [Shard(0) if i in ex else Replicate() for i in range(mesh.ndim)])
+    return ex, count, lo
+
+
+def expert_weight(p, ex, groups=()):
+    """A placed expert weight ((E, ·, ·), by its spec split over ``data``
+    and over ``model`` on its last two dims) as a rank's experts need it: a
+    plain (count, ·, ·) tensor of its experts (`expert_split`'s), whole in
+    its other dims — `use_param`'s gather over ``data``, then the split
+    over ``model`` moved onto the experts (an all-to-all). Its gradient is
+    partial over the mesh dims `groups` that split the batch's groups."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = p.device_mesh
+    pl = [Shard(0) if i in ex else Replicate() for i in range(mesh.ndim)]
+    p = use_param(p)
+    if tuple(p.placements) != tuple(pl):
+        p = p.redistribute(mesh, pl)
+    return p.to_local(grad_placements=[
+        Partial() if i in groups else q for i, q in enumerate(pl)])
+
+
+def _moe_placed(params, x, cfg):
+    """The MoE on placed tensors, on each rank's local shards, laid out as
+    JAX lays it out: the groups of its batch over ``data`` (at decode, the
+    one group of all B tokens gathered whole first and split again after)
+    and the experts over ``model`` (``("batch", "experts", None, None)``,
+    guarded). Each rank routes its own groups as plain tensors (the sort,
+    the searchsorted, the gathers: no DTensor rule for them is trusted),
+    packs the slots of the experts it holds, runs their products with the
+    weights gathered whole from their specs (`use_param`'s gather over
+    ``data``, the split of f over ``model`` re-laid onto the experts), and
+    gathers every expert's outputs over ``model`` so that
+    each token's k outputs are summed in index order. The load-balance
+    loss's means are averaged over the ranks that split the groups.
+    Gradients: the router's and the expert weights' partial over the
+    group split (reduce-scattered back to their specs), the input's
+    dispatch part partial over the expert split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.place import (batch_split_only, split_dims,
+                                            whole_local, wrap_local)
+    mesh, nd = x.device_mesh, x.device_mesh.ndim
+    B, L, d = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    G = B if L > 1 else 1
+    xw = batch_split_only(x) if L > 1 else replicate(x)
+    groups = split_dims(xw, 0)
+    C = _capacity((B * L // G) * k, cfg)
+    ex, count, lo = expert_split(mesh, (G, E, C, d))
+    router = whole_local(params["router"], [
+        Partial() if i in groups else Replicate() for i in range(nd)])
+    wg, wu, wo = (expert_weight(params[n], ex, groups)
+                  for n in ("wi_gate", "wi_up", "wo"))
+    xr = xw.to_local()
+    xe = xr if not ex else xw.to_local(grad_placements=[
+        Partial() if i in ex else p for i, p in enumerate(xw.placements)])
+    n_groups = 1
+    for i in groups:
+        n_groups *= mesh.size(i)
+
+    def mean(t):
+        part = [Partial() if i in groups else Replicate() for i in range(nd)]
+        return wrap_local(t / n_groups, mesh, part, t.shape).full_tensor()
+
+    def experts(buf):
+        out = _experts(buf, wg, wu, wo)
+        if not ex:
+            return out
+        shard_pl = [Shard(1) if i in ex else xw.placements[i]
+                    for i in range(nd)]
+        whole_pl = [Replicate() if i in ex else xw.placements[i]
+                    for i in range(nd)]
+        return wrap_local(out, mesh, shard_pl, (G, E, C, d)).redistribute(
+            mesh, whole_pl).to_local()
+
+    y, aux = _moe(xr, xe, router, cfg, experts,
+                  mean=mean if groups else None, lo=lo, count=count)
+    y = wrap_local(y, mesh, xw.placements, x.shape)
+    if tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(mesh, x.placements)
+    return y, wrap_local(aux, mesh, (Replicate(),) * nd, ())

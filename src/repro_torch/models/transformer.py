@@ -18,9 +18,9 @@ JAX package's `shard` sites are kept (`repro_torch.sharding.rules`): on
 placed tensors (`repro_torch.sharding.place`) each block's output is
 redistributed to ``("batch", "seq", "embed")``, and a unit runs where plain
 tensors meet placed ones as replicated (`placed_scope`), its recompute in
-the backward pass too. The kinds no placed path covers yet (mamba, the
-shared block, the MoE FFN, cross-attention) raise on placed tensors over
-more than one rank (ROADMAP A13b)."""
+the backward pass too. The shared block's one placed parameter set is
+gathered at each of its uses, so its gradient sums over the units that
+use it."""
 from __future__ import annotations
 
 import functools
@@ -35,8 +35,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
-from repro_torch.sharding.place import placed_scope, refuse_placed
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.place import placed_scope
+from repro_torch.sharding.rules import (row_parallel, shard, split_heads,
+                                        use_param)
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +88,6 @@ def _ffn_apply(params, x, cfg):
     return mlp_apply(params["ffn"], x), 0.0
 
 
-def _refuse_kind(x, kind, cross: bool) -> None:
-    """The block kinds without a placed path raise on placed `x` (mamba
-    raises in `repro_torch.models.ssm`)."""
-    if kind == SHARED_ATTN:
-        refuse_placed(x, "zamba2's shared attention block")
-    if cross:
-        refuse_placed(x, "the encoder-decoder's cross-attention")
-
-
 def _window(kind, cfg):
     return cfg.window_size if kind in (ATTN_LOCAL, SHARED_ATTN) else 0
 
@@ -103,7 +95,6 @@ def _window(kind, cfg):
 def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
                 shared=None, return_cache=False):
     """Full-sequence (train / prefill) block. Returns (x, aux, cache|None)."""
-    _refuse_kind(x, kind, enc_out is not None)
     if kind == MAMBA:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y = ssm_lib.mamba_apply(params["mamba"], h, cfg)
@@ -137,7 +128,6 @@ def block_apply(params, kind, x, cos, sin, cfg, *, causal=True, enc_out=None,
 def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
                  cross_cache=None):
     """Single-token decode. x (B,1,d). Returns (x, new_cache)."""
-    _refuse_kind(x, kind, cross_cache is not None)
     if kind == MAMBA:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, new_cache = ssm_lib.mamba_decode(params["mamba"], h, cache, cfg)
@@ -158,13 +148,13 @@ def block_decode(params, kind, x, cos, sin, cache, pos, cfg, *, shared=None,
         # filled — ROADMAP C13)
         h = rms_norm(x, params["ln_c"], cfg.norm_eps)
         B = x.shape[0]
-        q = (h @ params["cross"]["wq"]).reshape(B, 1, cfg.num_heads,
-                                                cfg.head_dim)
+        q = split_heads(h @ use_param(params["cross"]["wq"]), cfg.num_heads,
+                        cfg.head_dim)
         valid = torch.ones((B, cross_cache["k"].shape[1]), dtype=torch.bool,
                            device=x.device)
         y = attn_lib.decode_attention(q[:, 0], cross_cache["k"],
                                       cross_cache["v"], valid)
-        x = x + y.reshape(B, 1, -1) @ params["cross"]["wo"]
+        x = x + row_parallel(y.reshape(B, 1, -1), params["cross"]["wo"])
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     y, _ = _ffn_apply(params, h, cfg)
     return x + y, new_cache

@@ -19,7 +19,10 @@ decode cache's heads over ``model`` with its batch, or at a batch that
 does not divide, its sequence, over ``data``. Each rank holds only its
 shard; `full_tree` gathers whole tensors back for comparisons and host
 reads. The model, the train step, prefill and decode run on placed
-arguments as they are (`repro_torch.sharding.rules.shard`, `use_param`).
+arguments as they are (`repro_torch.sharding.rules.shard`, `use_param`);
+where DTensor's ops cannot carry a layout (the MoE's routing and expert
+products, the SSD's heads, attention), a part runs on each rank's local
+shards as plain tensors (`whole_local`, `wrap_local`, `all_reduce_grad`).
 """
 from __future__ import annotations
 
@@ -28,28 +31,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL
 from repro_torch.sharding.auto import (infer_afl_shardings,
                                        infer_batch_shardings,
                                        infer_decode_cache_shardings,
                                        infer_opt_shardings,
                                        infer_params_shardings)
 from repro_torch.sharding.rules import _guard, axis_sizes, is_placed
-
-#: ROADMAP's item for the parts of the model no placed path covers yet
-NOT_PLACED = "ROADMAP A13b"
-#: the layer kinds a placed model runs (attention, global or windowed)
-PLACED_KINDS = (ATTN, ATTN_LOCAL)
-
-
-def has_placed_path(cfg) -> bool:
-    """Whether `cfg`'s model runs placed over more than one rank: an
-    attention-only decoder (yi-9b, llama3-405b, gemma2-2b, qwen2-vl-7b,
-    minicpm3-4b). The MoE FFN, the SSD, zamba2's shared block and the
-    encoder-decoder raise on placed tensors (ROADMAP A13b)."""
-    kinds = {k for pattern, _ in cfg.stages for k in pattern}
-    return (kinds <= set(PLACED_KINDS) and not cfg.is_moe
-            and not cfg.is_encoder_decoder)
 
 
 def to_placements(spec, mesh, shape: Optional[Sequence[int]] = None
@@ -114,6 +101,87 @@ def contiguous_stride(shape) -> Tuple[int, ...]:
         stride.append(acc)
         acc *= n
     return tuple(reversed(stride))
+
+
+def wrap_local(t, mesh, placements, shape):
+    """This rank's shard `t` of a tensor of global `shape` laid out by
+    `placements`, as a DTensor (no collective, no check)."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    return DTensor.from_local(t.contiguous(), mesh, tuple(placements),
+                              run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def split_dims(x, dim: int) -> Tuple[int, ...]:
+    """The mesh dims (of more than one rank) that split dim `dim` of a
+    DTensor `x`."""
+    mesh = x.device_mesh
+    return tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard(dim) and mesh.size(i) > 1)
+
+
+def spec_dims(mesh, entry) -> Tuple[int, ...]:
+    """The mesh dims (of more than one rank) that a spec entry (a mesh-axis
+    name, a tuple of names, or None) splits over."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return tuple(names.index(a) for a in axes
+                 if a is not None and mesh.size(names.index(a)) > 1)
+
+
+def batch_split_only(x):
+    """A DTensor `x` with only its batch's (dim 0's) split kept, every other
+    mesh dim made whole."""
+    from torch.distributed.tensor import Replicate
+    pl = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    return x if tuple(x.placements) == pl else x.redistribute(
+        x.device_mesh, pl)
+
+
+def whole_local(p, grad_placements):
+    """A placed tensor gathered whole on every rank, as a plain tensor whose
+    gradient comes back laid out by `grad_placements` (``Partial`` over the
+    mesh dims whose ranks each add their own part of it: the batch's split,
+    or a split of the work that reads it) and is then redistributed to
+    `p`'s own placements — a reduce-scatter where `p` is split."""
+    from torch.distributed.tensor import Replicate
+    mesh = p.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    if tuple(p.placements) != tuple(whole):
+        p = p.redistribute(mesh, whole)
+    return p.to_local(grad_placements=tuple(grad_placements))
+
+
+def _sum_over(t, groups):
+    import torch.distributed as dist
+    t = t.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+class _SumBothWays(torch.autograd.Function):
+    """A sum over the ranks of `groups` whose backward is the same sum."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _sum_over(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.groups), None
+
+
+def all_reduce_grad(t, mesh, dims):
+    """`t` summed over the ranks of the mesh dims `dims`, its gradient
+    summed the same way in the backward pass (each rank's part of the
+    result is used by that rank's own work): Megatron's reduce on both
+    passes. No dims: `t` as it is."""
+    if not dims:
+        return t
+    return _SumBothWays.apply(t, tuple(mesh.get_group(i) for i in dims))
 
 
 def _map2(fn, tree, specs):
@@ -218,16 +286,6 @@ def tree_mesh(tree):
                 return m
         return None
     return tree.device_mesh if is_placed(tree) else None
-
-
-def refuse_placed(x, what: str) -> None:
-    """Raise where `x` is placed on more than one rank: `what` has no placed
-    path yet (ROADMAP A13b). On a mesh of one rank every placement is whole,
-    and it runs."""
-    if is_placed(x) and x.device_mesh.size() > 1:
-        raise NotImplementedError(
-            f"{what} on placed tensors over {x.device_mesh.size()} ranks: "
-            f"not ported yet ({NOT_PLACED})")
 
 
 def placed_scope(*trees):

@@ -12,12 +12,13 @@ against the JAX package's (`repro.launch.dryrun`) on the CPU.
   * The traced train step's FLOPs lie within 0.9–3.5× of 6·N·D for
     train_4k, as tests/test_launch.py asks of the analytic count.
   * The collective counter counts real collectives by JAX's byte formulas;
-    the traced steps of an arch without a placed path issue none, the
-    placed ones (the five attention-only decoders) some.
-  * A placed record on a reduced yi-9b at a fake (2, 2) world: held bytes
-    (the local shards') equal to the specs', collectives above 0, each
-    kind's bytes summing to the total, and a peak per rank below the
-    replicated trace's.
+    the traced steps with every argument whole (no mesh) issue none, the
+    placed ones some.
+  * A placed record on a reduced yi-9b, and on a reduced qwen3-moe and
+    mamba2 (the MoE's experts and the SSD's heads over ``model``), at a
+    fake (2, 2) world: held bytes (the local shards') equal to the specs',
+    collectives above 0, each kind's bytes summing to the total, and a
+    peak per rank below the whole trace's.
   * The CLI writes one JSON line per combination.
 """
 import dataclasses
@@ -43,7 +44,6 @@ from repro.sharding import auto as jauto  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.configs.registry import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.sharding.place import has_placed_path  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -105,15 +105,13 @@ def _jax_arguments(arch, shape, mesh):
 @pytest.mark.parametrize("arch,shape", COMBOS)
 def test_spec_bytes_per_rank_equal_jax(arch, shape):
     """Both production meshes: the port's per-rank argument bytes under the
-    specs equal JAX's exactly; an arch with a placed path holds exactly
-    that per rank (its local shards), the others more (everything
-    whole)."""
+    specs equal JAX's exactly, and every arch holds exactly that per rank
+    (its local shards)."""
     sh = INPUT_SHAPES[shape]
-    placed = has_placed_path(get_config(arch))
     for sizes in MESHES.values():
         spec_b, held_b, _ = dryrun.argument_bytes(arch, sh, sizes)
         assert spec_b == _jax_arguments(arch, sh, _abstract(sizes))
-        assert held_b == spec_b if placed else held_b > spec_b
+        assert held_b == spec_b
 
 
 @pytest.fixture(scope="module")
@@ -174,24 +172,26 @@ def test_probe_extrapolation_equals_full_depth(arch, reps, enc, mode):
 @pytest.mark.parametrize("arch", ["yi-9b", "mamba2-780m"])
 def test_train_flops_sane(arch):
     """The traced train_4k step (full remat), extrapolated to full depth,
-    lies between 0.9× and 3.5× of 6·N_active·D (a placed step's FLOPs
-    count its DTensor ops at their global shapes and the attention it runs
-    on local shards at a rank's). yi-9b's step is
-    placed and issues collectives, mamba2's is not and issues none; both
-    hold more than a card per rank (mamba2 the whole batch, yi-9b JAX's
-    replicated AFL tree cache, ROADMAP C16)."""
+    lies between 0.9× and 3.5× of 6·N_active·D. yi-9b's step is placed at
+    the production mesh and issues collectives (its FLOPs count its DTensor
+    ops at their global shapes and the attention it runs on local shards at
+    a rank's); mamba2's is traced with every argument whole (no mesh: a
+    placed SSD runs on local shards, whose FLOPs count a rank's share, so
+    the whole step's count is the unplaced trace's) and issues none. Both
+    hold more than a card per rank (yi-9b JAX's replicated AFL tree cache,
+    ROADMAP C16; mamba2 the whole batch)."""
     cfg = get_config(arch, dtype="bfloat16")
     shape = INPUT_SHAPES["train_4k"]
+    mesh = MESHES["single"] if arch == "yi-9b" else None
     with dryrun.fake_world(256):
-        probe = dryrun.probe_costs(arch, shape, MESHES["single"],
-                                   remat="full")
+        probe = dryrun.probe_costs(arch, shape, mesh, remat="full")
     model_flops = 6 * cfg.active_param_count() * shape.global_batch \
         * shape.seq_len
     assert 0.9 * model_flops < probe["flops"] < 3.5 * model_flops
-    if has_placed_path(cfg):
-        assert probe["coll_bytes"] > 0.0
-    else:
+    if mesh is None:
         assert probe["coll_bytes"] == 0.0
+    else:
+        assert probe["coll_bytes"] > 0.0
     assert probe["peak_bytes"] > dryrun.CARD_BYTES
 
 
@@ -199,10 +199,9 @@ def test_collective_counter_and_none_in_the_port():
     """Collectives issued under a fake world of 4 ranks are counted by
     JAX's formulas (all-reduce 2 × size, all-gather the result,
     reduce-scatter result × k); the port's traced train, prefill and
-    decode issue none for an arch without a placed path (mamba2 at the
-    production mesh, every argument whole) and some for yi-9b's placed ones
-    (on a fake (2, 2) world: the reduced batch of 2 divides its ``data``
-    axis)."""
+    decode issue none with every argument whole (mamba2 without a mesh)
+    and some placed (yi-9b and mamba2 on a fake (2, 2) world: the reduced
+    batch of 2 divides its ``data`` axis)."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
     with dryrun.fake_world(4):
@@ -224,14 +223,15 @@ def test_collective_counter_and_none_in_the_port():
             assert c.bytes["all-gather"] == 128
             assert c.bytes["reduce-scatter"] == 128
     assert not dist.is_initialized()
-    for arch, mesh in (("mamba2-780m", MESHES["single"]),
-                       ("yi-9b", {"data": 2, "model": 2})):
+    for arch, mesh in (("mamba2-780m", None),
+                       ("yi-9b", {"data": 2, "model": 2}),
+                       ("mamba2-780m", {"data": 2, "model": 2})):
         cfg = get_config(arch).reduced(d_model=64, vocab=96)
-        with dryrun.fake_world(math.prod(mesh.values())):
+        with dryrun.fake_world(math.prod((mesh or {"": 4}).values())):
             for mode in ("train", "prefill", "decode"):
                 rec = dryrun._trace(arch, SMALL[mode], mesh, cfg, "ace",
                                     "full")
-                if has_placed_path(cfg):
+                if mesh is not None:
                     assert rec["coll_counts"] > 0 and rec["coll_bytes"] > 0
                 else:
                     assert rec["coll_counts"] == 0
@@ -300,29 +300,32 @@ def test_cli_writes_one_line_per_combination(tmp_path):
     dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
                  "--out", str(out)])
     last = json.loads(out.read_text().splitlines()[-1])
-    assert not last["sharded"]
-    assert last["probe_coll_per_rank"] == 0.0
+    assert last["sharded"]
+    assert last["held_argument_bytes_per_rank"] == \
+        last["spec_argument_bytes_per_rank"]
+    assert last["probe_coll_per_rank"] > 0.0
     assert last["peak_bytes_per_rank"] >= last["held_argument_bytes_per_rank"]
-    assert last["probe_flops_per_rank"] > 0
+    assert last["probe_flops_placed"] > 0
 
 
-def test_placed_record_at_a_fake_2x2_world():
-    """A reduced yi-9b, train, prefill and decode on the mesh (data 2,
-    model 2): the arguments a rank holds (its local shards) are the specs'
-    division to the byte, the placed trace issues collectives (their bytes
-    by kind summing to the total), and its peak per rank is below the
-    trace with every argument whole."""
-    cfg = get_config("yi-9b").reduced(d_model=64, vocab=96)
+def _placed_record_holds(arch, modes=("train", "prefill", "decode")):
+    """A reduced `arch`'s modes on the mesh (data 2, model 2): the arguments
+    a rank holds (its local shards) are the specs' division to the byte,
+    the placed trace issues collectives (their bytes by kind summing to the
+    total), and its peak per rank is below the trace with every argument
+    whole."""
+    cfg = get_config(arch).reduced(d_model=64, vocab=96)
     sizes = {"data": 2, "model": 2}
-    for mode in ("train", "prefill", "decode"):
+    for mode in modes:
         shape = SMALL[mode]
-        spec_b, held_b, _ = dryrun.argument_bytes("yi-9b", shape, sizes,
+        spec_b, held_b, _ = dryrun.argument_bytes(arch, shape, sizes,
                                                   cfg=cfg)
-        assert held_b == spec_b < dryrun.tree_bytes(_whole_args(cfg, shape))
+        assert held_b == spec_b < dryrun.tree_bytes(
+            _whole_args(cfg, shape, arch))
         with dryrun.fake_world(4):
-            placed = dryrun.probe_costs("yi-9b", shape, sizes, cfg=cfg,
+            placed = dryrun.probe_costs(arch, shape, sizes, cfg=cfg,
                                         remat="full")
-        whole = dryrun.probe_costs("yi-9b", shape, None, cfg=cfg,
+        whole = dryrun.probe_costs(arch, shape, None, cfg=cfg,
                                    remat="full")
         assert placed["coll_bytes"] > 0
         assert sum(placed["coll_detail"].values()) == placed["coll_bytes"]
@@ -330,11 +333,25 @@ def test_placed_record_at_a_fake_2x2_world():
         assert whole["coll_bytes"] == 0
 
 
-def _whole_args(cfg, shape):
+def test_placed_record_at_a_fake_2x2_world():
+    """A reduced yi-9b, train, prefill and decode (`_placed_record_holds`)."""
+    _placed_record_holds("yi-9b")
+
+
+@pytest.mark.parametrize("arch,modes", [
+    ("qwen3-moe-235b-a22b", ("prefill", "decode")),
+    ("mamba2-780m", ("train", "decode"))])
+def test_placed_moe_and_ssd_records_at_a_fake_2x2_world(arch, modes):
+    """The MoE's experts and the SSD's heads over ``model``: a reduced
+    qwen3-moe's and mamba2's placed records (`_placed_record_holds`)."""
+    _placed_record_holds(arch, modes)
+
+
+def _whole_args(cfg, shape, arch="yi-9b"):
     """A mode's arguments as meta trees (every leaf whole)."""
     if shape.mode == "train":
         return dryrun.train_args(cfg, shape, dryrun.afl_config(
-            "yi-9b", algorithm="ace"))[0]
+            arch, algorithm="ace"))[0]
     if shape.mode == "prefill":
         return dryrun.prefill_args(cfg, shape)[0]
     return dryrun.decode_args(cfg, shape)[0]

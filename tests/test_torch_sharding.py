@@ -19,8 +19,14 @@ without ranks:
   * `place.to_placements` on tuple axes (``("pod", "data")``), one-rank
     axes and dims that do not divide, and the kernel wrappers on DTensors:
     rows whole on each rank run on the local shard (the quantizers also on
-    rows split over ranks), a row split across ranks raises.
+    rows split over ranks), a row split across ranks raises;
+  * on a fake group at a chosen rank, the MoE's expert re-split (each
+    rank's experts, their weights whole in d and f) and the SSD's
+    re-layout of its in-projection onto the heads (the columns of a rank's
+    heads, B and C whole), local shapes and offsets against the specs.
 """
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -357,3 +363,114 @@ def test_mesh_constructors_without_a_group():
         tmesh.make_production_mesh()
     with pytest.raises(ValueError, match="512"):
         tmesh.make_production_mesh(multi_pod=True)
+
+
+@contextlib.contextmanager
+def _fake_rank(world, rank):
+    """A fake process group of `world` ranks in which this process is
+    `rank` (its mesh coordinate follows), DTensor's caches emptied after."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.dryrun import _forget_meshes
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _placed_param(name, shape, m):
+    from repro_torch.sharding import place
+    spec = tauto.param_spec((name,), torch.zeros(shape), trules.axis_sizes(m))
+    return place.distribute(torch.zeros(shape), spec, m), spec
+
+
+@pytest.mark.parametrize("shape,rank,experts", [
+    ((2, 2), 3, 8), ((1, 4), 2, 8), ((1, 4), 1, 6), ((4, 1), 1, 8)])
+def test_moe_expert_resplit_local_shapes(shape, rank, experts):
+    """`moe.expert_split` lays the experts over ``model`` where
+    ``("batch", "experts", None, None)``'s guarded spec does (8 experts
+    over 2 or 4 ranks; 6 over 4 stay whole), and `moe.expert_weight` turns
+    each expert weight, placed by its spec (d over ``data``, f over
+    ``model``), into the rank's experts whole in d and f."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.place import local_shape_offset
+    d, f, C = 8, 12, 4
+    with _fake_rank(4, rank):
+        m = trules.build_mesh(shape, ("data", "model"))
+        coord = m.get_coordinate()
+        spec = trules.guarded_spec((2, experts, C, d),
+                                   ("batch", "experts", None, None), m)
+        ex, count, lo = moe.expert_split(m, (2, experts, C, d))
+        if spec[1] == "model" and m.size(1) > 1:
+            assert ex == (1,)
+            assert (count, lo) == (experts // m.size(1),
+                                   coord[1] * (experts // m.size(1)))
+        else:
+            assert (ex, count, lo) == ((), experts, 0)
+        for name, dims in (("wi_gate", (d, f)), ("wo", (f, d))):
+            w, wspec = _placed_param(name, (experts,) + dims, m)
+            assert wspec[0] is None
+            want, _ = local_shape_offset(w.shape, m, w.placements)
+            assert tuple(w.to_local().shape) == want
+            assert tuple(moe.expert_weight(w, ex).shape) == (count,) + dims
+
+
+@pytest.mark.parametrize("shape,rank,expand", [
+    ((2, 2), 3, 2), ((1, 4), 2, 2), ((1, 4), 1, 3), ((2, 2), 1, 3)])
+def test_ssd_projection_relayout_local_columns(shape, rank, expand):
+    """The SSD's heads on a placed (B, L, d) input lie over ``model`` where
+    ``("batch", "seq", "ssm_heads", None)``'s guarded spec puts them (4
+    heads over 2 or 4 ranks; 6 heads over 2, and whole over 4); a rank's
+    in-projection columns are its heads' z, x and dt and all of B and C,
+    its conv channels its heads' x and all of B and C — not the in-
+    projection's own column split over ``model`` — and its parameters cut
+    to them have those shapes."""
+    import dataclasses
+    from torch.distributed.tensor import Partial
+    from repro_torch.models import ssm
+    from repro_torch.sharding import place
+    cfg = dataclasses.replace(tget_config("mamba2-780m").reduced(
+        d_model=64, vocab=96), ssm_expand=expand, dtype="float32")
+    H, P, N, K, di = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_conv, cfg.d_inner)
+    assert cfg.ssm_groups == 1 and H == 2 * expand
+    with _fake_rank(4, rank):
+        m = trules.build_mesh(shape, ("data", "model"))
+        coord = m.get_coordinate()
+        x = place.distribute(torch.zeros(4, 16, 64), ("data",), m)
+        heads = ssm._Heads(x, cfg)
+        spec = trules.guarded_spec((4, 16, H, P),
+                                   ("batch", "seq", "ssm_heads", None), m)
+        if spec[2] == "model" and m.size(1) > 1:
+            h = H // m.size(1)
+            assert (heads.dims, heads.h, heads.h0) == ((1,), h, coord[1] * h)
+        else:
+            h = H
+            assert (heads.dims, heads.h, heads.h0) == ((), H, 0)
+        h0 = heads.h0
+        proj, conv = heads.columns(cfg, "cpu")
+        xs = list(range(h0 * P, (h0 + h) * P))
+        bc = list(range(di, di + 2 * N))
+        assert conv.tolist() == xs + bc
+        assert proj.tolist() == xs + [di + c for c in xs + bc] + list(
+            range(2 * di + 2 * N + h0, 2 * di + 2 * N + h0 + h))
+        params = ssm.mamba_init(torch.Generator().manual_seed(0), cfg,
+                                torch.float32)
+        placed = place.distribute_tree(
+            params, tauto.infer_params_shardings(params, m), m)
+        ip = placed["in_proj"]
+        own, off = place.local_shape_offset(ip.shape, m, ip.placements)
+        assert tuple(ip.to_local().shape) == own
+        p = heads.cut(heads.gather(placed, [Partial()] * 2), cfg, "cpu")
+        want = {"in_proj": (64, len(proj) if heads.dims else ip.shape[1]),
+                "conv_w": (K, len(conv) if heads.dims else di + 2 * N),
+                "conv_b": (len(conv) if heads.dims else di + 2 * N,),
+                "A_log": (h,), "D": (h,), "dt_bias": (h,), "norm": (h * P,)}
+        assert {k: tuple(v.shape) for k, v in p.items()} == want
+        if heads.dims:
+            # the spec's own column block mixes the sections' columns
+            block = set(range(off[1], off[1] + own[1]))
+            assert block != set(proj.tolist())
