@@ -32,7 +32,13 @@ result line):
      offsets of 1-3, 4, 8 and 12 bytes; both also at (1, 17,227) and
      (2, 7), untimed, and each prints its launch plan; row_delta,
      cache_row_update and quantize_rows (1, d) also at the text task's
-     d = 70,996, the row kernels there on their cooperative grid. Each is timed
+     d = 70,996, the row kernels there on their cooperative grid;
+     quantize_rows also at (1, 131,072), (1, 2,097,152) and
+     (1, 2^24 + 3), the last two on its cooperative grid, each quantize_rows
+     shape timed on the other kind of plan too (grid or cluster) and
+     beside its two-pass floor (9 B a number); a traced grid launch, cluster
+     launch and dequantize_rows launch, each counted as its own kernel's
+     by the traces' name matching. Each is timed
      beside its bound and its plain version, and dequantize_rows beside
      `torch.mul(q, s[:, None])`, the one PyTorch call that computes it (no
      single call computes the other five: their library_ms is null);
@@ -134,9 +140,12 @@ result line):
      within 0.5 of ln 64,000, a prefill of 16 tokens carried into a
      decode cache and 16 decode steps against the forward pass within
      3e-3; (d) quantize_rows and dequantize_rows bit for bit with their
-     plain versions at every leaf numel by 1 and 8 rows, and timed at the
-     embedding's row, (1, 262,144,000); (b) ACE int8
-     K = 1 and ACED int8 K = 3, each graph run bit for bit with its eager
+     plain versions at every leaf numel by 1 and 8 rows, quantize_rows
+     timed (CUDA events, 5 calls) at each of those views of 2^20 numbers
+     or more (its grid) beside the cluster plan, its bound, two-pass floor
+     and plain version, dequantize_rows at the embedding's row,
+     (1, 262,144,000); (b) ACE int8 K = 1 and ACED int8 K = 3, each graph
+     run bit for bit with its eager
      run, finite, both quant kernels launched, eval losses and peak memory
      printed; (c) ACE again with the plain versions (no launch, within
      1e-4); (e) ACE timed eager, graph, graph, eager and one graph run
@@ -246,6 +255,12 @@ F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
 F32_TOL = 1e-6
 D_SLICE, K_SLICE, D_LARGE = 17226, 16, (1 << 24) + 3
 D_TEXT = 70996                   # the text task's width (row kernels: grid)
+# quantize_rows' grid (one row each; ROADMAP B item 2's untimed sizes)
+D_QUANT_GRID = (131072, 2097152, D_LARGE)
+# quantize_rows' ms (CUDA events) at the embedding rows on the cluster plan
+# they had before the grid, as PERF.md §6 rows 5a'' and 5a''' keep them
+CLUSTER_MS = {(1, 262144000): 5.92841, (1, 65536000): 1.50319}
+LEAF_ITERS = 5                   # timed calls at a real model's leaf views
 N_SLICE, D_ROWS_LARGE = 100, (1 << 22) + 3      # (n, d) of the cache-wide kernels
 
 KERNELS = {
@@ -265,12 +280,14 @@ KERNELS = {
                         "src/repro/kernels/quant.py:83"),
 }
 ALSO_REPLACES = {"quantize_rows": "src/repro/kernels/quant.py:62"}
-# the CUDA function each kernel's launches carry in a profiler trace
+# the CUDA functions each kernel's launches carry in a profiler trace, as a
+# pattern matched where a name starts (`symbol_matches`): quantize_rows'
+# cluster and grid kernels, never dequantize_rows_kernel
 KERNEL_SYMBOLS = {"row_delta": "row_delta",
                   "cache_row_update": "cache_update",
                   "commit_batch": "commit_batch_kernel",
                   "masked_agg": "masked_agg_kernel",
-                  "quantize_rows": "quantize_rows_kernel",
+                  "quantize_rows": "quantize_rows_(?:grid_)?kernel",
                   "dequantize_rows": "dequantize_rows_kernel"}
 RULE_LANES = {1: (), 2: ("a", "b"), 3: ("a", "g")}   # ACE, ACED, CA²FL
 
@@ -286,14 +303,21 @@ def check(cond, msg):
 
 # --- timing -----------------------------------------------------------------
 
+def symbol_matches(symbol, name):
+    """Whether a kernel `name` in a trace is one of `symbol`'s (a pattern
+    of `KERNEL_SYMBOLS`): the pattern where a name starts, so that
+    "quantize_rows_kernel" never counts a dequantize_rows_kernel."""
+    return re.search(r"(?<![A-Za-z_])" + symbol, name) is not None
+
+
 def _device_us(torch, prof, name_part, launches=False):
     """Device time (µs) in a profile, or with `launches` the number of
-    device events: of the kernels whose name holds `name_part`, or of every
-    kernel when it is None. Only the device-side events count (a CPU op's
-    own device time is its kernels' again)."""
+    device events: of the kernels `name_part` matches (`symbol_matches`),
+    or of every kernel when it is None. Only the device-side events count
+    (a CPU op's own device time is its kernels' again)."""
     total = 0.0
     for e in device_kernels(torch, prof):
-        if name_part is None or name_part in e.key:
+        if name_part is None or symbol_matches(name_part, e.key):
             total += e.count if launches else e.self_device_time_total
     return total
 
@@ -305,17 +329,9 @@ def measure(torch, fn, iters, kernel_name=None):
     the profiler saw no device time. Event time is CUDA events around
     `iters` back-to-back calls (what a caller pays, host overhead
     included)."""
-    for _ in range(3):
+    for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / iters
+    event_ms = _event_ms(torch, fn, iters)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -547,6 +563,20 @@ def compare_commit(torch, ops, K, d, R, dev, card, valid=None, label="",
     return err, row
 
 
+def _event_ms(torch, fn, iters):
+    """CUDA-event ms per call over `iters` back-to-back calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _timed(torch, fn, iters, kernel_name, bound):
     """(ms, source): the profiler's device time per call, unless it saw no
     such kernel or less time than the bound — the trace then lost kernel
@@ -603,10 +633,26 @@ def _offset(torch, t, offset):
     return view
 
 
-def compare_quant(torch, ops, n, d, dev, card, timed=True, quiet=False):
+def _plan_text(plan):
+    C, T, V, on_chip = plan
+    if on_chip == "grid":
+        return (f"cooperative grid, {C} blocks a row of {T} threads, {V} "
+                f"loads a thread in flight")
+    return (f"cluster {C}, {T} threads a block, slice in {on_chip}"
+            f"{f' ({V} vectors a thread)' if on_chip == 'registers' else ''}")
+
+
+def compare_quant(torch, ops, n, d, dev, card, timed=True, quiet=False,
+                  iters=None):
     """quantize_rows at (n, d), also with x at 4, 8 and 12 bytes past a
     16-byte line: q and s bit-identical to the plain version. Prints the
-    launch plan unless `quiet`. Returns (max abs error of s, timing row or
+    launch plan unless `quiet`. Timed (the profiler's device time over 200
+    calls, or 10 at 10^7 numbers and more; with `iters`, CUDA events over
+    that many) beside the plain version, the bound (5 B a number), the
+    two-pass floor (9 B a number) and the other kind of plan at the same
+    shape: a grid plan beside the cluster plan it replaces (and that plan's
+    time in the table, where it has one), a cluster plan beside the grid's
+    where the card holds one. Returns (max abs error of s, timing row or
     None)."""
     from repro_torch.kernels import quant as kq
     x = quant_input(torch, n, d, dev, seed=n + d % 1000)
@@ -627,20 +673,77 @@ def compare_quant(torch, ops, n, d, dev, card, timed=True, quiet=False):
               f"{tag}: x at offset {4 * off} B differs from plain")
     if quiet:
         return 0.0, None
-    C, T, V, on_chip = kq._quant_plan(n, d, kq._sm_count(dev))
+    sms = kq._sm_count(dev)
+    plan = kq._quant_plan(n, d, sms)
     rows_note = "all-zero row, half-way ties and " if n > 2 else ""
     print(f"kernel {tag}: q and s bit-identical ({rows_note}x at offsets "
-          f"4/8/12 B included); plan: cluster {C}, "
-          f"{T} threads a block, slice in {on_chip}"
-          f"{f' ({V} vectors a thread)' if on_chip == 'registers' else ''}"
-          f" [{card}]")
+          f"4/8/12 B included); plan: {_plan_text(plan)} [{card}]")
     if not timed:
         return 0.0, None
-    iters = 200 if n * d < 1e7 else 10
-    row = _timing_row(torch, tag, lambda b=None: ops.quantize_rows(
-        x, backend=b), "quantize_rows_kernel", n * d * 5 + n * 4,
-        n * d * 6, iters, card)
+    symbol = KERNEL_SYMBOLS["quantize_rows"]
+    call = lambda b=None: ops.quantize_rows(x, backend=b)  # noqa: E731
+    nbytes = n * d * 5 + n * 4
+    if iters is None:       # the profiler's device time
+        iters = 200 if n * d < 1e7 else 10
+        row = _timing_row(torch, tag, call, symbol, nbytes, n * d * 6,
+                          iters, card)
+
+        def timed_ms(fn):
+            return _timed(torch, fn, iters, symbol, row["bound_ms"])
+    else:                   # a leaf view: CUDA events alone
+        def timed_ms(fn):
+            return _event_ms(torch, fn, iters), "events"
+        row = dict(ms=timed_ms(call)[0], plain_ms=timed_ms(
+            lambda: call("torch"))[0], bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    floor = (n * d * 9 + n * 4) / HBM_BYTES_PER_S * 1e3
+    note = ""
+    try:
+        other = (kq._cluster_plan(n, d, sms) if plan[3] == "grid"
+                 else kq._grid_plan(n, d, sms))
+    except ValueError:          # more rows than the grid's blocks
+        other = None
+    if other is not None:
+        o_ms, o_src = timed_ms(lambda: kq.quantize_rows(x, plan=other))
+        note = f"; the {_plan_text(other)}: {o_ms:.5f} ms ({o_src})"
+    if (n, d) in CLUSTER_MS:
+        note += (f", the table's earlier {CLUSTER_MS[n, d]:.5f} ms (the "
+                 f"cluster plan, events; PERF.md §6)")
+    print(f"kernel {tag}: {_plan_text(plan)} {row['ms']:.5f} ms, bound "
+          f"{row['bound_ms']:.6f} ms, two-pass floor {floor:.6f} ms, plain "
+          f"{row['plain_ms']:.5f} ms{note} [{card}]")
     return 0.0, row
+
+
+def quant_symbols(torch, ops, dev, card):
+    """The traces' name matching on the quant kernels: one quantize_rows
+    launch on the grid, one on a cluster and one dequantize_rows launch,
+    traced; `KERNEL_SYMBOLS` must count each launch as its own kernel's
+    and no launch as both."""
+    from repro_torch.kernels import quant as kq
+    x = quant_input(torch, 1, D_LARGE, dev, seed=3)
+    grid = kq._grid_plan(1, D_LARGE, kq._sm_count(dev))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        q, s = kq.quantize_rows(x, plan=grid)
+        kq.quantize_rows(x[:, :D_SLICE].contiguous(), plan=kq._cluster_plan(
+            1, D_SLICE, kq._sm_count(dev)))
+        ops.dequantize_rows(q, s)
+        torch.cuda.synchronize()
+    counts = {name: {} for name in ("quantize_rows", "dequantize_rows")}
+    for e in device_kernels(torch, prof):
+        for name, seen in counts.items():
+            if symbol_matches(KERNEL_SYMBOLS[name], e.key):
+                seen[e.key] = seen.get(e.key, 0) + e.count
+    both = set(counts["quantize_rows"]) & set(counts["dequantize_rows"])
+    check(sum(counts["quantize_rows"].values()) == 2 and len(
+        counts["quantize_rows"]) == 2 and sum(
+        counts["dequantize_rows"].values()) == 1 and not both,
+        f"quant kernels' names matched wrongly: {counts}")
+    print(f"trace names: quantize_rows counts "
+          f"{sorted(k[:60] for k in counts['quantize_rows'])}, "
+          f"dequantize_rows {sorted(k[:60] for k in counts['dequantize_rows'])}"
+          f"; none counted twice [{card}]")
 
 
 def compare_dequant(torch, ops, n, d, dev, card, timed=True, quiet=False):
@@ -929,7 +1032,7 @@ def trace_engine(torch, ops, label, runner, args, E, tick_ms, card,
         device_events = device_kernels(torch, prof)
         per_tick = sum(e.count for e in device_events) / E
         ours = {name: [e for e in device_events
-                       if re.search(r"(?<![A-Za-z_])" + symbol, e.key)]
+                       if symbol_matches(symbol, e.key)]
                 for name, symbol in KERNEL_SYMBOLS.items()}
         seen = {name: sum(e.count for e in evs) for name, evs in ours.items()}
         off = {name: (seen[name], counts[name]) for name in seen
@@ -1699,20 +1802,22 @@ TREE_TIMED = (("ace", "int8", 1), ("aced", "int8", 1))
 TREE_KERNELS = ("quantize_rows", "dequantize_rows")
 
 
-def tree_leaf_kernels(torch, ops, tasks, rows, dev, card):
+def tree_leaf_kernels(torch, ops, tasks, rows, dev, card, timed_from=None):
     """quantize_rows and dequantize_rows at every ``(rows, numel)`` view the
     tree layout hands them: each leaf of each task's parameters, by one
     arriving row, a K-lane batch, the client count (the int8 init, the
     means, the resync) and the history ring's tau_max + 1 rows; q, s and
     the dequantized rows bit-identical to the plain versions (the all-zero
     row, the half-way ties and the offsets of `compare_quant` /
-    `compare_dequant` included)."""
+    `compare_dequant` included). quantize_rows is timed (`LEAF_ITERS`
+    calls) at every view of a leaf of `timed_from` numbers or more."""
     from repro_torch.convert import leaves
     numels = sorted({x.numel() for t in tasks for x in leaves(t.params0)})
     for d in numels:
         for n in rows:
-            compare_quant(torch, ops, n, d, dev, card, timed=False,
-                          quiet=True)
+            timed = timed_from is not None and d >= timed_from
+            compare_quant(torch, ops, n, d, dev, card, timed=timed,
+                          quiet=not timed, iters=LEAF_ITERS)
             compare_dequant(torch, ops, n, d, dev, card, timed=False,
                             quiet=True)
     print(f"kernel quantize_rows, dequantize_rows at the tree's leaf views: "
@@ -1921,7 +2026,8 @@ LM_RUNS = (("ace", 1), ("aced", 3))
 LM_GROUPS = {"matrix products": r"gemm",
              "embedding backward": r"embedding|segment|grad_weight|"
                                    r"sum_and_scatter|radixsort",
-             "quant kernels": r"quantize_rows_kernel|dequantize_rows_kernel"}
+             "quant kernels": r"quantize_rows_(grid_)?kernel|"
+                              r"dequantize_rows_kernel"}
 
 
 def lm_config(phase):
@@ -2004,8 +2110,10 @@ def lm_phase(torch, ops, dev, card, totals, phase="4f"):
     numbers (`LM_CUTS`), the eval loss at w0 within 0.5 of ln vocab and
     decode against forward; (d) quantize_rows and dequantize_rows against
     their plain versions at every leaf view of the tree by 1 and 8 rows,
-    timed at the embedding's one row; (b) ACE int8 K = 1 and ACED int8
-    K = 3 (int8 tree caches, an int8 ring, 12 ticks), each graph run bit
+    quantize_rows timed at the views of 2^20 numbers or more,
+    dequantize_rows at the embedding's one row; (b) ACE int8 K = 1 and
+    ACED int8 K = 3 (int8 tree caches, an int8 ring, 12 ticks), each graph
+    run bit
     for bit with its eager run (model, caches, outputs), finite, both
     quant kernels launched, eval losses at w0 and at the end, peak memory;
     (c) ACE again with the plain versions (no kernel, within 1e-4); (e)
@@ -2055,12 +2163,12 @@ def lm_phase(torch, ops, dev, card, totals, phase="4f"):
                     label=f"lm {phase}")
 
     # (d) the quant kernels at every (rows, numel) view the runs give them,
-    # and timed at the largest, the embedding leaf's one row (a cache row
-    # or ring write, a ring read)
+    # quantize_rows timed at every view of a leaf of 2^20 numbers or more
+    # (the grid's), dequantize_rows at the embedding leaf's one row (a
+    # cache row or ring write, a ring read)
     tree_leaf_kernels(torch, ops, (task,), (1, LM_TASK["n_clients"]), dev,
-                      card)
+                      card, timed_from=1 << 20)
     embed = task.params0["embed"]["embedding"].numel()
-    compare_quant(torch, ops, 1, embed, dev, card)
     compare_dequant(torch, ops, 1, embed, dev, card)
     free(torch)
 
@@ -3411,8 +3519,10 @@ def main() -> int:
     # (100, d) shapes are the int8 init and the cache-wide dequantizer
     errs["quantize_rows"], rows["quantize_rows"] = compare_quant(
         torch, ops, 1, D_SLICE, dev, card)
-    for n, d in ((1, D_TEXT), (N_SLICE, D_SLICE), (N_SLICE, D_ROWS_LARGE)):
+    for n, d in ((1, D_TEXT), (N_SLICE, D_SLICE), (N_SLICE, D_ROWS_LARGE),
+                 *((1, d) for d in D_QUANT_GRID)):
         compare_quant(torch, ops, n, d, dev, card)
+    quant_symbols(torch, ops, dev, card)
     errs["dequantize_rows"], rows["dequantize_rows"] = compare_dequant(
         torch, ops, N_SLICE, D_SLICE, dev, card)
     compare_dequant(torch, ops, N_SLICE, D_ROWS_LARGE, dev, card)

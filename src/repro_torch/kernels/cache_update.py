@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.backend import cuda_operand, stream_handle
-from repro_torch.kernels.quant import _quant_plan, _sm_count
+from repro_torch.kernels.quant import _cluster_plan, _sm_count
 from repro_torch.kernels.ref import set_row_ace_ref as plain  # noqa: F401
 from repro_torch.kernels.row_delta import GRID_SCRATCH, PLACES
 
@@ -41,7 +41,7 @@ def _ace_plan(d, sm_count):
     on_chip): quantize_rows' registers plan for one row where it keeps at
     most `MAX_PER_THREAD` vectors a thread, else the cooperative grid
     (which sizes itself: the other three fields are then unused)."""
-    plan = _quant_plan(1, d, sm_count)
+    plan = _cluster_plan(1, d, sm_count)
     if plan[3] == "registers" and plan[2] <= MAX_PER_THREAD:
         return plan
     return plan[:3] + ("grid",)

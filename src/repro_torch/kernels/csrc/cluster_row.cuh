@@ -93,6 +93,21 @@ struct RowSplit {
   }
 };
 
+// The same split over any number of blocks: block `rank` of `parts` owns
+// the vectors [rank·nv/parts, (rank+1)·nv/parts), block 0 the head, block
+// parts - 1 the tail (quant.cu's cooperative grid; kernels/quant.py
+// `_quant_slices` mirrors both splits).
+__device__ __forceinline__ RowSplit split_row(const float* xr, long long d,
+                                              long long rank,
+                                              long long parts, int tid) {
+  RowSplit sp(xr, d, 0, 0, tid);       // the whole row, head and tail
+  sp.vlo = rank * sp.nv / parts;
+  sp.vhi = (rank + 1) * sp.nv / parts;
+  if (sp.ej >= 0 && (sp.ej < sp.h ? rank != 0 : rank != parts - 1))
+    sp.ej = -1;
+  return sp;
+}
+
 // The exchange of the cluster blocks' maxima; one per block, in shared
 // memory. Every thread calls `start` first, `combine` once its loads are in.
 struct ClusterMax {

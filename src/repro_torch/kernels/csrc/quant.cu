@@ -31,6 +31,27 @@
 // int8 writer of the port shares (IEEE division, round half to even, clip,
 // NaN to 0), as char4 where q is aligned.
 //
+// Long rows take a cooperative grid over the whole card instead
+// (`quantize_rows_grid_kernel`, the plan's "grid"): a cluster of 8 keeps
+// at most 462,848 numbers of a row on chip, and a longer row streamed on 8
+// of the 132 SMs ran at ~0.4 TB/s (5.91 ms at (1, 262,144,000)).
+// Nothing produces the row's max beforehand and a 1 GB row does not fit on
+// chip, so the grid reads x twice too: its floor is 9 B a number (0.704 ms
+// at (1, 262,144,000), 0.176 ms at (1, 65,536,000), at 3.35 TB/s), beside
+// the 5 B a number of the single-read bound (0.391, 0.098 ms). It replaces
+// the same two TPU calls. Measured (tools/quant_designs.py --grid; NVIDIA
+// H100 80GB HBM3, 700.00 W): 0.886-0.888 ms at (1, 262,144,000) against
+// the cluster's 5.91, 0.203 ms at (1, 65,536,000) against 1.486, 1.363 ms
+// at (8, 45,088,768) against 1.963. The crossover: at (1, 70,996) the grid
+// (35 blocks, 0.00432 ms) ties the cluster (0.00431), at (1, 131,072) it
+// takes 0.00429-0.00453 against 0.00575, so the host plan sends it rows
+// from 131,072 numbers; by 16 rows of 45,088,768 the clusters fill 128 SMs
+// and tie it (2.89-2.92 against 2.87-2.98 ms), by 100 rows of 2^22 + 3 they
+// win (1.295 against 1.64 ms). A short row wants fewer blocks (a grid-wide
+// sync costs more than it saves): the plan leaves each thread at least 4
+// vectors, and a thread that walks 256 or more keeps 8 loads in flight
+// (0.887 against 0.916 ms at (1, 262,144,000)).
+//
 // dequantize_rows: the (n, d) codes as one flat array, in vectors of 4
 // consecutive codes, one a thread (one char4 load, one float4 store: a
 // warp's access is 128 B of q and 512 B of x, contiguous), on as many
@@ -164,6 +185,86 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The cooperative grid, for rows that one cluster could only stream: n·B
+// blocks, the B blocks of row b / B in a run, block b serving it as rank
+// b % B (`repro::split_row`). Pass 1 takes the block's |max| into
+// partial[b], U float4 loads a thread in flight; grid.sync(); each block
+// combines its row's B maxima (order-free, so every block derives the same
+// scale bits) and pass 2 walks its slice backwards, so that what pass 1
+// read last is still in L2.
+constexpr int kGrid = 3;                // on_chip of a grid plan
+constexpr int kGridThreads = 256;
+constexpr int kGridBlocksPerSm = 4;     // the blocks a plan may put on an SM
+
+template <int U>
+__global__ void __launch_bounds__(kGridThreads, kGridBlocksPerSm)
+    quantize_rows_grid_kernel(const float* __restrict__ x,
+                              int8_t* __restrict__ q,
+                              float* __restrict__ scales, float* partial,
+                              long long d, int per_row) {
+  __shared__ float warp_part[kGridThreads / 32];
+  __shared__ float row_max;
+  repro::cg::grid_group grid = repro::cg::this_grid();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row = blockIdx.x / per_row;
+  const long long rank = blockIdx.x - row * per_row;
+  const float* xr = x + row * d;
+  int8_t* qr = q + row * d;
+  const repro::RowSplit sp = repro::split_row(xr, d, rank, per_row, tid);
+  const long long vlo = sp.vlo, vhi = sp.vhi, ej = sp.ej;
+  const float4* xv = reinterpret_cast<const float4*>(xr + sp.h);
+  int8_t* qv = qr + sp.h;
+  const bool q4 = (reinterpret_cast<uintptr_t>(qv) & 3) == 0;
+  const float e = ej >= 0 ? xr[ej] : 0.f;
+  const long long step = static_cast<long long>(U) * kGridThreads;
+
+  float m = nan_max(fabsf(e), 0.f);
+  for (long long base = vlo + tid; base < vhi; base += step) {
+    float4 a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + u * kGridThreads;
+      a[u] = i < vhi ? xv[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) m = abs_max4(a[u], m);
+  }
+  m = repro::warp_max(m);
+  if (lane == 0) warp_part[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = repro::warp_max(lane < kGridThreads / 32 ? warp_part[lane] : 0.f);
+    if (lane == 0) partial[blockIdx.x] = m;
+  }
+  grid.sync();
+  if (warp == 0) {
+    const float* pr = partial + row * per_row;
+    float r = 0.f;
+    for (int k = lane; k < per_row; k += 32) r = nan_max(__ldcg(pr + k), r);
+    r = repro::warp_max(r);
+    if (lane == 0) row_max = r;
+  }
+  __syncthreads();
+  const float s = repro::row_scale(row_max);
+  if (rank == 0 && tid == 0) scales[row] = s;
+
+  if (ej >= 0) qr[ej] = static_cast<int8_t>(repro::quant(e, s));
+  for (long long it = (vhi - vlo + step - 1) / step - 1; it >= 0; --it) {
+    const long long base = vlo + tid + it * step;
+    float4 a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + u * kGridThreads;
+      if (i < vhi) a[u] = xv[i];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + u * kGridThreads;
+      if (i < vhi) put_codes(qv, i, a[u], s, q4);
+    }
+  }
+}
+
 // Thread v: the codes of vector v, W = 4 codes from i = head + 4v; row
 // r = i / d, and since d ≥ 4 the codes from (r + 1)·d on belong to row
 // r + 1. kVecQ loads the four codes as one char4 (q + i aligned to 4),
@@ -213,6 +314,36 @@ cudaError_t launch_quant(const float* x, int8_t* q, float* scales, int n,
                                d);
 }
 
+// One cooperative launch of n·per_row blocks; refused unless all of them
+// are co-resident (the occupancy the launch bounds promise, times the SMs).
+template <int U>
+cudaError_t launch_grid(const float* x, int8_t* q, float* scales,
+                        float* partial, int n, long long d, int per_row,
+                        cudaStream_t stream) {
+  static int per_sm = -1, sms = 0;
+  if (per_sm < 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, quantize_rows_grid_kernel<U>, kGridThreads, 0);
+    if (err != cudaSuccess) {
+      per_sm = -1;
+      return err;
+    }
+  }
+  const long long blocks = static_cast<long long>(n) * per_row;
+  if (blocks > static_cast<long long>(per_sm) * sms)
+    return cudaErrorInvalidValue;
+  void* args[] = {&x, &q, &scales, &partial, &d, &per_row};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(quantize_rows_grid_kernel<U>),
+      dim3(static_cast<unsigned>(blocks)), dim3(kGridThreads), args, 0,
+      stream);
+}
+
 template <int W, bool kVecQ, typename I>
 cudaError_t launch_dequant(const int8_t* q, const float* s, float* x,
                            long long d, long long N, long long head,
@@ -242,21 +373,37 @@ cudaError_t dequant_plan(const int8_t* q, const float* s, float* x,
 
 // plan: `cluster` blocks per row (1, 2, 4 or 8) of `threads` threads;
 // `on_chip` 0 = registers (`per_thread` 2, 4 or 8 vectors a thread), 1 =
-// shared memory, 2 = stream. A plan whose slices do not fit where it
-// says is refused (cudaErrorInvalidValue), never run.
+// shared memory, 2 = stream; 3 = the cooperative grid, `cluster` blocks
+// per row (any count ≥ 1) of kGridThreads threads, `per_thread` = 4 or 8
+// loads in flight, the blocks' maxima in `partial` (n·cluster floats). A
+// plan whose slices do not fit where it says is refused
+// (cudaErrorInvalidValue), never run.
 REPRO_EXPORT int quantize_rows(const void* x, void* q, void* scales, int n,
                                long long d, int cluster, int threads,
-                               int per_thread, int on_chip, void* stream) {
+                               int per_thread, int on_chip, void* partial,
+                               void* stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
-  const long long slice = ((d >> 2) + cluster - 1) / cluster;  // vectors
-  if (!repro::row_plan_fits(d, cluster, threads, per_thread, on_chip) ||
-      static_cast<long long>(n) * cluster >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto* xf = static_cast<const float*>(x);
   auto* qi = static_cast<int8_t*>(q);
   auto* sf = static_cast<float*>(scales);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (on_chip == kGrid) {
+    auto* pf = static_cast<float*>(partial);
+    if (pf == nullptr || cluster < 1 || threads != kGridThreads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (per_thread == 4)
+      err = launch_grid<4>(xf, qi, sf, pf, n, d, cluster, st);
+    else if (per_thread == 8)
+      err = launch_grid<8>(xf, qi, sf, pf, n, d, cluster, st);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  const long long slice = ((d >> 2) + cluster - 1) / cluster;  // vectors
+  if (!repro::row_plan_fits(d, cluster, threads, per_thread, on_chip) ||
+      static_cast<long long>(n) * cluster >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (on_chip == kRegisters && per_thread == 2)
     err = launch_quant<kRegisters, 2>(xf, qi, sf, n, d, cluster, threads, 0,
                                       st);

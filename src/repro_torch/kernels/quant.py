@@ -11,10 +11,11 @@ count their launches apart (`quantize_launches`, `dequantize_launches`).
 
 Each launch follows a plan computed here, in plain Python, and passed to
 the kernel, which refuses a plan that does not fit: `_quant_plan` splits a
-row over a thread-block cluster and says where each block keeps its slice
-(`_quant_slices` is the split the kernel makes), `_dequant_plan` cuts the
-flat codes into a scalar head, aligned vectors of 4 codes and a scalar
-tail."""
+row over a thread-block cluster and says where each block keeps its slice,
+or, for a long row, over a cooperative grid that fills the card, each
+row on a run of consecutive blocks (`_quant_slices` is the split either
+kernel makes of a row); `_dequant_plan` cuts the flat codes into a
+scalar head, aligned vectors of 4 codes and a scalar tail."""
 from __future__ import annotations
 
 import ctypes
@@ -36,13 +37,25 @@ _sm_counts = {}
 # limits the kernels check too (csrc/quant.cu)
 MAX_THREADS = 1024
 SMEM_BYTES = 227 * 1024 - 1024       # a kShared block's dynamic shared memory
-ON_CHIP = {"registers": 0, "shared": 1, "stream": 2}
+ON_CHIP = {"registers": 0, "shared": 1, "stream": 2, "grid": 3}
 # the cluster rule: the largest C (≤ 8) that leaves each block at least this
 # many float4 vectors of its row
 MIN_SLICE_VECTORS = 128
 # a registers plan takes the fewest vectors a thread (2, 4, 8) whose grid
 # holds at most this many threads per SM, half of what an SM keeps resident
 GRID_THREADS_PER_SM = 1024
+# the cooperative grid (csrc kGridThreads, kGridBlocksPerSm): blocks of this
+# many threads, at most this many on an SM (the kernel's launch bounds),
+# each thread keeping this many float4 loads in flight (4 or 8)
+GRID_THREADS = 256
+GRID_BLOCKS_PER_SM = 4
+GRID_LOADS = 4
+# a grid plan's blocks a row leave each thread at least this many vectors;
+# a thread that walks this many or more keeps 8 loads in flight
+GRID_VECTORS = 4
+GRID_DEEP_VECTORS = 256
+# the rule's grid takes rows of at least this many numbers
+GRID_MIN_D = 1 << 17
 # dequantize_rows' block size
 DEQUANT_THREADS = 256
 
@@ -68,6 +81,36 @@ def _sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=256)
 def _quant_plan(n, d, sm_count, cluster=None, on_chip=None):
     """Launch plan of quantize_rows for (n, d) on `sm_count` SMs ->
+    (cluster, threads, per_thread, on_chip).
+
+    One cluster per row (`_cluster_plan`), or the cooperative grid
+    (`_grid_plan`, on_chip "grid": `cluster` is then the blocks a row,
+    `per_thread` the float4 loads a thread keeps in flight), which replaces
+    the same two TPU calls (src/repro/kernels/quant.py:53 and :62) for long
+    rows. The rule takes the grid for rows of `GRID_MIN_D` numbers or more
+    while the n clusters of C would leave most SMs idle (n·C ≤ sm_count /
+    2): where it was measured faster (tools/quant_designs.py --grid; NVIDIA
+    H100 80GB HBM3, 700.00 W). At (1, 70,996) the two tie (0.00432 against
+    0.00431 ms), at (1, 131,072) the grid takes 0.00429-0.00453 against the
+    cluster's 0.00575; at (1, 262,144,000) 0.886-0.888 ms against 5.91
+    (bound 0.391, two-pass floor 0.704), at (8, 45,088,768) 1.363 against
+    1.963. By 16 rows of 45,088,768 the clusters fill the card and tie it,
+    by 100 rows of 2^22 + 3 they win (1.295 against 1.64 ms). `cluster` and
+    `on_chip` may be forced (tests, tuning): a forced cluster is a cluster
+    plan, a forced "grid" takes `cluster` blocks a row if given; a forced
+    place the slice does not fit raises."""
+    if on_chip == "grid":
+        return _grid_plan(n, d, sm_count, cluster)
+    plan = _cluster_plan(n, d, sm_count, cluster, on_chip)
+    if (cluster is None and on_chip is None and d >= GRID_MIN_D
+            and 2 * n * plan[0] <= sm_count):
+        return _grid_plan(n, d, sm_count)
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_plan(n, d, sm_count, cluster=None, on_chip=None):
+    """The plan that spreads each row over one thread-block cluster ->
     (cluster, threads, per_thread, on_chip).
 
     `cluster` blocks (a power of two ≤ 8) share each row: the most that
@@ -107,11 +150,32 @@ def _quant_plan(n, d, sm_count, cluster=None, on_chip=None):
     return cluster, threads(per_thread), per_thread, on_chip
 
 
+def _grid_plan(n, d, sm_count, per_row=None):
+    """The cooperative grid's plan -> (per_row, GRID_THREADS, loads,
+    "grid"): `per_row` blocks a row, by default as many as the card holds
+    at `GRID_BLOCKS_PER_SM` or fewer, so that each thread walks at least
+    `GRID_VECTORS` vectors; n·per_row blocks in all, every one of them
+    co-resident. Each thread keeps `GRID_LOADS` float4 loads in flight, 8
+    where it walks `GRID_DEEP_VECTORS` or more. A grid that does not fit
+    the card raises."""
+    capacity = GRID_BLOCKS_PER_SM * sm_count
+    nv = d // 4
+    if per_row is None:
+        per_row = max(1, min(capacity // n, -(-nv // (
+            GRID_THREADS * GRID_VECTORS))))
+    if per_row < 1 or n * per_row > capacity:
+        raise ValueError(f"quantize_rows: no grid of {per_row} blocks a row "
+                         f"for n={n} on {sm_count} SMs")
+    deep = nv >= per_row * GRID_THREADS * GRID_DEEP_VECTORS
+    return per_row, GRID_THREADS, 8 if deep else GRID_LOADS, "grid"
+
+
 def _quant_slices(d, head, cluster):
-    """The kernel's split of one row whose x starts `head` elements before a
-    16-byte boundary (head = min(head, d)): block 0 the scalar head, each
-    block c the float4 vectors [c·nv/C, (c+1)·nv/C), block C-1 the scalar
-    tail -> per block, its list of [lo, hi) element ranges."""
+    """The kernels' split of one row whose x starts `head` elements before a
+    16-byte boundary (head = min(head, d)) over C = `cluster` blocks (a
+    cluster's, or a grid's `per_row`): block 0 the scalar head, each block
+    c the float4 vectors [c·nv/C, (c+1)·nv/C), block C-1 the scalar tail ->
+    per block, its list of [lo, hi) element ranges."""
     head = min(head, d)
     nv = (d - head) // 4
     out = []
@@ -157,11 +221,15 @@ def quantize_rows(x, plan=None):
     s = torch.empty((n,), dtype=torch.float32, device=x.device)
     cluster, threads, per_thread, on_chip = plan or _quant_plan(
         n, d, _sm_count(x.device))
+    # the grid's per-block maxima (in a captured graph, from its pool)
+    partial = (torch.empty((n * cluster,), dtype=torch.float32,
+                           device=x.device) if on_chip == "grid" else None)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _entry("quantize_rows", [P, P, P, I, ctypes.c_longlong] + [I] * 4
-                + [P])
+                + [P, P])
     build.check("quant", fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), n, d,
                             cluster, threads, per_thread, ON_CHIP[on_chip],
+                            None if partial is None else partial.data_ptr(),
                             stream_handle(x.device)))
     quantize_launches += 1
     return q, s

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.backend import cuda_operand, stream_handle
-from repro_torch.kernels.quant import _quant_plan, _sm_count
+from repro_torch.kernels.quant import _cluster_plan, _sm_count
 from repro_torch.kernels.ref import set_row_delta_ref as plain  # noqa: F401
 
 #: launches of the CUDA kernel in this process (see `ops.launch_counts`)
@@ -40,7 +40,7 @@ def _row_plan(d, sm_count):
     most 4 vectors a thread (the kernel holds the old codes beside them),
     else the cooperative grid (which sizes itself: the other three fields
     are then unused)."""
-    plan = _quant_plan(1, d, sm_count)
+    plan = _cluster_plan(1, d, sm_count)
     if plan[3] == "registers" and plan[2] <= 4:
         return plan
     return plan[:3] + ("grid",)

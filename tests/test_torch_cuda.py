@@ -524,12 +524,13 @@ def test_quant_kernels_match_plain(cuda, n, d):
                                  (2, 100003)])
 def test_quantize_rows_every_plan(cuda, n, d, cluster):
     """Each cluster size with the slice in registers, shared memory and
-    streamed (where it fits), against the plain version; x also at a
-    4-byte offset, so that every head/tail split is taken."""
+    streamed (where it fits), and the cooperative grid at as many blocks a
+    row, against the plain version; x also at a 4-byte offset, so that
+    every head/tail split is taken."""
     x = quant_rows(cluster + d, n, d, cuda)
     q0, s0 = ops.quantize_rows(x, backend="torch")
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for on_chip in ("registers", "shared", "stream"):
+    for on_chip in ("registers", "shared", "stream", "grid"):
         try:
             plan = _q._quant_plan(n, d, sms, cluster, on_chip)
         except ValueError:      # the slice does not fit there
@@ -571,6 +572,143 @@ def test_quant_plan_refused_by_the_kernel(cuda):
     x = torch.randn(1, 1 << 16, device=cuda)
     with pytest.raises(RuntimeError, match="quant kernel launch failed"):
         _q.quantize_rows(x, plan=(1, 32, 4, "registers"))
+
+
+def grid_rows(seed, n, d, device):
+    """`quant_rows` drawn on the card (the grid's rows reach 3.6·10⁸
+    numbers): mixed magnitudes, row 1 all zero, row 2 half-way ties."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(n, d, generator=g, device=device)
+         * torch.rand(n, 1, generator=g, device=device) * 50)
+    if n > 1:
+        x[1] = 0.0
+    if n > 2:
+        ties = torch.tensor([127.0, 2.5, -0.5, 1.5, 3.5, -2.5, 0.5, -126.5],
+                            device=device)
+        x[2] = ties.repeat(d // 8 + 1)[:d]
+    return x
+
+
+def grid_plan(n, d, device, per_row=None, loads=None):
+    """quantize_rows' cooperative grid for (n, d), forced: `per_row`
+    blocks a row (default the plan's), `loads` loads a thread in flight."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = _q._quant_plan(n, d, sms, per_row, "grid")
+    return plan if loads is None else plan[:2] + (loads, "grid")
+
+
+@pytest.mark.parametrize("n,d", [(1, 4099), (3, (1 << 20) + 3),
+                                 (1, (1 << 24) + 5), (8, 45088768)])
+def test_quantize_rows_grid_matches_plain(cuda, n, d):
+    """The cooperative grid forced through `plan=`, at 4 and 8 loads a
+    thread and at an odd count of blocks a row, bit for bit with the plain
+    version, one launch a call, x at 0, 4, 8 and 12 B past a 16-byte line
+    (every row's head, its blocks' runs and its tail move; q + head is
+    then unaligned and takes the byte stores)."""
+    x = grid_rows(n + d % 11, n, d, cuda)
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    plans = [grid_plan(n, d, cuda), grid_plan(n, d, cuda, loads=8),
+             grid_plan(n, d, cuda, per_row=3)]
+    for plan in plans:
+        for off in (0, 1, 2, 3):
+            xo = x if off == 0 else _offset(x, off)
+            before = _q.quantize_launches
+            q1, s1 = _q.quantize_rows(xo, plan=plan)
+            torch.cuda.synchronize()
+            assert _q.quantize_launches == before + 1
+            assert torch.equal(q1, q0) and torch.equal(s1, s0), (plan, off)
+            del xo, q1
+
+
+def test_quantize_rows_grid_unaligned_codes(cuda):
+    """The grid's codes at q 1, 2 and 3 bytes past a 4-byte word with x
+    aligned (the wrapper always allocates q aligned): the entry called
+    directly, bit for bit with the plain version."""
+    import ctypes
+    n, d = 3, (1 << 20) + 3
+    x = grid_rows(7, n, d, cuda)
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    C, T, V, _ = plan = grid_plan(n, d, cuda)
+    _q.quantize_rows(x, plan=plan)              # builds and binds the entry
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _q._entry("quantize_rows", [P, P, P, I, ctypes.c_longlong]
+                   + [I] * 4 + [P, P])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for off in (1, 2, 3):
+        buf = torch.empty(n * d + off, dtype=torch.int8, device=cuda)
+        q = buf[off:].view(n, d)
+        s = torch.empty(n, device=cuda)
+        partial = torch.empty(n * C, device=cuda)
+        assert fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), n, d, C, T, V,
+                  _q.ON_CHIP["grid"], partial.data_ptr(), stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(q, q0) and torch.equal(s, s0), off
+
+
+@pytest.mark.parametrize("n,d", [(5, (1 << 20) + 3), (1, (1 << 24) + 5)])
+def test_quantize_rows_grid_special_rows(cuda, n, d):
+    """All-zero, NaN, +inf and -inf rows on the grid, each NaN or inf where
+    only a block other than the row's first reads it: a NaN row's scale is
+    NaN and an inf row's inf, and their codes are all 0 (repro::quant codes
+    a NaN quotient 0); every row matches the plain version."""
+    x = grid_rows(3, n, d, cuda)
+    C = grid_plan(n, d, cuda)[0]
+    at = (3 * d) // 4                     # in block 3·C/4 of its row
+    first = _q._quant_slices(d, 0, C)[0]
+    assert all(not lo <= at < hi for lo, hi in first)
+    special = {0: float("nan")} if n == 1 else {
+        2: float("nan"), 3: float("inf"), 4: float("-inf")}
+    for r, v in special.items():
+        x[r, at] = v
+    if n > 1:
+        x[0, d - 1] = float("nan")        # the scalar tail of the last block
+        special[0] = float("nan")
+    q0, s0 = ops.quantize_rows(x, backend="torch")
+    q1, s1 = _q.quantize_rows(x, plan=grid_plan(n, d, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q0) and _same(s1, s0)
+    for r, v in special.items():
+        assert not bool(q1[r].any()), r
+        assert (bool(torch.isnan(s1[r])) if v != v
+                else float(s1[r]) == float("inf")), r
+    if n > 1:
+        assert float(s1[1]) > 0 and not bool(q1[1].any())     # all zero
+
+
+def test_quantize_rows_grid_in_a_cuda_graph(cuda):
+    """The grid's cooperative launch captured in a CUDA graph (its
+    `partial` from the graph's pool) and replayed on new rows, bit for bit
+    with the plain version each time."""
+    n, d = 2, (1 << 22) + 3
+    static_x = grid_rows(1, n, d, cuda)
+    plan = grid_plan(n, d, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _q.quantize_rows(static_x, plan=plan)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q1, s1 = _q.quantize_rows(static_x, plan=plan)
+    for seed in (2, 3):
+        static_x.copy_(grid_rows(seed, n, d, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        q0, s0 = ops.quantize_rows(static_x, backend="torch")
+        assert torch.equal(q1, q0) and torch.equal(s1, s0), seed
+
+
+def test_quant_grid_plan_refused_by_the_kernel(cuda):
+    """A grid plan the kernel does not take is refused at launch
+    (cudaErrorInvalidValue), never run: no blocks, another block size,
+    loads a thread other than 4 or 8, more blocks than the card holds at
+    once."""
+    x = torch.randn(2, 1 << 16, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for plan in ((0, 256, 4, "grid"), (4, 128, 4, "grid"),
+                 (4, 256, 3, "grid"), (64 * sms, 256, 4, "grid")):
+        with pytest.raises(RuntimeError, match="quant kernel launch failed"):
+            _q.quantize_rows(x, plan=plan)
 
 
 @pytest.mark.parametrize("n,d", [(100, 17226), (7, 1), (3000, 513),

@@ -5,6 +5,7 @@ bit-identical; f32 outputs agree within 1e-6 (relative to the output's
 scale: the only differences are the order of f32 sums). The CUDA kernels
 against their plain versions on the card are in test_torch_cuda.py."""
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -635,13 +636,55 @@ QUANT_SHAPES = [(1, 1), (1, 3), (1, 4), (1, 5), (2, 7), (1, 17226),
                 (512, (1 << 22) + 1)]
 
 
+GRID_BLOCKS = _q.GRID_BLOCKS_PER_SM * H100_SMS      # co-resident blocks
+
+
+def grid_ranges(n, d, per_row, phase):
+    """The grid's split of x (n, d) whose first element lies `phase`
+    elements before a 16-byte boundary, mirrored in Python: block b serves
+    row b // per_row as rank b % per_row, and a row's blocks split it as
+    `_quant_slices` does from that row's own phase -> every [lo, hi) range
+    of x's flat elements, by block."""
+    out = []
+    for row, rank in (divmod(b, per_row) for b in range(n * per_row)):
+        head = (phase - row * d) % 4        # to the row's 16-byte line
+        out.append([(row * d + lo, row * d + hi) for lo, hi in
+                    _q._quant_slices(d, head, per_row)[rank]])
+    return out
+
+
+def assert_tiles(ranges, total):
+    """`ranges` cover [0, total) exactly once."""
+    ranges = sorted(r for block in ranges for r in block)
+    assert ranges[0][0] == 0 and ranges[-1][1] == total
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
 @pytest.mark.parametrize("n,d", QUANT_SHAPES)
 def test_quant_plan_geometry(n, d):
-    """Every quantize_rows plan (the rule's cluster and each forced one)
-    stays within CUDA's limits and the block's on-chip capacity, and its
+    """Every quantize_rows plan (the rule's, each forced cluster and the
+    forced grid) stays within CUDA's limits and the block's on-chip
+    capacity — a grid within the blocks the card holds at once —, and its
     slices tile each row exactly once, whatever x's 16-byte phase."""
-    for forced in (None, 1, 2, 4, 8):
-        C, T, V, on_chip = _q._quant_plan(n, d, H100_SMS, cluster=forced)
+    if n > GRID_BLOCKS:
+        with pytest.raises(ValueError, match="no grid"):
+            _q._quant_plan(n, d, H100_SMS, on_chip="grid")
+    for forced in (None, 1, 2, 4, 8, "grid"):
+        if forced == "grid" and n > GRID_BLOCKS:
+            continue
+        C, T, V, on_chip = (
+            _q._quant_plan(n, d, H100_SMS, on_chip="grid")
+            if forced == "grid" else
+            _q._quant_plan(n, d, H100_SMS, cluster=forced))
+        if on_chip == "grid":
+            assert forced in (None, "grid")
+            assert C >= 1 and n * C <= GRID_BLOCKS
+            assert T == _q.GRID_THREADS and V in (4, 8)
+            assert C == max(1, min(GRID_BLOCKS // n, -(-(d // 4) // (
+                T * _q.GRID_VECTORS))))
+            for phase in range(4):
+                assert_tiles(grid_ranges(n, d, C, phase), n * d)
+            continue
         assert C in (1, 2, 4, 8) and forced in (None, C)
         assert n * C < 2 ** 31 and T % 32 == 0 and 32 <= T <= _q.MAX_THREADS
         most = -(-(d // 4) // C)             # vectors of the largest slice
@@ -664,7 +707,12 @@ def test_quant_plan_geometry(n, d):
 def test_quant_plan_cluster_rule():
     """A row spreads over the largest cluster that leaves each block 128
     vectors; a thread holds as few vectors as the card's resident threads
-    allow; a forced place the slice does not fit raises."""
+    allow; a forced place the slice does not fit raises. A row of
+    `GRID_MIN_D` numbers or more goes to the cooperative grid while its n
+    clusters of 8 would leave most SMs idle (n·8 ≤ 66 of 132), on as many
+    blocks as leave each thread `GRID_VECTORS` vectors, at most the card's
+    co-resident blocks; it keeps the cluster beyond; the row kernels'
+    plans stay clusters."""
     assert _q._quant_plan(1, 17226, H100_SMS)[:3] == (8, 288, 2)
     assert _q._quant_plan(100, 17226, H100_SMS)[:3] == (8, 160, 4)
     assert _q._quant_plan(1, 700, H100_SMS)[0] == 1
@@ -673,6 +721,153 @@ def test_quant_plan_cluster_rule():
         "shared"
     with pytest.raises(ValueError, match="does not fit"):
         _q._quant_plan(1, 1 << 20, H100_SMS, cluster=1, on_chip="registers")
+    # the grid: rows from GRID_MIN_D numbers while n·8 ≤ 66
+    short = _q.GRID_MIN_D - 4
+    assert _q._quant_plan(1, short, H100_SMS)[3] == "registers"
+    assert _q._quant_plan(1, _q.GRID_MIN_D, H100_SMS) == (
+        _q.GRID_MIN_D // 4 // (256 * _q.GRID_VECTORS), 256, _q.GRID_LOADS,
+        "grid")
+    longest = 8 * 4 * (_q.SMEM_BYTES // 16)     # a cluster's shared reach
+    assert _q._cluster_plan(1, longest, H100_SMS)[3] == "shared"
+    assert _q._quant_plan(1, longest, H100_SMS)[3] == "grid"
+    assert _q._quant_plan(1, 1 << 24, H100_SMS) == (
+        GRID_BLOCKS, 256, _q.GRID_LOADS, "grid")
+    assert _q._quant_plan(9, _q.GRID_MIN_D, H100_SMS)[3] == "registers"
+    assert _q._quant_plan(8, 1 << 24, H100_SMS)[:2] == (GRID_BLOCKS // 8,
+                                                       256)
+    assert _q._quant_plan(9, 1 << 24, H100_SMS) == (8, 1024, 4, "stream")
+    assert _q._quant_plan(100, (1 << 22) + 3, H100_SMS) == (
+        8, 1024, 4, "stream")
+    assert _q._quant_plan(2, 1 << 24, H100_SMS, 5, "grid")[0] == 5
+    assert _q._quant_plan(1, 1 << 24, H100_SMS, cluster=8)[3] == "stream"
+    with pytest.raises(ValueError, match="no grid"):
+        _q._quant_plan(GRID_BLOCKS + 1, 64, H100_SMS, on_chip="grid")
+    with pytest.raises(ValueError, match="no grid"):
+        _q._quant_plan(2, 1 << 24, H100_SMS, GRID_BLOCKS, "grid")
+    for d in (1 << 24, 45088768):
+        assert _rd._row_plan(d, H100_SMS) == (8, 1024, 4, "grid")
+        assert _cu._ace_plan(d, H100_SMS) == (8, 1024, 4, "grid")
+
+
+# the real models' leaves that the grid takes: every leaf of 2^20 numbers or
+# more of yi-9b at one layer (chip_smoke.py 4f) and of zamba2-1.2b at seven
+# (4g), by the one row a tick writes and by the 8 rows of an int8 cache
+YI_LEAVES = (2097152, 16777216, 45088768, 262144000)
+ZAMBA2_LEAVES = (4194304, 8388608, 16777216, 17170432, 65536000)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("d", sorted(set(YI_LEAVES + ZAMBA2_LEAVES)))
+def test_quant_grid_takes_the_real_models_leaves(n, d):
+    """yi-9b's and zamba2-1.2b's long leaves by 1 and 8 rows take the
+    cooperative grid, the card's co-resident blocks split evenly over the
+    rows (fewer where that leaves a thread under `GRID_VECTORS` vectors),
+    8 loads a thread in flight where a thread walks `GRID_DEEP_VECTORS`
+    vectors or more (yi's embedding row, its MLP leaves by 8 rows);
+    the main path's rows keep their cluster plans: (1, 17,226),
+    (100, 17,226) and the text task's (1, 70,996)."""
+    C = min(GRID_BLOCKS // n, d // 4 // (256 * _q.GRID_VECTORS))
+    deep = d // 4 >= C * 256 * _q.GRID_DEEP_VECTORS     # 8 loads a thread
+    assert _q._quant_plan(n, d, H100_SMS) == (
+        C, _q.GRID_THREADS, 8 if deep else _q.GRID_LOADS, "grid")
+    if (n, d) in ((1, 262144000), (8, 45088768)):
+        assert deep
+    assert _q._quant_plan(1, 17226, H100_SMS) == (8, 288, 2, "registers")
+    assert _q._quant_plan(100, 17226, H100_SMS) == (8, 160, 4, "registers")
+    assert _q._quant_plan(1, 70996, H100_SMS) == (8, 576, 4, "registers")
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports the standard
+    library only)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_names", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("void (anonymous namespace)::quantize_rows_grid_kernel<8>(float "
+     "const*, signed char*, float*, float*, long long, int)",
+     "quantize_rows"),
+    ("void (anonymous namespace)::quantize_rows_kernel<0, 2>(float const*, "
+     "signed char*, float*, long long)", "quantize_rows"),
+    ("void (anonymous namespace)::dequantize_rows_kernel<4, true, unsigned "
+     "int>(signed char const*, float const*, float*, unsigned int, unsigned "
+     "int, unsigned int, unsigned int)", "dequantize_rows"),
+    ("void (anonymous namespace)::row_delta_grid_kernel(float const*, ...)",
+     "row_delta"),
+    ("void (anonymous namespace)::cache_update_grid_kernel<float>(...)",
+     "cache_row_update")])
+def test_trace_names_count_each_kernel_once(name, kernel):
+    """chip_smoke.py's traces count a launch by its kernel's name
+    (`KERNEL_SYMBOLS`, matched where a name starts): quantize_rows' grid and
+    cluster kernels as quantize_rows, never as dequantize_rows, and
+    dequantize_rows_kernel as dequantize_rows alone; every name as exactly
+    one of the six kernels."""
+    cs = _chip_smoke()
+    seen = [k for k, sym in cs.KERNEL_SYMBOLS.items()
+            if cs.symbol_matches(sym, name)]
+    assert seen == [kernel]
+    assert re.search(cs.LM_GROUPS["quant kernels"], name) or \
+        kernel not in ("quantize_rows", "dequantize_rows")
+
+
+GRID_SPLIT_SHAPES = [(1, 1), (1, 5), (2, 7), (3, 4099), (1, (1 << 20) + 3),
+                     (5, (1 << 20) + 1), (GRID_BLOCKS, 17226),
+                     # n·d around 2^31, on both sides
+                     (1, (1 << 31) - 1), (2, 1 << 30), (3, 715827883),
+                     (8, (1 << 28) - 1), (512, (1 << 22) + 1),
+                     (GRID_BLOCKS, 4067203)]
+
+
+@pytest.mark.parametrize("n,d", GRID_SPLIT_SHAPES)
+def test_quant_grid_split_tiles_every_element(n, d):
+    """The grid's split of x, rows over blocks and each row over its
+    blocks, covers every element of the n·d exactly once at each phase of
+    x's first element against a 16-byte line (each row's own head then
+    differs where d is not a multiple of 4), at the plan's blocks a row and
+    at an odd count; no block's slice is longer than its share of the row's
+    vectors plus the head or tail; past 2^31 elements the offsets need 64
+    bits, as the kernel keeps them."""
+    plans = {_q._quant_plan(n, d, H100_SMS, on_chip="grid")[0]}
+    if GRID_BLOCKS // n >= 3:
+        plans.add(3)
+    for per_row in plans:
+        share = 4 * -(-(d // 4) // per_row)
+        for phase in range(4):
+            ranges = grid_ranges(n, d, per_row, phase)
+            assert len(ranges) == n * per_row
+            assert_tiles(ranges, n * d)
+            assert all(hi - lo <= max(share, 3)
+                       for block in ranges for lo, hi in block)
+            if n * d > 2 ** 31:
+                assert max(hi for b in ranges for _, hi in b) > 2 ** 31
+
+
+def test_quant_long_row_plain_matches_jax():
+    """The plain quantizer, which the grid is held to on the card, against
+    JAX's reference at a row of 2^20 + 3 with its |max| in the range of
+    the grid's last block, and a row with a NaN there: q bit for bit, the
+    scales bit for bit (NaN for NaN)."""
+    d = (1 << 20) + 3
+    rng = np.random.default_rng(20)
+    x = rng.normal(size=(2, d)).astype(np.float32)
+    per_row = _q._quant_plan(2, d, H100_SMS)[0]
+    (lo, hi), = [r for r in _q._quant_slices(d, 0, per_row)[-1]
+                 if r[1] - r[0] > 3]
+    x[0, (lo + hi) // 2] = np.float32(-93.75)     # the row's |max|
+    x[1, hi - 1] = np.nan
+    q1, s1 = tref.quantize_rows_ref(_t(x))
+    q2, s2 = jref.quantize_rows_ref(jnp.asarray(x))
+    _same(q1.numpy(), np.asarray(q2))
+    np.testing.assert_array_equal(s1.numpy(), np.asarray(s2))
+    assert float(s1[0]) == np.float32(93.75) / np.float32(127.0)
+    assert q1[0, (lo + hi) // 2] == -127 and np.isnan(float(s1[1]))
+    assert not q1[1].any()
 
 
 AGG_SHAPES = [(1, 1), (7, 1), (1, 17226), (100, 17226), (9, 1001),

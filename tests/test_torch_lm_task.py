@@ -341,11 +341,14 @@ def test_quant_plans_at_full_width_leaves(n):
     64,000 × 4,096 embedding (262,144,000 numbers), by the rows a run
     writes and reads — 16 rows (`AFL_SIZING`'s n) hold 4.19·10⁹ codes,
     past 2³¹ — computed without allocating: every product in 64 bits, the
-    dequantizer's grid covering every vector, each row one cluster of 8
-    blocks streaming its slice."""
+    dequantizer's grid covering every vector; the quantizer's rows on its
+    cooperative grid by 1 and 8 rows (the card's 528 co-resident blocks
+    split over them, 8 loads a thread in flight), by 16 each row one
+    cluster of 8 blocks streaming its slice (128 of the 132 SMs)."""
     from repro_torch.kernels import quant as kq
     d = 64000 * 4096
-    assert kq._quant_plan(n, d, 132) == (8, 1024, 4, "stream")
+    assert kq._quant_plan(n, d, 132) == (
+        (8, 1024, 4, "stream") if n == 16 else (528 // n, 256, 8, "grid"))
     head, width, vec_q, threads, blocks = kq._dequant_plan(
         n, d, 1 << 20, 1 << 24)
     assert (head, width, vec_q, threads) == (0, 4, True, 256)
