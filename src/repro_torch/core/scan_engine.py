@@ -40,6 +40,7 @@ from repro_torch.core.delays import ExponentialDelays, build_schedule
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.sharding.rules import warm_up_groups
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -298,6 +299,7 @@ class _Ticks:
         self.xs: Optional[Dict[str, torch.Tensor]] = None
         self.carry = None
         self.captures = 0
+        self.eager_ticks = 0       # ticks run eagerly; a replay is not one
         self._graph = None
         self._per_tick: Dict[str, int] = {}   # kernel launches of one tick
 
@@ -339,18 +341,25 @@ class _Ticks:
         else:
             _tree_copy_(self.carry, carry)
 
-    def run(self, n: int) -> None:
-        """`n` ticks of the loaded carry over the fed streams."""
-        if not self.use_graph:
+    def run(self, n: int, eager: bool = False) -> None:
+        """`n` ticks of the loaded carry over the fed streams; `eager` runs
+        them eagerly on a runner that captures, its graph kept as it is."""
+        with span("runner.ticks"):
+            if eager or not self.use_graph:
+                for _ in range(n):
+                    self._eager_tick()
+                return
+            if n > 0 and self._graph is None:
+                self._capture()        # the first tick runs, the rest replay
+                n -= 1
             for _ in range(n):
-                self.prog.tick(self.carry, self.xs, self.outs)
-            return
-        if n > 0 and self._graph is None:
-            self._capture()            # the first tick runs, the rest replay
-            n -= 1
-        for _ in range(n):
-            self._graph.replay()
-        kernel_ops.add_launch_counts(self._per_tick, n)
+                self._graph.replay()
+            kernel_ops.add_launch_counts(self._per_tick, n)
+
+    def _eager_tick(self) -> None:
+        with span("tick"):
+            self.prog.tick(self.carry, self.xs, self.outs)
+        self.eager_ticks += 1
 
     def _capture(self) -> None:
         """Run the first tick eagerly on a side stream, as PyTorch asks of a
@@ -364,7 +373,7 @@ class _Ticks:
         side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.prog.tick(self.carry, self.xs, self.outs)
+            self._eager_tick()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = kernel_ops.launch_counts()
@@ -389,12 +398,20 @@ class _TickRunner:
     def __init__(self, prog: _Program, graph: bool):
         self.prog, self.use_graph = prog, graph
         self._ticks: Optional[_Ticks] = None
-        self._retired = 0
+        self._retired = (0, 0)   # captures and eager ticks of replaced buffers
 
     @property
     def captures(self) -> int:
         """CUDA graphs this runner has captured."""
-        return self._retired + (self._ticks.captures if self._ticks else 0)
+        return self._retired[0] + (self._ticks.captures if self._ticks else 0)
+
+    @property
+    def eager_ticks(self) -> int:
+        """Ticks this runner has run eagerly: every tick on the CPU and of
+        an ``eager=True`` call, and each capture's warm-up tick; a replayed
+        tick is not one."""
+        return self._retired[1] + (self._ticks.eager_ticks if self._ticks
+                                   else 0)
 
     @property
     def carry(self):
@@ -402,17 +419,21 @@ class _TickRunner:
         tensors, which the next call overwrites), or None before a call."""
         return self._ticks.carry if self._ticks else None
 
-    def _run(self, n_events: int, streams, inputs, init_noise) -> _Ticks:
+    def _run(self, n_events: int, streams, inputs, init_noise,
+             eager: bool = False) -> _Ticks:
         """Feed, init from ``inputs["lr"]`` and `init_noise`, run every
-        event, and raise on a violated sanitize check."""
+        event (eagerly with `eager`), and raise on a violated sanitize
+        check."""
         ticks = self._ticks
         if ticks is None or ticks.capacity != n_events:
-            self._retired = self.captures
+            self._retired = (self.captures, self.eager_ticks)
             ticks = self._ticks = _Ticks(self.prog, n_events, self.use_graph)
-        ticks.feed(streams, inputs)
-        ticks.load(self.prog.init(ticks.xs["lr"], init_noise,
-                                  reuse=ticks.carry), fresh=True)
-        ticks.run(n_events)
+        with span("runner.feed"):
+            ticks.feed(streams, inputs)
+        with span("runner.init"):
+            ticks.load(self.prog.init(ticks.xs["lr"], init_noise,
+                                      reuse=ticks.carry), fresh=True)
+        ticks.run(n_events, eager)
         if self.prog.checks:
             sanitize.raise_first(ticks.carry["checks"])
         return ticks

@@ -112,6 +112,7 @@ from repro_torch.core.staleness_sim import (FAULT_BYZANTINE, FAULT_EXPLODE,
                                             staleness_client_probs)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.sharding.rules import active_mesh, use_rules
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -607,25 +608,30 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
             # one payload per client at w0 (paper Alg. 1 line 1), and u⁰
             # applied before the loop (lines 4-5); the n lanes are views of
             # w0, not n copies
-            init_rows, _ = payload_fn(
-                tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
-                         w0),
-                torch.arange(n, dtype=torch.int64, device=device),
-                torch.as_tensor(init_noise).to(device))
-            state = agg.init_state(n, d_tpl, init_rows, device)
-            eta0 = lr_of_t(i32(0), lr)
-            w = tree_map(lambda wl, r: wl - eta0 * r.mean(0), w0, init_rows)
-            del init_rows                 # before the ring is allocated
+            with span("init.payload"):
+                init_rows, _ = payload_fn(
+                    tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
+                             w0),
+                    torch.arange(n, dtype=torch.int64, device=device),
+                    torch.as_tensor(init_noise).to(device))
+            with span("init.rule_state"):
+                state = agg.init_state(n, d_tpl, init_rows, device)
+                eta0 = lr_of_t(i32(0), lr)
+                w = tree_map(lambda wl, r: wl - eta0 * r.mean(0), w0,
+                             init_rows)
+                del init_rows             # before the ring is allocated
             t0 = 1
         else:
-            state = agg.init_state(n, d_tpl, None, device)
-            w, t0 = _tree_clone(w0), 0
-        ring = init_ring(None if reuse is None else reuse["ring"])
-        cursor = i32(0)
-        if wants_init:               # history = [w⁰, w¹] after the init update
-            ring, cursor = ap_ring(ring, cursor, w,
-                                   torch.ones((), dtype=torch.bool,
-                                              device=device))
+            with span("init.rule_state"):
+                state = agg.init_state(n, d_tpl, None, device)
+                w, t0 = _tree_clone(w0), 0
+        with span("init.ring"):
+            ring = init_ring(None if reuse is None else reuse["ring"])
+            cursor = i32(0)
+            if wants_init:           # history = [w⁰, w¹] after the init update
+                ring, cursor = ap_ring(ring, cursor, w,
+                                       torch.ones((), dtype=torch.bool,
+                                                  device=device))
         carry = {"w": w, "state": state, "t": i32(t0),
                  # emitted-update count: len(history) − 1 of the host deque;
                  # it falls behind t after a freeze's fast-forward jump
@@ -651,126 +657,141 @@ def _staleness_program(*, grad_fn: Callable, params0, aggregator: Aggregator,
         return carry
 
     def tick(carry, xs, outs):
+        # the spans (`repro_torch.trace`) cover the tick in order; they
+        # record only host ranges, and only while a profiler runs
         e = carry["e"].reshape(1)
         t, n_upd, state = carry["t"], carry["n_upd"], carry["state"]
-        # availability: windows folded into the sampling logits; with every
-        # client inside its window the tick freezes and t jumps to the thaw
-        gone = (xs["leave_at"] <= t) & (t < xs["rejoin_at"])
-        logits = torch.where(gone, -torch.inf, log_probs)
-        any_alive = (~gone).any()
-        thaw_t = torch.clamp(
-            torch.where(gone, xs["rejoin_at"], NEVER).amin(), max=T)
-        score = logits + xs["gumbels"].index_select(0, e)[0]
-        if K == 1:
-            js = torch.argmax(score).reshape(1)
-        else:
-            # Gumbel top-k: the tick's K distinct clients in sampling order
-            js = torch.topk(score, K).indices
-        tau_req = torch.floor(xs["tau_raw"].index_select(0, e)).int()
-        if guards:
-            # injected over-stale requests (clamped below for the read)
-            f_kind = xs["fault_kind"].index_select(0, e).reshape(-1)
-            tau_req = torch.where(f_kind == FAULT_OVERSTALE, tau_max + 1,
-                                  tau_req.reshape(-1))
-        taus = torch.minimum(tau_req.reshape(-1),
-                             torch.clamp(n_upd, max=tau_max))
-        payloads, losses = payload_fn(
-            rd_rings(carry["ring"], carry["cursor"], taus), js,
-            xs["noise"].index_select(0, e)[0])
-        if guards:
-            payloads, finite, do_clip = _guard_payloads(
-                payloads, f_kind,
-                xs["fault_scale"].index_select(0, e).reshape(-1),
-                xs["clip_norm"])
-            reject = tau_req > tau_max
-            ok = finite & ~reject                          # (K,)
-        if K == 1:
-            # a frozen K = 1 tick still writes its row in place: keep the
-            # old one to restore (at K > 1 an all-invalid batch writes every
-            # row back bit-exactly, so nothing needs saving)
-            saved = _save_rows(state, js)
-            # a quarantined or rejected arrival is undone the same way
-            proc = any_alive & ok[0] if guards else any_alive
-            new_state, u, emit, lr_scale = agg.step(
-                state, Arrival(js, tree_map(lambda p: p[0], payloads), t,
-                               taus[0]))
-            loss = losses[0]
-        else:
-            saved = {}
-            valid = lane_alive = ~gone[js]
-            if guards:          # each lane judged alone
-                valid = lane_alive & ok
-            proc = valid.any()
-            new_state, u, emit, lr_scale = agg.step_batch(
-                state, ArrivalBatch(js, payloads, t, taus, valid))
-            loss = (torch.where(valid, losses, 0.0).sum()
-                    / torch.clamp(valid.sum(), min=1))
-        emit = emit & (t < T) & proc
-        # frozen ticks perform no aggregator transition
-        new_state = _select_state(proc, new_state, state, saved)
-        n_upd_new = n_upd + emit.int()
-        found = []                          # the sanitize checks' results
-        if resync_every:
-            synced = agg.resync(new_state)
-            if synced is not new_state:
-                do = emit & (torch.remainder(n_upd_new, resync_every) == 0)
-                if checks:
-                    found += sanitize.check_resync_agreement(new_state,
-                                                             synced, do)
-                new_state = _resync_select(do, synced, new_state)
-        eta = lr_of_t(t, xs["lr"]) * lr_scale
-        w = apply_update(carry["w"], u, eta, emit)
-        _, cursor = ap_ring(carry["ring"], carry["cursor"], w, emit)
-        if checks:
-            # at K > 1 only the lanes the batch applied (a quarantined lane
-            # carries its NaN)
-            applied = tree_map(
-                lambda p: p[0] if K == 1 else torch.where(
-                    broadcast_lanes(valid, p), p, 0.0), payloads)
-            found += (sanitize.check_model_finite(w)
-                      + sanitize.check_payload_finite(applied, emit)
-                      + sanitize.check_cursor_bounds(cursor, S)
-                      + sanitize.check_aggregator_state(new_state, n))
-            if K > 1:
-                found += (sanitize.check_batch_arrivals(js, taus, valid, n,
-                                                        tau_max)
-                          + sanitize.check_commit_batch(u, new_state, state,
-                                                        valid))
-            if mesh is not None:
-                found = sanitize.agree(found, mesh)
-            sanitize.record(carry["checks"], found, carry["e"])
-        new = {"w": w, "n_upd": n_upd_new, "cursor": cursor,
-               "t": torch.where(any_alive, t + emit.int(), thaw_t)}
-        if marks is not None:
-            new["snaps"], new["hits"] = snapshot_update(
-                carry["snaps"], carry["hits"], marks, new["t"], emit,
-                snap_part(w))
-        row = {"loss": loss, "emit": emit, "t": t, "unorm": unorm(u),
-               "alive": any_alive}
-        if record_w:
-            row["w"] = w
-        if guards:
-            # only the live window counts (t < T, not frozen), so chunked
-            # totals equal one run's; K > 1 counts live lanes
-            win = (t < T) & any_alive
-            flags = {"quarantined": ~finite, "rejected": finite & reject,
-                     "clipped": ok & do_clip}
+        with span("tick.sample"):
+            # availability: windows folded into the sampling logits; with
+            # every client inside its window the tick freezes and t jumps
+            # to the thaw
+            gone = (xs["leave_at"] <= t) & (t < xs["rejoin_at"])
+            logits = torch.where(gone, -torch.inf, log_probs)
+            any_alive = (~gone).any()
+            thaw_t = torch.clamp(
+                torch.where(gone, xs["rejoin_at"], NEVER).amin(), max=T)
+            score = logits + xs["gumbels"].index_select(0, e)[0]
             if K == 1:
-                flags = {k: win & v[0] for k, v in flags.items()}
+                js = torch.argmax(score).reshape(1)
             else:
-                flags = {k: torch.where(win, (lane_alive & v).sum(
-                    dtype=torch.int32), 0) for k, v in flags.items()}
-            row.update(flags)
-        _write_outs(outs, e, row)
-        # the new carry goes into the carry's own tensors (every value above
-        # is a fresh tensor; the caches were written in place)
-        for k, v in new.items():
-            _tree_copy_(carry[k], v)
-        if guards:
-            for k, v in flags.items():
-                carry["guards"][k].add_(v)
-        _copy_state_(agg, state, new_state)
-        carry["e"].add_(1)
+                # Gumbel top-k: the tick's K distinct clients in sampling
+                # order
+                js = torch.topk(score, K).indices
+            tau_req = torch.floor(xs["tau_raw"].index_select(0, e)).int()
+            if guards:
+                # injected over-stale requests (clamped below for the read)
+                f_kind = xs["fault_kind"].index_select(0, e).reshape(-1)
+                tau_req = torch.where(f_kind == FAULT_OVERSTALE,
+                                      tau_max + 1, tau_req.reshape(-1))
+            taus = torch.minimum(tau_req.reshape(-1),
+                                 torch.clamp(n_upd, max=tau_max))
+        with span("tick.ring_read"):
+            stale = rd_rings(carry["ring"], carry["cursor"], taus)
+        with span("tick.payload"):
+            payloads, losses = payload_fn(
+                stale, js, xs["noise"].index_select(0, e)[0])
+            del stale
+        with span("tick.rule"):
+            if guards:
+                payloads, finite, do_clip = _guard_payloads(
+                    payloads, f_kind,
+                    xs["fault_scale"].index_select(0, e).reshape(-1),
+                    xs["clip_norm"])
+                reject = tau_req > tau_max
+                ok = finite & ~reject                          # (K,)
+            if K == 1:
+                # a frozen K = 1 tick still writes its row in place: keep
+                # the old one to restore (at K > 1 an all-invalid batch
+                # writes every row back bit-exactly, so nothing needs
+                # saving)
+                saved = _save_rows(state, js)
+                # a quarantined or rejected arrival is undone the same way
+                proc = any_alive & ok[0] if guards else any_alive
+                new_state, u, emit, lr_scale = agg.step(
+                    state, Arrival(js, tree_map(lambda p: p[0], payloads), t,
+                                   taus[0]))
+                loss = losses[0]
+            else:
+                saved = {}
+                valid = lane_alive = ~gone[js]
+                if guards:          # each lane judged alone
+                    valid = lane_alive & ok
+                proc = valid.any()
+                new_state, u, emit, lr_scale = agg.step_batch(
+                    state, ArrivalBatch(js, payloads, t, taus, valid))
+                loss = (torch.where(valid, losses, 0.0).sum()
+                        / torch.clamp(valid.sum(), min=1))
+            emit = emit & (t < T) & proc
+            # frozen ticks perform no aggregator transition
+            new_state = _select_state(proc, new_state, state, saved)
+            n_upd_new = n_upd + emit.int()
+            found = []                      # the sanitize checks' results
+            if resync_every:
+                synced = agg.resync(new_state)
+                if synced is not new_state:
+                    do = emit & (torch.remainder(n_upd_new, resync_every)
+                                 == 0)
+                    if checks:
+                        found += sanitize.check_resync_agreement(
+                            new_state, synced, do)
+                    new_state = _resync_select(do, synced, new_state)
+        with span("tick.apply"):
+            eta = lr_of_t(t, xs["lr"]) * lr_scale
+            w = apply_update(carry["w"], u, eta, emit)
+        with span("tick.ring_write"):
+            _, cursor = ap_ring(carry["ring"], carry["cursor"], w, emit)
+        with span("tick.outs"):
+            if checks:
+                # at K > 1 only the lanes the batch applied (a quarantined
+                # lane carries its NaN)
+                applied = tree_map(
+                    lambda p: p[0] if K == 1 else torch.where(
+                        broadcast_lanes(valid, p), p, 0.0), payloads)
+                found += (sanitize.check_model_finite(w)
+                          + sanitize.check_payload_finite(applied, emit)
+                          + sanitize.check_cursor_bounds(cursor, S)
+                          + sanitize.check_aggregator_state(new_state, n))
+                if K > 1:
+                    found += (sanitize.check_batch_arrivals(js, taus, valid,
+                                                            n, tau_max)
+                              + sanitize.check_commit_batch(u, new_state,
+                                                            state, valid))
+                if mesh is not None:
+                    found = sanitize.agree(found, mesh)
+                sanitize.record(carry["checks"], found, carry["e"])
+            new = {"w": w, "n_upd": n_upd_new, "cursor": cursor,
+                   "t": torch.where(any_alive, t + emit.int(), thaw_t)}
+            if marks is not None:
+                new["snaps"], new["hits"] = snapshot_update(
+                    carry["snaps"], carry["hits"], marks, new["t"], emit,
+                    snap_part(w))
+            row = {"loss": loss, "emit": emit, "t": t, "unorm": unorm(u),
+                   "alive": any_alive}
+            if record_w:
+                row["w"] = w
+            if guards:
+                # only the live window counts (t < T, not frozen), so
+                # chunked totals equal one run's; K > 1 counts live lanes
+                win = (t < T) & any_alive
+                flags = {"quarantined": ~finite, "rejected": finite & reject,
+                         "clipped": ok & do_clip}
+                if K == 1:
+                    flags = {k: win & v[0] for k, v in flags.items()}
+                else:
+                    flags = {k: torch.where(win, (lane_alive & v).sum(
+                        dtype=torch.int32), 0) for k, v in flags.items()}
+                row.update(flags)
+            _write_outs(outs, e, row)
+        with span("tick.carry"):
+            # the new carry goes into the carry's own tensors (every value
+            # above is a fresh tensor; the caches were written in place)
+            for k, v in new.items():
+                _tree_copy_(carry[k], v)
+            if guards:
+                for k, v in flags.items():
+                    carry["guards"][k].add_(v)
+            _copy_state_(agg, state, new_state)
+            carry["e"].add_(1)
 
     out_dtypes = dict(_OUT_DTYPES)
     if guards:
@@ -828,17 +849,19 @@ def _staleness_feed(prog: _StalenessProgram, rand: StalenessRandomness,
 
 
 class _Runner(_TickRunner):
-    """``runner(randomness, payload_noise, lr, faults=None, clip_norm=0.0)
-    -> (w, state, outs, extras)``; see `make_staleness_runner`."""
+    """``runner(randomness, payload_noise, lr, faults=None, clip_norm=0.0,
+    eager=False) -> (w, state, outs, extras)``; see
+    `make_staleness_runner`."""
 
     def __call__(self, randomness: StalenessRandomness,
                  payload_noise: PayloadNoise, lr=0.0,
-                 faults: Optional[FaultSchedule] = None, clip_norm=0.0):
+                 faults: Optional[FaultSchedule] = None, clip_norm=0.0,
+                 eager: bool = False):
         streams, inputs = _staleness_feed(self.prog, randomness,
                                           payload_noise.ticks, lr, faults,
                                           clip_norm)
         ticks = self._run(randomness.n_events, streams, inputs,
-                          payload_noise.init)
+                          payload_noise.init, eager)
         carry, extras = ticks.carry, {}
         if self.prog.marks is not None:
             extras = {"snaps": self.prog.full_snaps(carry["snaps"]),
@@ -905,7 +928,15 @@ def make_staleness_runner(*, grad_fn: Callable, params0,
     ``graph=True`` on the CPU raises. A capture that fails raises: there is
     no eager fallback. The kernels' launch counters
     (`kernels.ops.launch_counts`) count the replayed launches and the
-    first tick's, not the capture's.
+    first tick's, not the capture's; ``runner.eager_ticks`` counts the
+    ticks run eagerly.
+
+    ``runner(..., eager=True)`` runs one call's ticks eagerly on the
+    runner's own buffers, on the card too, and keeps its graph for the
+    next call: the call to trace where the tick's time goes, since a
+    replay runs no host code and so carries none of the tick's spans
+    (`repro_torch.trace`). Its results equal a replayed call's bit for
+    bit.
 
     `mesh` runs the program over a ``("data", "model")`` mesh, one process
     a rank, each calling the runner with the same streams

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.sharding.rules import (guarded_spec, is_placed,
                                         row_parallel, shard)
+from repro_torch.trace import span
 
 
 def mamba_init(generator, cfg, dtype, device=None):
@@ -75,7 +76,15 @@ def ssd_chunked(x, a, Bm, Cm, cfg, init_state=None):
     a  (B, L, H)      log-decay per step (dt * A, negative)
     Bm, Cm (B, L, G, N)
     returns y (B, L, H, P), final_state (B, H, P, N)
+
+    Each call is the span ``ssd.chunked`` of a profiler's trace
+    (`repro_torch.trace`).
     """
+    with span("ssd.chunked"):
+        return _ssd_chunked(x, a, Bm, Cm, cfg, init_state)
+
+
+def _ssd_chunked(x, a, Bm, Cm, cfg, init_state):
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Hg = H // G

@@ -1597,6 +1597,104 @@ def test_ssm_hybrid_lm_tree_graph_run_matches_eager(cuda, name, K):
     assert all(bool(torch.isfinite(x).all()) for x in leaves(ref[0]))
 
 
+def _ssm_runner(device, E=8):
+    """The reduced Mamba-2 LM task of tests/test_torch_trace.py on the
+    card, its tree-layout runner (int8 cache and ring, ACE K = 1, graph on)
+    and its streams: (runner, rand, noise)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fl_tasks import make_lm_task
+    cfg = get_config("mamba2-780m").reduced(layers=2, d_model=64, vocab=128)
+    task = make_lm_task(cfg=cfg, n_clients=4, batch=2, seq=32,
+                        n_tokens=1 << 14, seed=0, device=device)
+    rand, noise = _streams(task.grad_fn, 4, 1, E, device)
+    runner = make_staleness_runner(
+        grad_fn=task.grad_fn, params0=task.params0,
+        aggregator=tagg.ACEIncremental(cache_dtype="int8"), n_clients=4,
+        T=16, beta=2.0, layout="tree", history_dtype="int8", device=device,
+        graph=True)
+    return runner, rand, noise
+
+
+_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+             "cudaGraphLaunch")
+
+
+def _traced_kernels(runner, rand, noise, tries=3):
+    """One call of `runner` under torch.profiler -> (its result, (device
+    operations of the trace, those a graph replay launched)); a user
+    annotation mirrored on the device is none. The profiler can drop
+    records (a card run dropped 21 device operations of one of six
+    calls), so a trace whose device operations and launching runtime
+    calls do not pair up by correlation id is retaken, `tries` times at
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            out = runner(rand, noise, 0.05)
+            torch.cuda.synchronize()
+        evs = list(prof.profiler.kineto_results.events())
+        cuda = torch.autograd.DeviceType.CUDA
+        launches = {e.correlation_id(): e.name() for e in evs
+                    if e.device_type() != cuda
+                    and e.name().startswith(_LAUNCHES)}
+        dev = [e for e in evs
+               if e.device_type() == cuda and not e.is_user_annotation()]
+        if set(launches) == {e.correlation_id() for e in dev}:
+            replays = sum(launches[e.correlation_id()].startswith(
+                "cudaGraphLaunch") for e in dev)
+            return out, (len(dev), replays)
+    raise AssertionError(f"each of {tries} traces lost a record")
+
+
+def test_graph_captured_under_a_profiler_is_the_same(cuda):
+    """A tick captured while torch.profiler runs (the spans of
+    `repro_torch.trace` then record host ranges) and one captured without
+    it record the same launch counts a tick, their replays run the same
+    number of device kernels, and their calls agree bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    plain, rand, noise = _ssm_runner(cuda)
+    under, _, _ = _ssm_runner(cuda)
+    plain(rand, noise, 0.05)
+    with profile(activities=acts):
+        under(rand, noise, 0.05)
+        torch.cuda.synchronize()
+    assert plain.captures == under.captures == 1
+    assert plain._ticks._per_tick == under._ticks._per_tick
+    assert plain._ticks._per_tick["quantize_rows"] > 0
+    out, kernels = {}, {}
+    for name, runner in (("plain", plain), ("under", under)):
+        out[name], kernels[name] = _traced_kernels(runner, rand, noise)
+    assert kernels["plain"] == kernels["under"]
+    assert kernels["plain"][1] > 0
+    _same_tree_result(out["plain"], out["under"])
+
+
+def test_eager_call_of_a_capturing_runner(cuda):
+    """``runner(..., eager=True)`` on a runner that captures: its ticks run
+    eagerly, the graph is kept (no capture more), the kernels launch as
+    often as the replays do, and the result equals a replayed call's bit
+    for bit; ``runner.eager_ticks`` counts the eager ticks alone."""
+    E = 8
+    runner, rand, noise = _ssm_runner(cuda, E)
+    ops.reset_launch_counts()
+    first = runner(rand, noise, 0.05)
+    assert runner.eager_ticks == 1          # the capture's warm-up tick
+    ops.reset_launch_counts()
+    eager = runner(rand, noise, 0.05, eager=True)
+    launched = ops.launch_counts()
+    assert runner.eager_ticks == 1 + E
+    ops.reset_launch_counts()
+    replayed = runner(rand, noise, 0.05)
+    assert runner.eager_ticks == 1 + E
+    assert ops.launch_counts() == launched
+    assert launched["quantize_rows"] > 0
+    assert runner.captures == 1
+    _same_tree_result(eager, replayed)
+    _same_tree_result(first, replayed)
+
+
 # --- the train stack (the AFL train step, checkpoints, the train driver) ---
 
 def _train_steps(device, cache_dtype, algo="ace", backend=None, steps=4):
